@@ -3,21 +3,34 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line with its elapsed seconds:
+Phases, each printing lines with the elapsed seconds:
   1. the card: name and power limit, from nvidia-smi;
-  2. the nvcc build of every kernel source in omni_avsr_tpu_torch/csrc/;
-  3. each kernel against its plain PyTorch version at the serving shapes,
-     with its time, the plain version's, a PyTorch library call's and the
-     card's lower bound for the same work;
+  2. the nvcc build of every kernel source in omni_avsr_tpu_torch/csrc/,
+     one nvcc per source, all started together;
+  3. each kernel against its plain PyTorch version at the shapes the
+     serving paths give it, with its time, the plain version's, a PyTorch
+     library call's and the card's lower bound for the same work:
+     B1 beam-decode attention (at the 6.4 s prefix and at the prefix of the
+     30 s-window requests below), B3 flash attention (Whisper's 30 s window,
+     AV-HuBERT, and causal / key-length / GQA / D 128 / lse / dropout
+     cases), B2 and B6 int8 and packed-int4 matmuls (every decode matrix,
+     the lm_head with f32 logits, a tower matrix);
   4. the full-width flagship (Whisper-medium, ResNet3D + AV-HuBERT-Large,
      Llama-3.2-1B with task-specific Omni-LoRA), random weights made on the
-     card from a seed;
-  5. serving: `Transcriber.transcribe_many` with int8 decode weights,
-     beam 15 and 32 new tokens answers 3 requests of 6.4 s audio plus 160
-     mouth frames; every kernel of the path must have launched, and the
-     beam-attention kernel exactly once per decoder layer per decode step;
-  6. a reference check on those inputs: the first decode steps of the
-     served model through the kernel and through the plain version agree.
+     card from a seed, served through `Transcriber.transcribe_many` with
+     beam 15 and 32 new tokens in three configurations:
+       (a) the default 30 s Whisper window, int8: 3 requests of 12.0, 11.2
+           and 10.4 s (300, 280, 260 frames);
+       (b) the bucketed window, int8: 3 requests of 6.4 s (160 frames);
+       (c) the bucketed window, packed int4 LLM and int8 towers: as (b).
+     For each, one warm batch and 5 measured ones (the median reported);
+     every kernel counter is set to 0 just before each measured batch,
+     read just after, and held to the count the path must give;
+  5. reference checks at full width: the prefill and the first decode
+     steps through the kernels and through the plain versions (int8 and
+     int4), and one Whisper layer at T = 1500 through B3 and through its
+     plain version;
+  6. where the device time goes, one profiled batch per configuration.
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -27,6 +40,7 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -38,15 +52,21 @@ import numpy as np
 T0 = time.perf_counter()
 DEV = "cuda"
 
-# B1 at the serving shapes: beams, new tokens, heads, head dim, prefix slots
-# (the 172-token audiovisual prefix of a 6.4 s clip, rounded up to 16)
-K, N, HQ, HKV, D, P = 15, 32, 32, 8, 64, 176
+# B1 at the serving shapes: beams, new tokens, heads, head dim, and the
+# prefix slots of the bucketed 6.4 s requests (172 tokens, rounded up to 16)
+K, N, HQ, HKV, D, P_BUCKET = 15, 32, 32, 8, 64, 176
 B_SERVE = 3  # the three requests decode as one batch
-# bf16 inputs and output; the kernel keeps the probabilities in f32 where
-# the plain version rounds them to bf16 before the value contraction
-B1_TOL = dict(atol=2e-2, rtol=2e-2)
+# bf16 inputs and outputs: the kernels keep probabilities or partial sums in
+# f32 where the plain versions round them to bf16 (or sum in another order)
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+F32_OUT_TOL = dict(atol=2e-3, rtol=2e-3)  # f32 logits of the lm_head
+REL_L2_TOL = 2e-2  # full-width routes, kernel vs plain
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16
+# the Llama-3.2-1B decode matrices (K, N); the lm_head is (2048, vocab)
+DECODE_MATS = [("qkv", 2048, 3072), ("o", 2048, 2048), ("gateup", 2048, 16384),
+               ("down", 8192, 2048)]
+TOWER_MAT = ("tower fc1", 4500, 1024, 4096)  # M = 3 x 1500 at the 30 s window
 
 
 def log(phase: str, msg: str) -> None:
@@ -55,7 +75,7 @@ def log(phase: str, msg: str) -> None:
 
 def time_ms(fn, flush, iters: int = 50) -> float:
     """Mean device time of one call, each call started with a cold L2 (the
-    decode loop streams the weights between two calls at one layer). A
+    serving loop streams other weights between two calls at one shape). A
     sleep kernel first holds the stream while the host queues every call,
     so the events bracket device work, not the host's launch overhead."""
     import torch
@@ -89,7 +109,17 @@ def host_ms(fn, iters: int = 50) -> float:
     return (time.perf_counter() - t) * 1e3 / iters
 
 
-def b1_inputs(B: int, step: int, seed: int):
+def bound_ms(nbytes: float, flops: float):
+    """The least time for the work: bytes over HBM bandwidth or operations
+    over the bf16 peak, whichever is larger, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# --------------------------------------------------------------------- B1
+
+
+def b1_inputs(B: int, P: int, step: int, seed: int):
     import torch
 
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -106,15 +136,15 @@ def b1_inputs(B: int, step: int, seed: int):
         gk=rn(B, HKV, K, N, D), gv=rn(B, HKV, K, N, D), k_cur=rn(BK, HKV, D), v_cur=rn(BK, HKV, D),
         prefix_bias=torch.where(prefix_mask, 0.0, -0.7 * torch.finfo(torch.float32).max).float(),
         anc=torch.randint(0, K, (B, K, N), generator=g, device=dev, dtype=torch.int32),
-    ), step
+    )
 
 
 def b1_bound_ms(inp, step: int) -> float:
-    """Least time for the same work: each input byte the result depends on
-    read once (the live generated entries only), the output written once,
-    over HBM bandwidth; the operations are ~1000x below the bf16 peak."""
+    """Each input byte the result depends on read once (the live generated
+    entries only), the output written once; the operations are ~1000x
+    below the bf16 peak."""
     q, anc = inp["q"], inp["anc"]
-    B = anc.shape[0]
+    B, P = anc.shape[0], inp["pk"].shape[2]
     live_rows = sum(len({(int(r), n) for n in range(step) for r in anc[b, :, n].tolist()})
                     for b in range(B))
     byte = 2
@@ -124,7 +154,7 @@ def b1_bound_ms(inp, step: int) -> float:
               + 2 * inp["k_cur"].numel() * byte           # current K and V
               + inp["prefix_bias"].numel() * 4 + anc.numel() * 4)
     flops = 4 * q.shape[0] * HQ * D * (P + step + 1)
-    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    return bound_ms(nbytes, flops)[0]
 
 
 def sdpa_on_reordered_cache(inp, step: int):
@@ -135,7 +165,7 @@ def sdpa_on_reordered_cache(inp, step: int):
     import torch.nn.functional as F
 
     q, anc = inp["q"], inp["anc"]
-    B = anc.shape[0]
+    B, P = anc.shape[0], inp["pk"].shape[2]
     BK = B * K
     G = HQ // HKV
     b_idx = torch.arange(B, device=DEV)[:, None, None]
@@ -159,7 +189,9 @@ def sdpa_on_reordered_cache(inp, step: int):
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=valid)
 
 
-def check_b1(flush):
+def check_b1(flush, P: int, batches=(1, B_SERVE, 4)):
+    """B1 against its plain version (and SDPA on the reordered cache) at
+    prefix P; returns the timed row at B 3, step 17."""
     import torch
 
     from omni_avsr_tpu_torch.ops.beam_attention import (
@@ -168,47 +200,268 @@ def check_b1(flush):
     )
 
     max_err, timed = 0.0, None
-    for B in (1, B_SERVE, 4):
+    for B in batches:
         for step in (0, 17, 31):
-            inp, step = b1_inputs(B, step, seed=100 * B + step)
+            inp = b1_inputs(B, P, step, seed=100 * B + step + P)
             out = beam_decode_attention(**inp, step=step, num_beams=K)
             ref = beam_decode_attention_plain(**inp, step=step, num_beams=K)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
-            torch.testing.assert_close(out.float(), ref.float(), **B1_TOL)
+            torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
             sdpa = sdpa_on_reordered_cache(inp, step)().reshape(out.shape)
-            torch.testing.assert_close(out.float(), sdpa.float(), **B1_TOL)
+            torch.testing.assert_close(out.float(), sdpa.float(), **BF16_TOL)
             max_err = max(max_err, err)
+            if B != B_SERVE or step != 17:
+                continue
             kernel = lambda: beam_decode_attention(**inp, step=step, num_beams=K)  # noqa: E731
-            row = dict(B=B, step=step, max_abs_err=err, ms=time_ms(kernel, flush),
-                       host_ms=host_ms(kernel),
-                       plain_ms=time_ms(lambda: beam_decode_attention_plain(
-                           **inp, step=step, num_beams=K), flush),
-                       library_ms=time_ms(sdpa_on_reordered_cache(inp, step), flush),
-                       bound_ms=b1_bound_ms(inp, step))
-            log("B1", json.dumps(row))
-            if B == B_SERVE and step == 17:
-                timed = row
+            timed = dict(P=P, B=B, step=step, ms=time_ms(kernel, flush), host_ms=host_ms(kernel),
+                         plain_ms=time_ms(lambda: beam_decode_attention_plain(
+                             **inp, step=step, num_beams=K), flush),
+                         library_ms=time_ms(sdpa_on_reordered_cache(inp, step), flush),
+                         bound_ms=b1_bound_ms(inp, step), bound_by="bytes")
     timed["max_abs_err"] = max_err
+    log("B1", f"kernel vs plain at P {P}, B {list(batches)} x step 0/17/31: max_abs_err "
+        f"{max_err:.3g} (tol atol/rtol 2e-2); timed at B 3 step 17: {json.dumps(timed)}")
     return timed
 
 
-def first_steps_agree(t, item, steps: int = 3) -> float:
-    """Reference check on served inputs: the first decode steps of the
-    full-width model, every layer's attention through the kernel and
-    through the plain version (same device, same inputs, tokens fed from
-    the kernel route). Returns the largest relative L2 logit difference."""
+# --------------------------------------------------------------------- B3
+
+
+def check_b3(flush):
+    """B3 against its plain version; the Whisper 30 s shapes and the
+    AV-HuBERT shape of configuration (a) timed against SDPA and the bound.
+    Returns the timed row of Whisper at B 3."""
+    import torch
+    import torch.nn.functional as F
+
+    from omni_avsr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    cases = [  # name, B, T, S, Hq, Hkv, D, options, timed
+        ("whisper pad30s B1", 1, 1500, 1500, 16, 16, 64, {}, True),
+        ("whisper pad30s B3", 3, 1500, 1500, 16, 16, 64, {}, True),
+        ("avhubert T 384 B3", 3, 384, 384, 16, 16, 64, {}, True),
+        ("causal", 2, 512, 512, 16, 16, 64, dict(causal=True), False),
+        ("kv_lengths", 3, 384, 384, 16, 16, 64, dict(kv_lengths=(384, 300, 257)), False),
+        ("GQA 32/8 D128 causal lse", 2, 300, 300, 32, 8, 128,
+         dict(causal=True, return_lse=True), False),
+        ("dropout 0.1 lse lengths", 2, 300, 300, 16, 16, 64,
+         dict(dropout_rate=0.1, dropout_seed=20261017, return_lse=True,
+              kv_lengths=(300, 201)), False),
+    ]
+    max_err, main_row = 0.0, None
+    for name, B, T, S, Hq, Hkv, Dh, opts, timed in cases:
+        g = torch.Generator(device=DEV).manual_seed(T + S + Hq + Dh)
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=g, device=DEV).to(torch.bfloat16)
+
+        q, k, v = rn(B, T, Hq, Dh), rn(B, S, Hkv, Dh), rn(B, S, Hkv, Dh)
+        if "kv_lengths" in opts:
+            opts = {**opts, "kv_lengths": torch.tensor(opts["kv_lengths"], dtype=torch.int32,
+                                                       device=DEV)}
+        out = flash_attention(q, k, v, **opts)
+        ref = flash_attention_plain(q, k, v, **opts)
+        torch.cuda.synchronize()
+        if opts.get("return_lse"):
+            (out, lse), (ref, ref_lse) = out, ref
+            torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+        if not bool(torch.isfinite(out.float()).all()):
+            raise RuntimeError(f"B3 {name}: non-finite output")
+        err = (out.float() - ref.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        max_err = max(max_err, err)
+        row = dict(case=name, B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, D=Dh, max_abs_err=err)
+        if timed:
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, out, k, v in bf16
+            row.update(
+                ms=time_ms(lambda: flash_attention(q, k, v), flush),
+                plain_ms=time_ms(lambda: flash_attention_plain(q, k, v), flush, iters=10),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), flush))
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4.0 * B * Hq * T * S * Dh)
+            if name == "whisper pad30s B3":
+                main_row = row
+        log("B3", json.dumps(row))
+    main_row["max_abs_err"] = max_err
+    return main_row
+
+
+# ---------------------------------------------------------------- B2, B6
+
+
+def check_qmm(flush, int4: bool, vocab: int):
+    """B2 (int8) or B6 (packed int4) against its plain version at every
+    decode matrix (M 45), the lm_head (f32 logits) and one tower matrix;
+    also timed: the route the port had before B2 (dequantise to f32, f32
+    torch.matmul) and, as the library yardstick, torch.matmul in bf16 on a
+    weight dequantised beforehand (it reads 2 bytes per weight where the
+    kernels read 1 or 1/2). Returns one decode step's sums: 16 layers x
+    (qkv, o, gateup, down) + the lm_head."""
+    import torch
+
+    from omni_avsr_tpu_torch.ops.quant import (
+        align_int8_columns,
+        pack_int4,
+        quantize_per_channel,
+        quantized_matmul,
+        quantized_matmul4,
+        quantized_matmul4_plain,
+        quantized_matmul_plain,
+    )
+
+    label = "B6" if int4 else "B2"
+    kernel = quantized_matmul4 if int4 else quantized_matmul
+    plain = quantized_matmul4_plain if int4 else quantized_matmul_plain
+    shapes = [(n, 45, k, nn) for n, k, nn in DECODE_MATS] + [("lm_head", 45, 2048, vocab)]
+    shapes.append(TOWER_MAT)
+    step = dict(ms=0.0, plain_ms=0.0, old_route_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                nbytes=0.0, flops=0.0)
+    max_err = 0.0
+    for name, M, Kd, Nd in shapes:
+        g = torch.Generator(device=DEV).manual_seed(M + Kd + Nd)
+        w = torch.randn(Kd, Nd, generator=g, device=DEV) * 0.02
+        x = torch.randn(M, Kd, generator=g, device=DEV).to(torch.bfloat16)
+        q = quantize_per_channel(w, bits=4 if int4 else 8)
+        del w
+        leaf = pack_int4(q) if int4 else align_int8_columns(q)  # the serving layout
+        out_dtype = torch.float32 if name == "lm_head" else None
+        out = kernel(x, leaf, out_dtype=out_dtype)
+        ref = plain(x, leaf, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **(F32_OUT_TOL if out_dtype else BF16_TOL))
+        max_err = max(max_err, err)
+        w_bf16 = (q["w"].float() * q["s"]).to(torch.bfloat16)
+        codes, s = q["w"], q["s"]
+        wbytes = Kd * Nd // 2 if int4 else Kd * Nd
+        nbytes = M * Kd * 2 + wbytes + Nd * 4 + M * Nd * (4 if out_dtype else 2)
+        flops = 2.0 * M * Kd * Nd
+        row = dict(shape=name, M=M, K=Kd, N=Nd, max_abs_err=err,
+                   ms=time_ms(lambda: kernel(x, leaf, out_dtype=out_dtype), flush),
+                   plain_ms=time_ms(lambda: plain(x, leaf, out_dtype=out_dtype), flush, iters=20),
+                   old_route_ms=time_ms(lambda: x.float() @ (codes.float() * s), flush, iters=20),
+                   library_ms=time_ms(lambda: x @ w_bf16, flush))
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        log(label, json.dumps(row))
+        if name != TOWER_MAT[0]:
+            reps = 1 if name == "lm_head" else 16
+            for key in ("ms", "plain_ms", "old_route_ms", "library_ms", "bound_ms"):
+                step[key] += reps * row[key]
+            step["nbytes"] += reps * nbytes
+            step["flops"] += reps * flops
+        del x, q, leaf, w_bf16, codes, out, ref
+    step["bound_by"] = bound_ms(step["nbytes"], step["flops"])[1]
+    step["max_abs_err"] = max_err
+    log(label, f"one decode step (16 x qkv, o, gateup, down + lm_head, M 45): kernel "
+        f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, old route (dequantise + f32 "
+        f"matmul) {step['old_route_ms']:.4f} ms, bf16 torch.matmul on a dequantised weight "
+        f"(2 bytes per weight) {step['library_ms']:.4f} ms, "
+        f"bound {step['bound_ms']:.4f} ms ({step['bound_by']}); max_abs_err {max_err:.3g}")
+    return step
+
+
+# --------------------------------------------------------------- serving
+
+
+def counters():
+    from omni_avsr_tpu_torch.ops.beam_attention import beam_decode_attention
+    from omni_avsr_tpu_torch.ops.flash_attention import flash_attention
+    from omni_avsr_tpu_torch.ops.quant import quantized_matmul, quantized_matmul4
+
+    return {"B1": beam_decode_attention, "B2": quantized_matmul, "B3": flash_attention,
+            "B6": quantized_matmul4}
+
+
+def make_items(frames, seed: int):
+    """Requests of `frames` mouth frames each (96x96 RGB) with 640 audio
+    samples per frame (16 kHz, 25 fps)."""
+    rng = np.random.RandomState(seed)
+    return [{"audio": (rng.randn(f * 640) * 0.1).astype("float32"),
+             "video": rng.randint(0, 255, (f, 96, 96, 3)).astype("uint8")} for f in frames]
+
+
+SERVE_REPEATS = 5  # measured batches per configuration: the host-bound wall time varies
+
+
+def serve(label: str, server, items, expected):
+    """One warm batch, then SERVE_REPEATS measured ones, each with every
+    kernel counter set to 0 just before it and read just after; the counts
+    must equal `expected(steps)` every time. Reports the median batch."""
+    import torch
+
+    server.transcribe_many(items)  # first use of this path's shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns = counters()
+    times = []
+    for _ in range(SERVE_REPEATS):
+        for fn in fns.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        texts = server.transcribe_many(items)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        launches = {name: fn.launches for name, fn in fns.items()}
+        steps = server.last_decode_steps
+        want = expected(steps)
+        if launches != want:
+            raise RuntimeError(f"serve {label}: kernel launches {launches}, expected {want} "
+                               f"for {steps} decode steps")
+        if len(texts) != len(items) or not all(isinstance(s, str) and s for s in texts):
+            raise RuntimeError(f"serve {label}: bad transcripts {texts!r}")
+    dt = float(np.median(times))
+    audio_s = sum(len(it["audio"]) for it in items) / 16000
+    row = dict(config=label, requests=len(items), audio_s=audio_s, batch_s=dt,
+               batch_s_each=times, s_per_request=dt / len(items), audio_s_per_s=audio_s / dt,
+               decode_steps=steps, launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("serve", json.dumps(row))
+    for i, s in enumerate(texts):
+        log("serve", f"{label} request {i}: {s[:120]}")
+    return row
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Route beam attention and the quantised matmuls of the LLM through
+    their plain versions (the reference side of the agreement checks)."""
+    import omni_avsr_tpu_torch.models.common as common_mod
+    import omni_avsr_tpu_torch.models.llm as llm_mod
+    from omni_avsr_tpu_torch.ops import quant
+    from omni_avsr_tpu_torch.ops.beam_attention import beam_decode_attention_plain
+
+    saved = [(llm_mod, "beam_decode_attention", beam_decode_attention_plain)]
+    for mod in (common_mod, llm_mod):
+        saved += [(mod, "quantized_matmul", quant.quantized_matmul_plain),
+                  (mod, "quantized_matmul4", quant.quantized_matmul4_plain)]
+    old = [(mod, name, getattr(mod, name)) for mod, name, _ in saved]
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in old:
+            setattr(mod, name, fn)
+
+
+def decode_agreement(t, item, steps: int = 2) -> float:
+    """Reference check on served inputs: the prefill and the first decode
+    steps of the full-width LLM through the kernels (B1 and B2 or B6) and
+    through their plain versions, on the same prefix, with the kernel
+    route's tokens fed to both. Returns the largest relative L2 logit
+    difference."""
     import torch
 
     import omni_avsr_tpu_torch.models.llm as llm_mod
-    from omni_avsr_tpu_torch.ops.beam_attention import beam_decode_attention_plain
     from omni_avsr_tpu_torch.ops.augment import audio_pipeline, video_pipeline
     from omni_avsr_tpu_torch.serve import pad_batch
 
     model, cfg = t.model, t.model.cfg.llm
     batch, trim = pad_batch([item], "audiovisual")
     arrays = {k: torch.as_tensor(v).to(DEV) for k, v in batch.items()}
-    worst = 0.0
+    logits = {}
     with torch.inference_mode():
         arrays["video"] = video_pipeline(arrays["video"], arrays["video_len"])
         arrays["audio"] = audio_pipeline(arrays["audio"], arrays["audio_len"])
@@ -221,37 +474,68 @@ def first_steps_agree(t, item, steps: int = 3) -> float:
         layers = llm_mod.unstack_layers(llm, cfg)
         positions = torch.cumsum(valid.long(), dim=1) - 1
         last = Pp - 1 - torch.argmax(valid.flip(1).int(), dim=1)
-        cache0 = llm_mod.KVCache.create(cfg, 1, Pp, dtype=model.dtype, device=DEV)
-        logits, cache0 = llm_mod.llm_prefill_masked(llm, cfg, prefix, valid, positions, last,
-                                                    cache0, "audiovisual", layers=layers)
-        caches = [llm_mod.AncSplitCache.from_prefill(cache0, Pp, K, N) for _ in range(2)]
-        anc = torch.arange(K, dtype=torch.int32, device=DEV)[None, :, None].expand(1, K, N).contiguous()
         n_valid = valid.sum(dim=1).repeat_interleave(K)
-        tok = torch.topk(logits[0], K).indices
-        kernel_fn = llm_mod.beam_decode_attention
-        for step in range(steps):
-            flat_idx = torch.roll(torch.arange(K, device=DEV), step)  # exercise ancestry
-            anc = llm_mod.update_ancestors(anc, flat_idx, step, K)
-            emb = llm_mod.embed_tokens(llm, tok[:, None], model.dtype)
-            outs = []
-            for route, cache in zip((kernel_fn, beam_decode_attention_plain), caches):
-                llm_mod.beam_decode_attention = route
-                try:
-                    lg, _ = llm_mod.llm_decode_step_beam_anc(
+        tokens = []
+        for route in ("kernel", "plain"):
+            with plain_route() if route == "plain" else contextlib.nullcontext():
+                cache0 = llm_mod.KVCache.create(cfg, 1, Pp, dtype=model.dtype, device=DEV)
+                lg, cache0 = llm_mod.llm_prefill_masked(llm, cfg, prefix, valid, positions, last,
+                                                        cache0, "audiovisual", layers=layers)
+                out = [lg]
+                cache = llm_mod.AncSplitCache.from_prefill(cache0, Pp, K, N)
+                anc = torch.arange(K, dtype=torch.int32, device=DEV)[None, :, None].expand(
+                    1, K, N).contiguous()
+                if route == "kernel":
+                    tokens.append(torch.topk(lg[0], K).indices)
+                for step in range(steps):
+                    flat_idx = torch.roll(torch.arange(K, device=DEV), step)  # exercise ancestry
+                    anc = llm_mod.update_ancestors(anc, flat_idx, step, K)
+                    emb = llm_mod.embed_tokens(llm, tokens[step][:, None], model.dtype)
+                    lg, cache = llm_mod.llm_decode_step_beam_anc(
                         llm, cfg, emb, step, n_valid, valid, cache, anc, K, "audiovisual",
                         layers=layers)
-                finally:
-                    llm_mod.beam_decode_attention = kernel_fn
-                outs.append(lg)
-            if not bool(torch.isfinite(outs[0]).all()):
-                raise RuntimeError(f"non-finite logits at decode step {step}")
-            rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
-            worst = max(worst, rel)
-            tok = outs[0].argmax(dim=-1)
+                    out.append(lg)
+                    if route == "kernel":
+                        tokens.append(lg.argmax(dim=-1))
+                logits[route] = out
+    worst = 0.0
+    for a, b in zip(logits["kernel"], logits["plain"]):
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError("non-finite logits on the kernel route")
+        worst = max(worst, ((a - b).norm() / b.norm()).item())
     return worst
 
 
-def profile_batch(server, items) -> None:
+def whisper_layer_agreement(t) -> float:
+    """One full-width Whisper layer (int8, B2 in its linears) at the 30 s
+    window's T = 1500, B 3: its attention through B3 and through the plain
+    version. Returns the relative L2 difference of the layer's output."""
+    import torch
+
+    import omni_avsr_tpu_torch.models.whisper as whisper_mod
+    from omni_avsr_tpu_torch.models.common import layer_slice
+    from omni_avsr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    cfg = t.model.cfg.whisper
+    layer = layer_slice(t.params["whisper"]["layers"], 0)
+    g = torch.Generator(device=DEV).manual_seed(7)
+    x = torch.randn(B_SERVE, 1500, cfg.hidden_size, generator=g, device=DEV).to(torch.bfloat16)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        y = whisper_mod._encoder_layer(layer, cfg, x)
+        if flash_attention.launches != before + 1:
+            raise RuntimeError("the Whisper layer at T 1500 did not launch B3")
+        whisper_mod.flash_attention = flash_attention_plain
+        try:
+            y_ref = whisper_mod._encoder_layer(layer, cfg, x)
+        finally:
+            whisper_mod.flash_attention = flash_attention
+    if not bool(torch.isfinite(y.float()).all()):
+        raise RuntimeError("non-finite Whisper layer output")
+    return ((y.float() - y_ref.float()).norm() / y_ref.float().norm()).item()
+
+
+def profile_batch(label: str, server, items) -> None:
     """Where the serving time goes: one more batch under torch.profiler,
     device kernels summed by name against the batch's wall time (which the
     profiler itself lengthens)."""
@@ -266,17 +550,17 @@ def profile_batch(server, items) -> None:
         wall_us = (time.perf_counter() - t) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log("profile", "the profiler saw no device activity: device time not measured")
+        log("profile", f"{label}: the profiler saw no device activity: device time not measured")
         return
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    log("profile", f"one batch of 3 under the profiler: {wall_us / 1e3:.1f} ms wall, device busy "
-        f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%, idle {100 - 100 * busy / wall_us:.1f}%), "
-        f"{len(kernels)} device activities")
+    log("profile", f"{label}: one batch under the profiler: {wall_us / 1e3:.1f} ms wall, device "
+        f"busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%, idle "
+        f"{100 - 100 * busy / wall_us:.1f}%), {len(kernels)} device activities")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        log("profile", f"{us / 1e3:8.2f} ms {100 * us / busy:5.1f}%  {name[:100]}")
+        log("profile", f"{label}: {us / 1e3:8.2f} ms {100 * us / busy:5.1f}%  {name[:100]}")
 
 
 def main() -> int:
@@ -290,8 +574,7 @@ def main() -> int:
     from omni_avsr_tpu_torch import kernels
     from omni_avsr_tpu_torch.bridge import init_params
     from omni_avsr_tpu_torch.models.omni import flagship
-    from omni_avsr_tpu_torch.ops.beam_attention import beam_decode_attention
-    from omni_avsr_tpu_torch.serve import Transcriber
+    from omni_avsr_tpu_torch.serve import Transcriber, pad_batch
 
     # f32 matmuls and convs in full f32 (the mel frontend); the rest is bf16
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -306,77 +589,95 @@ def main() -> int:
     sources = sorted(p.stem for p in kernels.CSRC.glob("*.cu"))
     t = time.perf_counter()
     kernels.build_all(sources)
-    log("build", f"nvcc {sources} in {time.perf_counter() - t:.2f} s")
+    log("build", f"nvcc {sources} in {time.perf_counter() - t:.2f} s (one nvcc per source, "
+        f"in parallel)")
+
+    # the three serving configurations' models and requests
+    model_a = flagship(tiny=False, whisper_input_mode="pad30s")
+    model_b = flagship(tiny=False, whisper_input_mode="bucket")
+    frames_a, frames_b = (300, 280, 260), (160, 160, 160)
+    items_a, items_b = make_items(frames_a, seed=1), make_items(frames_b, seed=0)
+    batch_a, trim_a = pad_batch(items_a, "audiovisual")
+    P_a = model_a.prefix_slots("audiovisual", 4, 2, trim_a, batch_a["video"].shape[1])
+    batch_b, trim_b = pad_batch(items_b, "audiovisual")
+    if model_b.prefix_slots("audiovisual", 4, 2, trim_b, batch_b["video"].shape[1]) != P_BUCKET:
+        raise RuntimeError("the bucketed requests' prefix is not the B1 check's P")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
-    b1 = check_b1(flush)
-    log("B1", f"kernel vs plain at the serving shapes: max_abs_err {b1['max_abs_err']:.3g} "
-        f"(tol atol/rtol 2e-2); B {B_SERVE} step 17: {b1['ms'] * 1e3:.1f} us on the device "
-        f"({b1['host_ms'] * 1e3:.1f} us per call from the host), plain "
-        f"{b1['plain_ms'] * 1e3:.1f} us, SDPA {b1['library_ms'] * 1e3:.1f} us, "
-        f"bound {b1['bound_ms'] * 1e3:.3f} us")
+    b1 = check_b1(flush, P_BUCKET)
+    check_b1(flush, P_a, batches=(B_SERVE,))  # the prefix configuration (a) serves
+    b3 = check_b3(flush)
+    vocab = model_a.cfg.llm.vocab_size
+    b2 = check_qmm(flush, int4=False, vocab=vocab)
+    b6 = check_qmm(flush, int4=True, vocab=vocab)
     del flush
+    torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    model = flagship(tiny=False)
-    params = init_params(model.cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    server = Transcriber(model, params, quantize="int8", device="cuda")
+    params = init_params(model_a.cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    server_a = Transcriber(model_a, params, quantize="int8", device="cuda")
+    server_b = Transcriber(model_b, params, quantize="int8", device="cuda")
+    server_c = Transcriber(model_b, params, quantize="int4", device="cuda")
     del params
     torch.cuda.synchronize()
-    n_params = sum(int(v.numel()) for v in _leaves(server.params))
-    log("model", f"flagship full width on the card, int8 decode weights: {n_params / 1e9:.3f} B "
-        f"parameters, {time.perf_counter() - t:.1f} s")
+    n_params = sum(int(v.numel()) for v in _leaves(server_a.params))
+    log("model", f"flagship full width on the card, three serving trees (int8 30 s window, int8 "
+        f"bucketed, int4 bucketed): {n_params / 1e9:.3f} B parameters in the int8 tree, "
+        f"{time.perf_counter() - t:.1f} s")
 
-    rng = np.random.RandomState(0)
-    frames, secs = 160, 6.4
-    items = [{"audio": (rng.randn(frames * 640) * 0.1).astype("float32"),
-              "video": rng.randint(0, 255, (frames, 96, 96, 3)).astype("uint8")}
-             for _ in range(3)]
-    t = time.perf_counter()
-    server.transcribe_many(items[:1])
-    torch.cuda.synchronize()
-    log("warmup", f"one request (first use of the card's libraries): {time.perf_counter() - t:.2f} s")
+    layers_llm = model_a.cfg.llm.num_layers
+    tower_b2 = 6 * (model_a.cfg.whisper.num_layers + model_a.cfg.avhubert.encoder_layers)
+    llm_mats = 4 * layers_llm + 1  # q|k|v, o, gate|up, down per layer, and the lm_head
+    tower_b3 = model_a.cfg.whisper.num_layers + model_a.cfg.avhubert.encoder_layers
+    # B2 (or B6) runs once per LLM matrix in the prefill and in every decode step
+    rows = {
+        "a": serve("(a) pad30s int8", server_a, items_a, lambda s: {
+            "B1": layers_llm * s, "B2": tower_b2 + llm_mats * (1 + s), "B3": tower_b3, "B6": 0}),
+        "b": serve("(b) bucket int8", server_b, items_b, lambda s: {
+            "B1": layers_llm * s, "B2": tower_b2 + llm_mats * (1 + s), "B3": 0, "B6": 0}),
+        "c": serve("(c) bucket int4", server_c, items_b, lambda s: {
+            "B1": layers_llm * s, "B2": tower_b2, "B3": 0, "B6": llm_mats * (1 + s)}),
+    }
 
-    torch.cuda.reset_peak_memory_stats()
-    beam_decode_attention.launches = 0
-    t = time.perf_counter()
-    texts = server.transcribe_many(items)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t
-    launches = beam_decode_attention.launches
-    steps = server.last_decode_steps
-    layers = model.cfg.llm.num_layers
-    if launches == 0 or launches != layers * steps:
-        raise RuntimeError(f"beam attention launched {launches} times, expected "
-                           f"{layers} layers x {steps} decode steps")
-    if len(texts) != 3 or not all(isinstance(s, str) and s for s in texts):
-        raise RuntimeError(f"bad transcripts: {texts!r}")
-    log("serve", f"3 requests x {secs} s as one batch: {dt:.3f} s, {dt / 3:.3f} s per request, "
-        f"{3 * secs / dt:.1f} audio-s/s; {steps} decode steps, B1 launches {launches} "
-        f"= {layers} x {steps}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for i, s in enumerate(texts):
-        log("serve", f"request {i}: {s[:160]}")
+    for label, server in (("int8 (B1, B2)", server_b), ("int4 (B1, B6)", server_c)):
+        rel = decode_agreement(server, items_b[0])
+        if rel > REL_L2_TOL:
+            raise RuntimeError(f"{label} logits: kernel vs plain relative L2 {rel:.3g}")
+        log("reference", f"{label}: prefill + 2 decode steps at full width, kernel vs plain "
+            f"route: relative L2 logit difference {rel:.3g} (tol {REL_L2_TOL})")
+    rel = whisper_layer_agreement(server_a)
+    if rel > REL_L2_TOL:
+        raise RuntimeError(f"Whisper layer at T 1500: B3 vs plain relative L2 {rel:.3g}")
+    log("reference", f"one full-width Whisper layer at T 1500, B 3: B3 vs plain attention: "
+        f"relative L2 difference {rel:.3g} (tol {REL_L2_TOL})")
 
-    rel = first_steps_agree(server, items[0])
-    if rel > 2e-2:
-        raise RuntimeError(f"decode-step logits: kernel vs plain relative L2 {rel:.3g} > 2e-2")
-    log("reference", f"first 3 decode steps at full width, kernel vs plain route: "
-        f"relative L2 logit difference {rel:.3g} (tol 2e-2)")
-    profile_batch(server, items)
+    profile_batch("(a) pad30s int8", server_a, items_a)
+    profile_batch("(b) bucket int8", server_b, items_b)
+    profile_batch("(c) bucket int4", server_c, items_b)
 
-    print(json.dumps({"kernels": [{
-        "name": "beam_decode_attention",
-        "route": "cuda",
-        "source": "omni_avsr_tpu_torch/csrc/beam_attention.cu",
-        "replaces": "omni_avsr_tpu/ops/beam_attention.py:51",
-        "launches": launches,
-        "max_abs_err": b1["max_abs_err"],
-        "ms": b1["ms"],
-        "plain_ms": b1["plain_ms"],
-        "bound_ms": b1["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": b1["library_ms"],
-    }]}), flush=True)
+    def entry(key, name, source, replaces, row, config, shape):
+        """The kernel's line: its launches in the configuration whose main
+        kernel it is, and in each configuration."""
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": rows[config]["launches"][key], "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": shape,
+                "launches_by_config": {c: r["launches"][key] for c, r in rows.items()}}
+
+    print(json.dumps({"kernels": [
+        entry("B1", "beam_decode_attention", "omni_avsr_tpu_torch/csrc/beam_attention.cu",
+              "omni_avsr_tpu/ops/beam_attention.py:51", b1, "b",
+              "per launch: B 3 x 15 beams, P 176, step 17"),
+        entry("B2", "quantized_matmul", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
+              "omni_avsr_tpu/ops/quant.py:54", b2, "b",
+              "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head"),
+        entry("B3", "flash_attention", "omni_avsr_tpu_torch/csrc/flash_attention.cu",
+              "omni_avsr_tpu/ops/flash_attention.py:58", b3, "a",
+              "per launch: Whisper 30 s window, B 3, 16 heads, T = S = 1500, D 64"),
+        entry("B6", "quantized_matmul4", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
+              "omni_avsr_tpu/ops/quant.py:156", b6, "c",
+              "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head"),
+    ]}), flush=True)
     log("done", f"{time.perf_counter() - T0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,8 +2,8 @@
 
 `params_from_numpy` carries a JAX parameter tree across (handed over as
 numpy arrays, e.g. from `jax.device_get`), leaf for leaf, into torch
-tensors: int8 codes and f32 scales stay bit-identical, and floating leaves
-can be cast to one dtype.
+tensors: int8 codes, packed-int4 bytes ({"w4": int8 or uint8}) and f32
+scales stay bit-identical, and floating leaves can be cast to one dtype.
 
 `init_params` builds the same tree shapes directly on the device with a
 `torch.Generator`, in the distributions of the JAX package's initialisers

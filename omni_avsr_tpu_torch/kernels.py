@@ -3,9 +3,10 @@ library with a C interface, loaded with ctypes.
 
 Each `csrc/<name>.cu` is compiled for sm_90a on first use into
 `build/torch_kernels/` at the repository root, under a file name that
-carries a hash of the source, so an edited source is rebuilt and an
-unchanged one is loaded as it is. `build_all` starts one `nvcc` per source
-at once. Nothing here runs at import time.
+carries a hash of the source and of the shared `csrc/*.cuh` headers, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+`build_all` starts one `nvcc` per source at once. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Iterable, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -37,7 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    """The library's path, keyed by the source and the shared headers."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -79,3 +86,19 @@ def load(name: str) -> ctypes.CDLL:
     per process: a loaded shared library stays loaded)."""
     build_all([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def check(name: str, t: torch.Tensor, shape, dtype) -> None:
+    """What every kernel wrapper asks of a tensor it hands to a kernel:
+    the shape and dtype the kernel reads, on a CUDA device, contiguous and
+    16-byte aligned (the kernels load 16 bytes at a time)."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_cuda:
+        raise ValueError(f"{name}: not on a CUDA device")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")

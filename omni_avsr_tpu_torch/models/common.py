@@ -4,7 +4,8 @@
 Models are plain functions over nested dicts of tensors, in the JAX
 package's layout: a linear weight is (in, out) and applies as `x @ w`;
 stacked layers carry a leading (L, ...) axis; weight-only int8 leaves are
-{"w": int8 (in, out), "s": f32 (out,)}.
+{"w": int8 (in, out), "s": f32 (out,)} and packed-int4 leaves
+{"w4": int8 (in, chunks, block_n/2), "s": f32 (out,)} (`ops/quant.py`).
 """
 
 from __future__ import annotations
@@ -13,30 +14,25 @@ from typing import Any, Dict
 
 import torch
 
+from ..ops.quant import quantized_matmul, quantized_matmul4
+
 Params = Dict[str, Any]
 
 
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w.astype(x.dtype) with an f32 result, the JAX package's
-    `preferred_element_type=jnp.float32` product: the operands' values
-    (bf16 activations, int8 codes) are exact in f32, so an f32 matmul over
-    them accumulates the same products."""
-    if w.dtype != torch.int8:
-        w = w.to(x.dtype)
-    return torch.matmul(x.float(), w.float())
-
-
 def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """p = {"w": (in, out)[, "b": (out,)]}, or an int8 leaf {"w", "s"[, "b"]}
-    whose per-channel scale applies to the f32 product
-    (`omni_avsr_tpu/models/common.py:42-47`). The int8 product is a
-    dequantise plus torch.matmul here; a hand-written int8 kernel replaces
-    it in a later slice."""
-    w = p["w"]
-    if w.dtype == torch.int8:
-        y = (matmul_f32(x, w) * p["s"].float()).to(x.dtype)
+    """p = {"w": (in, out)[, "b": (out,)]}; an int8 leaf {"w", "s"[, "b"]}
+    goes through `quantized_matmul` (B2) and a packed-int4 leaf
+    {"w4", "s"[, "b"]} through `quantized_matmul4` (B6), the per-channel
+    scale applied to the f32 accumulator
+    (`omni_avsr_tpu/models/common.py:30-47`); on CPU tensors both take
+    their plain versions."""
+    if "w4" in p or p["w"].dtype == torch.int8:
+        lead = x.shape[:-1]
+        xm = x.reshape(-1, x.shape[-1]).contiguous()
+        y = quantized_matmul4(xm, p) if "w4" in p else quantized_matmul(xm, p)
+        y = y.reshape(*lead, -1)
     else:
-        y = torch.matmul(x, w.to(x.dtype))
+        y = torch.matmul(x, p["w"].to(x.dtype))
     b = p.get("b")
     if b is not None:
         y = y + b.to(x.dtype)

@@ -26,8 +26,9 @@ from ..config import LLMConfig
 from ..ops.attention import NEG_INF, causal_mask, dot_product_attention
 from ..ops.beam_attention import beam_decode_attention
 from ..ops.norms import rms_norm
+from ..ops.quant import quantized_matmul, quantized_matmul4
 from ..ops.rope import apply_rope, rope_cos_sin
-from .common import Params, layer_slice, linear, matmul_f32
+from .common import Params, layer_slice, linear
 
 
 def unstack_layers(params: Params, cfg: LLMConfig) -> List[Params]:
@@ -81,16 +82,22 @@ def embed_tokens(params: Params, ids: torch.Tensor, dtype=torch.bfloat16) -> tor
 
 def lm_head(params: Params, cfg: LLMConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm + unembedding -> f32 logits. An explicit "lm_head" (the
-    int8 copy installed by ops/quant.py) wins over the tied embeddings."""
+    int8 or packed-int4 copy installed by ops/quant.py) wins over the tied
+    embeddings and goes through B2 or B6 with an f32 result
+    (`omni_avsr_tpu/models/llm.py:287-312`)."""
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
-    if "lm_head" in params:
-        w, scale = params["lm_head"]["w"], params["lm_head"].get("s")
+    head = params.get("lm_head")
+    if head is None:  # tied bf16 embeddings: bf16 operands, f32 product
+        w = params["embed"]["w"].t().to(x.dtype)
+        return torch.matmul(x.float(), w.float())
+    xm = x.reshape(-1, x.shape[-1]).contiguous()
+    if "w4" in head:
+        logits = quantized_matmul4(xm, head, out_dtype=torch.float32)
+    elif head["w"].dtype == torch.int8:
+        logits = quantized_matmul(xm, head, out_dtype=torch.float32)
     else:
-        w, scale = params["embed"]["w"].t(), None
-    logits = matmul_f32(x, w)
-    if scale is not None:
-        logits = logits * scale.float()
-    return logits
+        logits = torch.matmul(xm.float(), head["w"].to(x.dtype).float())
+    return logits.reshape(*x.shape[:-1], -1)
 
 
 class KVCache(NamedTuple):

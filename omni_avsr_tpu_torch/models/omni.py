@@ -71,6 +71,20 @@ class OmniAVSR:
         enc = compress(enc, rate, self.cfg.compression_mode)
         return project(params["video_proj"], enc, rate if self._per_rate else None)
 
+    def prefix_slots(self, modality: str, rate_audio: int, rate_video: int, trim: int,
+                     video_frames: int) -> int:
+        """The decode prefix's slot count, rounded up to 16 as the decoder
+        pads it, for a batch whose Whisper window is trimmed to `trim`
+        tokens and whose video is padded to `video_frames`: BOS, each
+        modality's tokens between its two delimiters, and the prompt
+        (`infer_prefix_masked`)."""
+        n = int(self.cfg.llm.family == "llama") + len(self.prompt_ids[modality])
+        if modality in ("audio", "audiovisual"):
+            n += 2 + trim // rate_audio
+        if modality in ("video", "audiovisual"):
+            n += 2 + video_frames // rate_video
+        return -(-n // 16) * 16
+
     def _embed_id(self, params: Params, tid: int, B: int, device) -> torch.Tensor:
         ids = torch.full((B, 1), tid, dtype=torch.long, device=device)
         return embed_tokens(params["llm"], ids, self.dtype)
@@ -122,11 +136,12 @@ class OmniAVSR:
         return torch.cat(blocks, dim=1), torch.cat(valids, dim=1)
 
 
-def flagship(tiny: bool, dtype=torch.bfloat16) -> OmniAVSR:
+def flagship(tiny: bool, dtype=torch.bfloat16, whisper_input_mode: str = "pad30s") -> OmniAVSR:
     """The flagship model of `__graft_entry__.py::_flagship`: Whisper-medium,
     ResNet3D + AV-HuBERT-Large and Llama-3.2-1B with task-specific
-    Omni-LoRA (tiny=False), or its narrow test geometry (tiny=True); with
-    the bucketed Whisper window of the serving bench."""
+    Omni-LoRA (tiny=False), or its narrow test geometry (tiny=True). The
+    Whisper window is the config's default 30 s one ("pad30s"), as there;
+    the serving bench passes "bucket" (`bench.py:54`)."""
     if tiny:
         tok = synthetic_tokenizer("llama", base_vocab=505)
         llm = LLMConfig(
@@ -151,5 +166,7 @@ def flagship(tiny: bool, dtype=torch.bfloat16) -> OmniAVSR:
             whisper=whisper_medium_en(),
             avhubert=avhubert_large(),
         )
-    cfg = dataclasses.replace(cfg, whisper_input_mode="bucket")
+    if whisper_input_mode not in ("pad30s", "bucket"):
+        raise ValueError(f"whisper_input_mode {whisper_input_mode!r}")
+    cfg = dataclasses.replace(cfg, whisper_input_mode=whisper_input_mode)
     return OmniAVSR(cfg, tok, dtype=dtype)

@@ -4,9 +4,10 @@ HF `WhisperModel.encoder`, used at `Omni_AVSR/modeling_OmniAVSR.py:59-62`):
   mel (B, F, 80) -> gelu(conv1d k3 s1 p1) -> gelu(conv1d k3 s2 p1)
   -> + sinusoidal positions -> N pre-LN layers -> final LayerNorm
 
-Attention is the plain `dot_product_attention` at every length (the JAX
-package's flash kernel runs only at T >= 512, which the bucketed serving
-window never reaches).
+Attention: on the card, at T >= 512 with head dim 64 or 128 (the 30 s
+window gives T = 1500), the flash kernel B3, as the JAX package routes it
+on the TPU (`omni_avsr_tpu/models/whisper.py:104`); otherwise, and on the
+CPU, the plain `dot_product_attention`.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from ..config import WhisperEncoderConfig
 from ..ops.attention import dot_product_attention
+from ..ops.flash_attention import flash_attention
 from ..ops.norms import layer_norm
 from .common import Params, layer_slice, linear
 
@@ -37,6 +39,9 @@ def conv1d_nwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, p
     return y.transpose(1, 2) + b.to(x.dtype)
 
 
+FLASH_MIN_T = 512  # the JAX tower's gate for the flash kernel
+
+
 def _encoder_layer(layer: Params, cfg: WhisperEncoderConfig, x: torch.Tensor) -> torch.Tensor:
     B, T, D = x.shape
     H = cfg.num_heads
@@ -46,7 +51,10 @@ def _encoder_layer(layer: Params, cfg: WhisperEncoderConfig, x: torch.Tensor) ->
     q = linear(h, attn["q"]).reshape(B, T, H, hd)
     k = linear(h, attn["k"]).reshape(B, T, H, hd)
     v = linear(h, attn["v"]).reshape(B, T, H, hd)
-    out = dot_product_attention(q, k, v)
+    if x.is_cuda and T >= FLASH_MIN_T and hd in (64, 128):
+        out = flash_attention(q, k, v)
+    else:
+        out = dot_product_attention(q, k, v)
     x = x + linear(out.reshape(B, T, D), attn["o"])
     h = layer_norm(x, layer["mlp_norm"]["scale"], layer["mlp_norm"]["bias"], cfg.layer_norm_eps)
     h = F.gelu(linear(h, layer["fc1"]))

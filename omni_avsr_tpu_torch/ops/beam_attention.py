@@ -21,6 +21,8 @@ import functools
 
 import torch
 
+from ..kernels import check, load
+
 NEG_INF = -1e30  # the TPU kernel's mask value for generated/current lanes
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
@@ -77,25 +79,10 @@ def beam_decode_attention_plain(
     return out.reshape(BK, 1, Hq, D)
 
 
-def _check(name: str, t: torch.Tensor, shape, dtype) -> None:
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if not t.is_cuda:
-        raise ValueError(f"{name}: not on a CUDA device")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: not 16-byte aligned")
-
-
 @functools.lru_cache(maxsize=1)
 def _launcher():
     """The kernel's C entry point, built and typed once per process."""
-    from .. import kernels
-
-    fn = kernels.load("beam_attention").beam_attention_launch
+    fn = load("beam_attention").beam_attention_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -119,15 +106,15 @@ def _launch(q, pk, pv, gk, gv, k_cur, v_cur, prefix_bias, anc, step, num_beams):
     if not 0 <= step <= N:
         raise ValueError(f"step {step} outside [0, {N}]")
     bf16 = torch.bfloat16
-    _check("q", q, (BK, 1, Hq, D), bf16)
-    _check("pk", pk, (B, Hkv, P, D), bf16)
-    _check("pv", pv, (B, Hkv, P, D), bf16)
-    _check("gk", gk, (B, Hkv, K, N, D), bf16)
-    _check("gv", gv, (B, Hkv, K, N, D), bf16)
-    _check("k_cur", k_cur, (BK, Hkv, D), bf16)
-    _check("v_cur", v_cur, (BK, Hkv, D), bf16)
-    _check("prefix_bias", prefix_bias, (B, P), torch.float32)
-    _check("anc", anc, (B, K, N), torch.int32)
+    check("q", q, (BK, 1, Hq, D), bf16)
+    check("pk", pk, (B, Hkv, P, D), bf16)
+    check("pv", pv, (B, Hkv, P, D), bf16)
+    check("gk", gk, (B, Hkv, K, N, D), bf16)
+    check("gv", gv, (B, Hkv, K, N, D), bf16)
+    check("k_cur", k_cur, (BK, Hkv, D), bf16)
+    check("v_cur", v_cur, (BK, Hkv, D), bf16)
+    check("prefix_bias", prefix_bias, (B, P), torch.float32)
+    check("anc", anc, (B, K, N), torch.int32)
     devices = {t.device for t in (q, pk, pv, gk, gv, k_cur, v_cur, prefix_bias, anc)}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")

@@ -8,8 +8,10 @@
     texts = t.transcribe_many([{"audio": wav16k, "video": frames}, ...])
 
 Per request: eval-mode preprocessing, the gap-tolerant multimodal prefix,
-one prefill, then beam search on the ancestor cache, whose attention is
-the hand-written beam-decode kernel on the card.
+one prefill, then beam search on the ancestor cache. On the card the
+hand-written kernels carry it: beam-decode attention (B1) in every decode
+step, the int8 or packed-int4 matmul (B2, B6) in every quantised linear,
+and flash attention (B3) in the towers at long windows.
 """
 
 from __future__ import annotations
@@ -106,16 +108,16 @@ class Transcriber:
         params: Params,
         num_beams: Optional[int] = None,
         max_new_tokens: Optional[int] = None,
-        quantize: Optional[str] = None,  # "int8": weight-only int8 decode weights
+        quantize: Optional[str] = None,  # "int8", or "int4" (packed LLM, int8 towers)
         device="cuda",
     ):
         self.model = model
         self.device = torch.device(device)
         self.params = merged_params(params, model.dtype, self.device)
         if quantize:
-            from .ops.quant import quantize_for_decode
+            from .ops.quant import align_int8_columns, quantize_for_decode
 
-            self.params = quantize_for_decode(self.params, quantize)
+            self.params = align_int8_columns(quantize_for_decode(self.params, quantize))
         self.num_beams = num_beams if num_beams is not None else model.cfg.num_beams
         self.max_new = max_new_tokens if max_new_tokens is not None else model.cfg.max_dec_tokens
         self.last_decode_steps = 0  # decode steps of the last batch
@@ -135,7 +137,9 @@ class Transcriber:
             prefix, key_valid = model.infer_prefix_masked(
                 self.params, proc, modality, rate_audio, rate_video, trim)
             B, P0, _ = prefix.shape
-            P = _round_up(P0, 16)
+            P = model.prefix_slots(modality, rate_audio, rate_video, trim,
+                                   batch["video"].shape[1] if "video" in batch else 0)
+            assert P == _round_up(P0, 16), (P, P0)
             prefix = torch.nn.functional.pad(prefix, (0, 0, 0, P - P0))
             key_valid = torch.nn.functional.pad(key_valid, (0, P - P0))
             lora_mod = modality if (cfg.llm.lora and cfg.llm.lora.task_specific) else None

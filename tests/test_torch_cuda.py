@@ -71,3 +71,103 @@ def test_beam_attention_wrapper_rejects_bad_input(cuda_device):
                               step=1, num_beams=3)
     with pytest.raises(ValueError, match="step"):
         beam_decode_attention(**inp, step=9, num_beams=3)
+
+
+# B2 and B6: bf16 x, an f32 accumulator on both sides; the kernel sums in
+# another order than the plain f32 product and rounds the result to bf16
+# (or returns f32), hence a bf16-level tolerance on the bf16 outputs.
+def _quant_inputs(M, K, N, device, seed, bits=8):
+    from omni_avsr_tpu_torch.ops.quant import quantize_per_channel
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(K, N, generator=g, device=device) * 0.05
+    x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+    return x, quantize_per_channel(w, bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,out_f32", [
+    (45, 2048, 3072, False),   # decode q|k|v (split-K)
+    (45, 8192, 2048, False),   # decode down (split-K)
+    (45, 2048, 8017, True),    # an odd width like the lm_head's 128261, f32 out
+    (528, 2048, 2048, False),  # prefill
+    (975, 1024, 4096, False),  # tower fc1, ragged M
+    (1, 64, 16, True),         # smallest
+])
+def test_quantized_matmul_kernel_matches_plain(cuda_device, M, K, N, out_f32):
+    from omni_avsr_tpu_torch.ops.quant import (
+        align_int8_columns,
+        quantized_matmul,
+        quantized_matmul_plain,
+    )
+
+    x, q = _quant_inputs(M, K, N, cuda_device, seed=M + N)
+    q = align_int8_columns(q)
+    out_dtype = torch.float32 if out_f32 else None
+    before = quantized_matmul.launches
+    out = quantized_matmul(x, q, out_dtype=out_dtype)
+    assert quantized_matmul.launches == before + 1
+    ref = quantized_matmul_plain(x, q, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == (M, N)
+    tol = dict(atol=1e-3, rtol=1e-3) if out_f32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,out_f32", [
+    (45, 2048, 3072, False),
+    (45, 2048, 1101, True),    # odd N, not a multiple of block_n: padded last chunk
+    (528, 2048, 16384, False),
+    (3, 128, 512, False),
+])
+def test_quantized_matmul4_kernel_matches_plain(cuda_device, M, K, N, out_f32):
+    from omni_avsr_tpu_torch.ops.quant import (
+        pack_int4,
+        quantized_matmul4,
+        quantized_matmul4_plain,
+    )
+
+    x, q = _quant_inputs(M, K, N, cuda_device, seed=M + K, bits=4)
+    q4 = pack_int4(q)
+    out_dtype = torch.float32 if out_f32 else None
+    before = quantized_matmul4.launches
+    out = quantized_matmul4(x, q4, out_dtype=out_dtype)
+    assert quantized_matmul4.launches == before + 1
+    ref = quantized_matmul4_plain(x, q4, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-3, rtol=1e-3) if out_f32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+# B3: bf16 in and out; the kernel keeps the running sums in f32 and rounds
+# the probabilities to bf16 once per key tile, the plain version once.
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,causal,lens,lse,rate", [
+    (1, 1500, 1500, 16, 16, 64, False, None, False, 0.0),   # Whisper pad30s
+    (2, 300, 300, 16, 16, 64, False, (300, 177), False, 0.0),  # AV-HuBERT, lengths
+    (2, 200, 200, 32, 8, 128, True, None, True, 0.0),       # causal, GQA, D 128, lse
+    (1, 130, 150, 4, 2, 64, True, (111,), True, 0.1),       # dropout, ragged tiles
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, B, T, S, Hq, Hkv, D, causal, lens,
+                                              lse, rate):
+    from omni_avsr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(T + S)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(torch.bfloat16)
+
+    q, k, v = rn(B, T, Hq, D), rn(B, S, Hkv, D), rn(B, S, Hkv, D)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda_device) if lens else None
+    kw = dict(causal=causal, kv_lengths=kv, return_lse=lse, dropout_rate=rate,
+              dropout_seed=1234 if rate else None)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if lse:
+        (out, out_lse), (ref, ref_lse) = out, ref
+        torch.testing.assert_close(out_lse, ref_lse, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)

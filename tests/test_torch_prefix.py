@@ -72,7 +72,7 @@ def test_infer_prefix_masked(monkeypatch, tiny_params, modality):
 
     jax_in_f32(monkeypatch)
     jm = jax_tiny_flagship()
-    pm = flagship(tiny=True, dtype=torch.float32)
+    pm = flagship(tiny=True, dtype=torch.float32, whisper_input_mode="bucket")
     items = clips((20, 33), seed=2)
     if modality != "audiovisual":
         items = [{modality: it[modality]} for it in items]

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from omni_avsr_tpu_torch.bridge import init_params, params_from_numpy
 from omni_avsr_tpu_torch.models.omni import flagship
+from tests.torch_parity import jax_tiny_flagship
 
 
 def _flat(tree, prefix=""):
@@ -69,3 +70,133 @@ def test_int8_linear(dtype):
     # f32: the same f32 products; bf16: one bf16 rounding of the output
     tol = 1e-5 if dtype == "float32" else 1e-2
     np.testing.assert_allclose(ours, ref, atol=tol, rtol=tol)
+
+
+# B2 and B6, plain versions against the JAX package's Pallas kernels in
+# interpret mode. f32 x: the sums run in another order on the two sides (and
+# the TPU int4 kernel folds an offset of 8 into the product and subtracts
+# 8 * rowsum(x) after), so the JAX int8 kernel test's tolerance is used
+# (`tests/test_quant.py:44`).
+QMM_TOL = dict(atol=2e-3, rtol=1e-2)
+
+
+def _quant_case(m, k, n, seed):
+    rng = np.random.RandomState(seed)
+    w = (rng.randn(k, n) * 0.05).astype(np.float32)
+    x = rng.randn(m, k).astype(np.float32)
+    return w, x
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 256, 384), (45, 200, 130), (7, 96, 612)])
+def test_quantized_matmul_plain_matches_jax(m, k, n):
+    from omni_avsr_tpu.ops.quant import quantize_per_channel as jqpc
+    from omni_avsr_tpu.ops.quant import quantized_linear_xla, quantized_matmul as jqmm
+    from omni_avsr_tpu_torch.ops.quant import (
+        align_int8_columns,
+        quantize_per_channel,
+        quantized_matmul,
+    )
+
+    w, x = _quant_case(m, k, n, seed=m + n)
+    jq = jqpc(jnp.asarray(w))
+    ref = np.asarray(jqmm(jnp.asarray(x), jq, block_m=64, block_n=128, block_k=128,
+                          interpret=True))
+    xla = np.asarray(quantized_linear_xla(jnp.asarray(x), jq))
+    before = quantized_matmul.launches
+    leaf = quantize_per_channel(torch.from_numpy(w))
+    ours = quantized_matmul(torch.from_numpy(x), leaf)
+    assert quantized_matmul.launches == before  # CPU tensors: the plain version
+    aligned = align_int8_columns(leaf)  # the serving layout: zero code columns to 16
+    assert aligned["w"].shape[-1] == -(-n // 16) * 16
+    torch.testing.assert_close(quantized_matmul(torch.from_numpy(x), aligned), ours,
+                               atol=0, rtol=0)
+    assert ours.shape == (m, n) and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), ref, **QMM_TOL)
+    np.testing.assert_allclose(ours.numpy(), xla, **QMM_TOL)
+
+
+@pytest.mark.parametrize("block_n,k,n", [(256, 64, 512), (256, 96, 612), (512, 32, 1100)])
+def test_pack_int4_bit_identical(block_n, k, n):
+    from omni_avsr_tpu.ops.quant import pack_int4 as jpack, quantize_per_channel as jqpc
+    from omni_avsr_tpu_torch.ops.quant import pack_int4, quantize_per_channel, unpack_int4
+
+    w = np.random.RandomState(k).randn(k, n).astype(np.float32)
+    jq4 = jpack(jqpc(jnp.asarray(w), bits=4), block_n=block_n)
+    q = quantize_per_channel(torch.from_numpy(w), bits=4)
+    q4 = pack_int4(q, block_n=block_n)
+    assert q4["w4"].dtype == torch.int8 and q4["w4"].shape == jq4["w4"].shape
+    np.testing.assert_array_equal(q4["w4"].numpy(), np.asarray(jq4["w4"]))
+    np.testing.assert_array_equal(q4["s"].numpy(), np.asarray(jq4["s"]))
+    np.testing.assert_array_equal(unpack_int4(q4["w4"], n).numpy(), q["w"].numpy())
+
+
+@pytest.mark.parametrize("m,k,n,out_f32", [(1, 128, 256, False), (5, 96, 612, True),
+                                           (45, 256, 300, True)])
+def test_quantized_matmul4_plain_matches_jax(m, k, n, out_f32):
+    from omni_avsr_tpu.ops.quant import pack_int4 as jpack, quantize_per_channel as jqpc
+    from omni_avsr_tpu.ops.quant import quantized_matmul4 as jqmm4
+    from omni_avsr_tpu_torch.ops.quant import pack_int4, quantize_per_channel, quantized_matmul4
+
+    w, x = _quant_case(m, k, n, seed=k + n)
+    out_dtype = jnp.float32 if out_f32 else None
+    ref = np.asarray(jqmm4(jnp.asarray(x), jpack(jqpc(jnp.asarray(w), bits=4), block_n=256),
+                           block_m=8, block_k=64, interpret=True, out_dtype=out_dtype))
+    q4 = pack_int4(quantize_per_channel(torch.from_numpy(w), bits=4), block_n=256)
+    before = quantized_matmul4.launches
+    ours = quantized_matmul4(torch.from_numpy(x), q4,
+                             out_dtype=torch.float32 if out_f32 else None)
+    assert quantized_matmul4.launches == before
+    assert ours.shape == (m, n)
+    np.testing.assert_allclose(ours.numpy(), ref, **QMM_TOL)
+
+
+def test_quantize_for_decode_int4_bit_identical():
+    """int4-RTN codes on the LLM, q|k|v and gate|up fused, then packed two
+    per byte; the towers int8, all as in the JAX package."""
+    from omni_avsr_tpu.ops.quant import quantize_for_decode as jq
+    from omni_avsr_tpu_torch.ops.quant import quantize_for_decode
+
+    model = flagship(tiny=True, dtype=torch.float32)
+    tree = _numpy_tree(init_params(model.cfg, torch.Generator().manual_seed(5), "cpu",
+                                   frozen_dtype=torch.float32))
+    ref = dict(_flat(jax.device_get(jq(jax.tree_util.tree_map(jnp.asarray, tree), "int4"))))
+    ours = dict(_flat(quantize_for_decode(params_from_numpy(tree, "cpu"), "int4")))
+    assert ours.keys() == ref.keys()
+    for path, r in ref.items():
+        o = ours[path].numpy()
+        assert o.dtype == r.dtype and o.shape == r.shape, path
+        np.testing.assert_array_equal(o, r, err_msg=path)
+    w4 = [p for p in ours if p.endswith(".w4")]
+    assert sorted(w4) == ["llm.layers.attn.o.w4", "llm.layers.attn.qkv.w4",
+                          "llm.layers.mlp.down.w4", "llm.layers.mlp.gateup.w4", "llm.lm_head.w4"]
+    assert sum(v.dtype == torch.int8 and not p.endswith(".w4") for p, v in ours.items()) == 12
+
+
+def test_int4_linear_and_lm_head():
+    """A packed leaf through `linear` (bias added after) and through
+    `lm_head` (f32 logits), against the JAX functions on the same leaf."""
+    from omni_avsr_tpu.models.common import linear as jlinear
+    from omni_avsr_tpu.models.llm import lm_head as jlm_head
+    from omni_avsr_tpu.ops.quant import pack_int4 as jpack, quantize_per_channel as jqpc
+    from omni_avsr_tpu_torch.models.common import linear
+    from omni_avsr_tpu_torch.models.llm import lm_head
+
+    rng = np.random.RandomState(9)
+    w = (rng.randn(128, 700) * 0.05).astype(np.float32)
+    b = rng.randn(700).astype(np.float32)
+    x = rng.randn(3, 5, 128).astype(np.float32)
+    jleaf = jpack(jqpc(jnp.asarray(w), bits=4))
+    leaf = params_from_numpy(jax.device_get(jleaf), "cpu")
+    ref = np.asarray(jlinear(jnp.asarray(x), {**jleaf, "b": jnp.asarray(b)}))
+    ours = linear(torch.from_numpy(x), {**leaf, "b": torch.from_numpy(b)})
+    np.testing.assert_allclose(ours.numpy(), ref, **QMM_TOL)
+
+    cfg = flagship(tiny=True).cfg.llm
+    jcfg = jax_tiny_flagship().cfg.llm
+    scale = np.ones(128, np.float32)
+    jp = {"final_norm": {"scale": jnp.asarray(scale)}, "lm_head": jleaf}
+    tp = {"final_norm": {"scale": torch.from_numpy(scale)}, "lm_head": leaf}
+    ref = np.asarray(jlm_head(jp, jcfg, jnp.asarray(x)))
+    ours = lm_head(tp, cfg, torch.from_numpy(x))
+    assert ours.dtype == torch.float32 and ours.shape == (3, 5, 700)
+    np.testing.assert_allclose(ours.numpy(), ref, **QMM_TOL)

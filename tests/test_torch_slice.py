@@ -50,7 +50,7 @@ def test_transcriber_matches_jax(monkeypatch, jax_model_and_params):
                         quantize="int8")
     jax_text = jt.transcribe_many(items)
 
-    pm = flagship(tiny=True, dtype=torch.float32)
+    pm = flagship(tiny=True, dtype=torch.float32, whisper_input_mode="bucket")
     pt = Transcriber(pm, params_from_numpy(params, "cpu"), num_beams=15, quantize="int8",
                      device="cpu")
     assert pt.max_new == 32

@@ -101,6 +101,25 @@ def test_avhubert_encode(tiny_tree, int8):
     np.testing.assert_allclose(ours.numpy(), ref, **TOWER_TOL)
 
 
+def test_avhubert_encode_lengths(tiny_tree):
+    """Eval with per-clip lengths: padded frames masked as keys, the masked
+    plain route (the card takes B3 with `kv_lengths` at T >= 256)."""
+    from omni_avsr_tpu.models.avhubert import avhubert_encode as jax_avhubert
+    from omni_avsr_tpu_torch.models.avhubert import avhubert_encode
+
+    cfg = tiny_tree[1].avhubert
+    jp = tiny_tree[0]["avhubert"]
+    video = np.random.RandomState(8).randn(2, 7, 88, 88, 1).astype(np.float32)
+    lengths = np.array([7, 4], np.int32)
+    jcfg = AVHubertConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+    ref = np.asarray(jax.jit(lambda p, x, n: jax_avhubert(p, jcfg, x, lengths=n))(
+        jax.tree_util.tree_map(jnp.asarray, jp), jnp.asarray(video), jnp.asarray(lengths)))
+    ours = avhubert_encode(params_from_numpy(jp, "cpu"), cfg, _t(video), lengths=_t(lengths))
+    np.testing.assert_allclose(ours.numpy(), ref, **TOWER_TOL)
+    unmasked = avhubert_encode(params_from_numpy(jp, "cpu"), cfg, _t(video))
+    assert not np.allclose(unmasked.numpy()[1], ours.numpy()[1], atol=1e-3)
+
+
 @pytest.mark.parametrize("op", ["layer_norm", "rms_norm", "batch_norm_inference"])
 def test_norms(op):
     import omni_avsr_tpu.ops.norms as jn
