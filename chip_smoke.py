@@ -8,13 +8,16 @@ Phases, each printing lines with the elapsed seconds:
   2. the nvcc build of every kernel source in omni_avsr_tpu_torch/csrc/,
      one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version at the shapes the
-     serving paths give it, with its time, the plain version's, a PyTorch
-     library call's and the card's lower bound for the same work:
-     B1 beam-decode attention (at the 6.4 s prefix and at the prefix of the
-     30 s-window requests below), B3 flash attention (Whisper's 30 s window,
-     AV-HuBERT, and causal / key-length / GQA / D 128 / lse / dropout
-     cases), B2 and B6 int8 and packed-int4 matmuls (every decode matrix,
-     the lm_head with f32 logits, a tower matrix);
+     serving and training paths give it, with its time, the plain
+     version's, a PyTorch library call's and the card's lower bound for
+     the same work: B1 beam-decode attention (at the 6.4 s prefix and at
+     the prefix of the 30 s-window requests below, with 15 beams and with
+     the one beam of greedy decoding), B3 flash attention (Whisper's 30 s
+     window, AV-HuBERT, and causal / key-length / GQA / D 128 / lse /
+     dropout cases), B4 flash backward (AV-HuBERT's training shape with
+     key lengths and dropout 0.1, the LLM's causal GQA shape), B2 and B6
+     int8 and packed-int4 matmuls (every decode matrix, the lm_head with
+     f32 logits, a tower matrix);
   4. the full-width flagship (Whisper-medium, ResNet3D + AV-HuBERT-Large,
      Llama-3.2-1B with task-specific Omni-LoRA), random weights made on the
      card from a seed, served through `Transcriber.transcribe_many` with
@@ -22,15 +25,26 @@ Phases, each printing lines with the elapsed seconds:
        (a) the default 30 s Whisper window, int8: 3 requests of 12.0, 11.2
            and 10.4 s (300, 280, 260 frames);
        (b) the bucketed window, int8: 3 requests of 6.4 s (160 frames);
-       (c) the bucketed window, packed int4 LLM and int8 towers: as (b).
-     For each, one warm batch and 5 measured ones (the median reported);
-     every kernel counter is set to 0 just before each measured batch,
-     read just after, and held to the count the path must give;
+       (c) the bucketed window, packed int4 LLM and int8 towers: as (b);
+     and (b) once more with greedy decoding (`num_beams=1`, B1 at K = 1).
+     For each, one warm batch and 5 measured ones (3 for greedy; the
+     median reported); every kernel counter is set to 0 just before each
+     measured batch, read just after, and held to the count the path must
+     give;
   5. reference checks at full width: the prefill and the first decode
      steps through the kernels and through the plain versions (int8 and
      int4), and one Whisper layer at T = 1500 through B3 and through its
      plain version;
-  6. where the device time goes, one profiled batch per configuration.
+  6. where the device time goes, one profiled batch per configuration;
+  7. training: `OmniEngine.train_step` on the full-width flagship (30 s
+     Whisper window, random weights from a seed, augmentation with a
+     babble bank made with numpy from a seed), 4 clips of 320 frames
+     (12.8 s) with 15-token transcripts, rates pinned to (4, 2) so that
+     both of B4's sites run (AV-HuBERT at T 320, the audiovisual task's LLM
+     sequence of ~350): one warm step and 3 measured ones, the B3 and B4
+     launches of each held to the count the path must give; then one
+     step's loss and trainable grads through the kernels and through the
+     plain B3/B4, with the same random draws.
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -119,7 +133,7 @@ def bound_ms(nbytes: float, flops: float):
 # --------------------------------------------------------------------- B1
 
 
-def b1_inputs(B: int, P: int, step: int, seed: int):
+def b1_inputs(B: int, P: int, step: int, seed: int, K: int = K):
     import torch
 
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -165,7 +179,7 @@ def sdpa_on_reordered_cache(inp, step: int):
     import torch.nn.functional as F
 
     q, anc = inp["q"], inp["anc"]
-    B, P = anc.shape[0], inp["pk"].shape[2]
+    B, K, P = anc.shape[0], anc.shape[1], inp["pk"].shape[2]
     BK = B * K
     G = HQ // HKV
     b_idx = torch.arange(B, device=DEV)[:, None, None]
@@ -189,9 +203,9 @@ def sdpa_on_reordered_cache(inp, step: int):
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=valid)
 
 
-def check_b1(flush, P: int, batches=(1, B_SERVE, 4)):
+def check_b1(flush, P: int, batches=(1, B_SERVE, 4), K: int = K):
     """B1 against its plain version (and SDPA on the reordered cache) at
-    prefix P; returns the timed row at B 3, step 17."""
+    prefix P with K beams; returns the timed row at B 3, step 17."""
     import torch
 
     from omni_avsr_tpu_torch.ops.beam_attention import (
@@ -202,7 +216,7 @@ def check_b1(flush, P: int, batches=(1, B_SERVE, 4)):
     max_err, timed = 0.0, None
     for B in batches:
         for step in (0, 17, 31):
-            inp = b1_inputs(B, P, step, seed=100 * B + step + P)
+            inp = b1_inputs(B, P, step, seed=100 * B + step + P + K, K=K)
             out = beam_decode_attention(**inp, step=step, num_beams=K)
             ref = beam_decode_attention_plain(**inp, step=step, num_beams=K)
             torch.cuda.synchronize()
@@ -220,7 +234,8 @@ def check_b1(flush, P: int, batches=(1, B_SERVE, 4)):
                          library_ms=time_ms(sdpa_on_reordered_cache(inp, step), flush),
                          bound_ms=b1_bound_ms(inp, step), bound_by="bytes")
     timed["max_abs_err"] = max_err
-    log("B1", f"kernel vs plain at P {P}, B {list(batches)} x step 0/17/31: max_abs_err "
+    timed["K"] = K
+    log("B1", f"kernel vs plain at P {P}, K {K}, B {list(batches)} x step 0/17/31: max_abs_err "
         f"{max_err:.3g} (tol atol/rtol 2e-2); timed at B 3 step 17: {json.dumps(timed)}")
     return timed
 
@@ -285,6 +300,93 @@ def check_b3(flush):
         log("B3", json.dumps(row))
     main_row["max_abs_err"] = max_err
     return main_row
+
+
+# --------------------------------------------------------------------- B4
+
+# the training phase's shapes: 4 clips of 320 frames; the audiovisual
+# task's LLM sequence is BOS + audio sos/eos around 650/4 tokens + video
+# sos/eos around 320/2 tokens + the 6-token prompt + 14 text tokens
+B_TRAIN, FRAMES_TRAIN, TOKENS_TRAIN = 4, 320, 15
+T_LLM_AV = 1 + (2 + 650 // 4) + (2 + FRAMES_TRAIN // 2) + 6 + (TOKENS_TRAIN - 1)
+
+
+def valid_pairs(T: int, S: int, causal: bool, lens) -> int:
+    """(query, key) pairs the masks leave, summed over the batch."""
+    total = 0
+    for n in lens:
+        if causal:
+            total += sum(min(i + 1, n) for i in range(T))
+        else:
+            total += T * n
+    return total
+
+
+def check_b4(flush):
+    """B4 against its plain version at the training phase's two shapes, both
+    timed against the backward of scaled_dot_product_attention (a
+    yardstick; the port never calls it) and the bound. Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from omni_avsr_tpu_torch.ops.flash_attention import flash_attention
+    from omni_avsr_tpu_torch.ops.flash_attention_bwd import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+
+    cases = [  # name, B, T, Hq, Hkv, causal, kv lengths, dropout
+        ("avhubert T 320 lengths dropout 0.1", B_TRAIN, FRAMES_TRAIN, 16, 16, False,
+         (320, 301, 280, 257), 0.1),
+        (f"llm causal T {T_LLM_AV} GQA 32/8", B_TRAIN, T_LLM_AV, 32, 8, True, None, 0.0),
+    ]
+    rows = []
+    for name, B, T, Hq, Hkv, causal, lens, rate in cases:
+        g = torch.Generator(device=DEV).manual_seed(T + Hq)
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=g, device=DEV).to(torch.bfloat16)
+
+        q, k, v, do = rn(B, T, Hq, D), rn(B, T, Hkv, D), rn(B, T, Hkv, D), rn(B, T, Hq, D)
+        kv = torch.tensor(lens, dtype=torch.int32, device=DEV) if lens else None
+        kw = dict(causal=causal, kv_lengths=kv, dropout_rate=rate,
+                  dropout_seed=20261017 if rate else None)
+        o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        want = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for label, x, y in zip(("dq", "dk", "dv"), got, want):
+            if not bool(torch.isfinite(x.float()).all()):
+                raise RuntimeError(f"B4 {name}: non-finite {label}")
+            torch.testing.assert_close(x.float(), y.float(), **BF16_TOL)
+            errs[label] = (x.float() - y.float()).abs().max().item()
+        # the library yardstick: SDPA's backward at the same shape and masks
+        qh, kh, vh = (t.transpose(1, 2).detach().clone().requires_grad_(True) for t in (q, k, v))
+        mask = None
+        if lens:
+            mask = (torch.arange(T, device=DEV)[None, :] < kv[:, None])[:, None, None, :]
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=rate,
+                                             is_causal=causal, enable_gqa=Hq != Hkv)
+        doh = do.transpose(1, 2)
+        n_lens = lens if lens else (T,) * B
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()  # q o do dq, k v dk dv
+        flops = 10.0 * D * Hq * valid_pairs(T, T, causal, n_lens)
+        row = dict(case=name, B=B, T=T, S=T, Hq=Hq, Hkv=Hkv, D=D, causal=causal,
+                   kv_lengths=list(lens) if lens else None, dropout=rate,
+                   max_abs_err=max(errs.values()), max_abs_err_each=errs,
+                   ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw), flush),
+                   plain_ms=time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do, lse, **kw),
+                                    flush, iters=10),
+                   library_ms=time_ms(lambda: torch.autograd.grad(
+                       out, (qh, kh, vh), doh, retain_graph=True), flush))
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        row["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        row["operations_bound_ms"] = flops / BF16_FLOPS * 1e3
+        log("B4", json.dumps(row))
+        rows.append(row)
+        profile_batch(f"B4 {name}", lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw))
+    return rows
 
 
 # ---------------------------------------------------------------- B2, B6
@@ -368,10 +470,11 @@ def check_qmm(flush, int4: bool, vocab: int):
 def counters():
     from omni_avsr_tpu_torch.ops.beam_attention import beam_decode_attention
     from omni_avsr_tpu_torch.ops.flash_attention import flash_attention
+    from omni_avsr_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd
     from omni_avsr_tpu_torch.ops.quant import quantized_matmul, quantized_matmul4
 
     return {"B1": beam_decode_attention, "B2": quantized_matmul, "B3": flash_attention,
-            "B6": quantized_matmul4}
+            "B4": flash_attention_bwd, "B6": quantized_matmul4}
 
 
 def make_items(frames, seed: int):
@@ -385,22 +488,23 @@ def make_items(frames, seed: int):
 SERVE_REPEATS = 5  # measured batches per configuration: the host-bound wall time varies
 
 
-def serve(label: str, server, items, expected):
-    """One warm batch, then SERVE_REPEATS measured ones, each with every
-    kernel counter set to 0 just before it and read just after; the counts
-    must equal `expected(steps)` every time. Reports the median batch."""
+def serve(label: str, server, items, expected, repeats: int = SERVE_REPEATS, **kw):
+    """One warm batch, then `repeats` measured ones, each with every kernel
+    counter set to 0 just before it and read just after; the counts must
+    equal `expected(steps)` every time. Reports the median batch. `kw` goes
+    to `transcribe_many` (e.g. num_beams=1)."""
     import torch
 
-    server.transcribe_many(items)  # first use of this path's shapes
+    server.transcribe_many(items, **kw)  # first use of this path's shapes
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fns = counters()
     times = []
-    for _ in range(SERVE_REPEATS):
+    for _ in range(repeats):
         for fn in fns.values():
             fn.launches = 0
         t = time.perf_counter()
-        texts = server.transcribe_many(items)
+        texts = server.transcribe_many(items, **kw)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         launches = {name: fn.launches for name, fn in fns.items()}
@@ -409,8 +513,10 @@ def serve(label: str, server, items, expected):
         if launches != want:
             raise RuntimeError(f"serve {label}: kernel launches {launches}, expected {want} "
                                f"for {steps} decode steps")
-        if len(texts) != len(items) or not all(isinstance(s, str) and s for s in texts):
+        if len(texts) != len(items) or not all(isinstance(s, str) for s in texts):
             raise RuntimeError(f"serve {label}: bad transcripts {texts!r}")
+        if kw.get("num_beams", 2) > 1 and not all(texts):
+            raise RuntimeError(f"serve {label}: an empty beam-search transcript {texts!r}")
     dt = float(np.median(times))
     audio_s = sum(len(it["audio"]) for it in items) / 16000
     row = dict(config=label, requests=len(items), audio_s=audio_s, batch_s=dt,
@@ -535,17 +641,178 @@ def whisper_layer_agreement(t) -> float:
     return ((y.float() - y_ref.float()).norm() / y_ref.float().norm()).item()
 
 
-def profile_batch(label: str, server, items) -> None:
-    """Where the serving time goes: one more batch under torch.profiler,
-    device kernels summed by name against the batch's wall time (which the
-    profiler itself lengthens)."""
+# --------------------------------------------------------------- training
+
+
+def train_batch(tok, B: int, frames: int, token_len: int, seed: int = 0):
+    """`__graft_entry__._batch`'s layout: B clips of `frames` raw 96x96 RGB
+    frames and 640 audio samples per frame, a padded transcript each."""
+    rng = np.random.RandomState(seed)
+    ids = tok.encode("hello world test")[:token_len]
+    ids = ids + [tok.pad_id] * (token_len - len(ids))
+    labels = [i if i != tok.pad_id else -100 for i in ids]
+    S = frames * 640
+    return {"tokens": np.asarray([ids] * B, np.int32), "labels": np.asarray([labels] * B, np.int32),
+            "audio": (rng.randn(B, S) * 0.05).astype(np.float32),
+            "audio_len": np.full((B,), S, np.int32),
+            "video": rng.randint(0, 255, (B, frames, 96, 96, 3)).astype(np.uint8),
+            "video_len": np.full((B,), frames, np.int32)}
+
+
+def llm_lengths(model, trim: int, rate_a: int, rate_v: int, frames: int, token_len: int):
+    """Each task's training sequence length (`OmniAVSR._assemble_task`)."""
+    n_a, n_v = 2 + trim // rate_a, 2 + frames // rate_v
+    return {m: 1 + (n_a if m != "video" else 0) + (n_v if m != "audio" else 0)
+            + len(model.prompt_ids[m]) + token_len - 1 for m in model.prompt_ids}
+
+
+@contextlib.contextmanager
+def plain_train_route():
+    """Route the trainable flash attention (B3 forward, B4 backward) and
+    Whisper's B3 through their plain versions."""
+    import omni_avsr_tpu_torch.models.whisper as whisper_mod
+    import omni_avsr_tpu_torch.ops.flash_attention_bwd as fab
+    from omni_avsr_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    swaps = [(whisper_mod, "flash_attention", flash_attention_plain),
+             (fab, "flash_attention", flash_attention_plain),
+             (fab, "flash_attention_bwd", fab.flash_attention_bwd_plain)]
+    old = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in old:
+            setattr(mod, name, fn)
+
+
+def train_launches(model, flash_tasks: int, video_layers: int):
+    """What one train step must launch: B3 in Whisper's layers (at T 1500,
+    forward only); B3 and B4 once each in every AV-HuBERT layer that runs
+    (layerdrop); in every LLM layer of a task whose sequence reaches the
+    flash gate, B3 twice (the checkpoint runs the forward again in the
+    backward) and B4 once; nothing else."""
+    n = flash_tasks * model.cfg.llm.num_layers
+    return {"B1": 0, "B2": 0, "B3": model.cfg.whisper.num_layers + video_layers + 2 * n,
+            "B4": video_layers + n, "B6": 0}
+
+
+def check_route_launches(route: str, used) -> None:
+    """The kernel route launched B3 and B4; the plain route launched neither."""
+    if (route == "plain") != (used["B3"] == used["B4"] == 0):
+        raise RuntimeError(f"{route} route launched {used}")
+
+
+def train_phase():
+    """The full-width three-task train step; returns (row, launches of one
+    measured step, the grad agreement row)."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.config import TrainConfig
+    from omni_avsr_tpu_torch.models.omni import flagship
+    from omni_avsr_tpu_torch.ops.attention import FLASH_MIN_T_TRAIN
+    from omni_avsr_tpu_torch.ops.audio_frontend import whisper_token_len
+    from omni_avsr_tpu_torch.train.engine import OmniEngine
+    from omni_avsr_tpu_torch.train.state import tree_leaves
+
+    t = time.perf_counter()
+    model = flagship(tiny=False)  # the 30 s Whisper window, as benchmarks/train_step.py
+    params = init_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    bank = (np.random.RandomState(1234).randn(10 * 16000) * 0.1).astype(np.float32)
+    engine = OmniEngine(model, params, TrainConfig(lr=1e-3), noise_bank=bank, seed=0,
+                        device=DEV)
+    del params
+    engine.sample_rates = lambda: (4, 2)  # both B4 sites: AV-HuBERT and the AV task's LLM
+    batch = train_batch(model.tok, B_TRAIN, FRAMES_TRAIN, TOKENS_TRAIN)
+    trim = -(-int(whisper_token_len(FRAMES_TRAIN * 640)) // 25) * 25
+    lengths = llm_lengths(model, trim, 4, 2, FRAMES_TRAIN, TOKENS_TRAIN)
+    if lengths["audiovisual"] != T_LLM_AV:
+        raise RuntimeError(f"the AV task's sequence is {lengths['audiovisual']}, not {T_LLM_AV}")
+    flash_tasks = [m for m, n in lengths.items() if n >= FLASH_MIN_T_TRAIN]
+    n_trainable = sum(int(v.numel()) for v in tree_leaves(engine.state.trainable))
+    log("train", f"engine on the card in {time.perf_counter() - t:.1f} s: {n_trainable / 1e6:.2f} M "
+        f"trainable parameters (f32 masters); LLM sequence lengths {lengths}, flash in "
+        f"{flash_tasks}; batch {B_TRAIN} x {FRAMES_TRAIN} frames, audio trim {trim}")
+    step = lambda: engine.train_step({**batch, "audio_trim_len": trim})  # noqa: E731
+    t = time.perf_counter()
+    warm = float(step())
+    log("train", f"warm step {time.perf_counter() - t:.2f} s, loss {warm:.4f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns = counters()
+    times, losses, launches_each, video_layers = [], [], [], []
+    for _ in range(3):
+        for fn in fns.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        loss = float(step())  # a host sync: the step has ended on the device
+        times.append(time.perf_counter() - t)
+        launches = {name: fn.launches for name, fn in fns.items()}
+        want = train_launches(model, len(flash_tasks), model.last_video_layers)
+        if launches != want:
+            raise RuntimeError(f"train step: kernel launches {launches}, expected {want} "
+                               f"({model.last_video_layers} AV-HuBERT layers ran)")
+        if not np.isfinite(loss):
+            raise RuntimeError(f"train step: loss {loss}")
+        losses.append(loss)
+        launches_each.append(launches)
+        video_layers.append(model.last_video_layers)
+    dt = float(np.median(times))
+    clip_s = B_TRAIN * FRAMES_TRAIN / 25.0
+    row = dict(config=f"train B {B_TRAIN} x {FRAMES_TRAIN} frames, pad30s", batch=B_TRAIN,
+               frames=FRAMES_TRAIN,
+               s_per_step=dt, s_per_step_each=times, train_audio_s_per_s=clip_s / dt,
+               losses=losses, warm_loss=warm, launches_each=launches_each,
+               avhubert_layers_run=video_layers,
+               launches=launches_each[-1], llm_lengths=lengths,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("train", json.dumps(row))
+    profile_batch("train step", step)
+
+    # reference check: one step's loss and grads, kernel route vs plain route,
+    # the same random draws (the engine's generator re-seeded on both)
+    arrays, trim_len = engine._arrays({**batch, "audio_trim_len": trim})
+    leaves = list(tree_leaves(engine.state.trainable))
+    result = {}
+    for route in ("kernel", "plain"):
+        with plain_train_route() if route == "plain" else contextlib.nullcontext():
+            for fn in fns.values():
+                fn.launches = 0
+            engine.generator.manual_seed(20261017)
+            total, _ = engine._loss(arrays, 4, 2, trim_len, is_train=True)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            flat = torch.cat([(torch.zeros_like(p) if g is None else g).float().reshape(-1)
+                              for p, g in zip(leaves, grads)])
+            check_route_launches(route, {name: fn.launches for name, fn in fns.items()})
+            result[route] = (total.item(), flat)
+    (lk, gk), (lp, gp) = result["kernel"], result["plain"]
+    rel = ((gk - gp).norm() / gp.norm()).item()
+    if not (np.isfinite(lk) and bool(torch.isfinite(gk).all())):
+        raise RuntimeError("non-finite loss or grads on the kernel route")
+    if rel > REL_L2_TOL or abs(lk - lp) > REL_L2_TOL * abs(lp):
+        raise RuntimeError(f"train step, kernel vs plain: loss {lk} vs {lp}, grads relative L2 "
+                           f"{rel:.3g}")
+    agree = dict(loss_kernel=lk, loss_plain=lp, grad_rel_l2=rel, grad_norm=gp.norm().item())
+    log("reference", f"one full-width train step, B3/B4 vs plain, same draws: {json.dumps(agree)} "
+        f"(tol {REL_L2_TOL})")
+    del engine
+    torch.cuda.empty_cache()
+    return row, agree
+
+
+def profile_batch(label: str, run) -> None:
+    """Where the time goes: one more call of `run` (a served batch, a train
+    step) under torch.profiler, device kernels summed by name against its
+    wall time (which the profiler itself lengthens)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        server.transcribe_many(items)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -606,7 +873,9 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     b1 = check_b1(flush, P_BUCKET)
     check_b1(flush, P_a, batches=(B_SERVE,))  # the prefix configuration (a) serves
+    b1_greedy = check_b1(flush, P_BUCKET, batches=(1, B_SERVE), K=1)  # greedy decoding
     b3 = check_b3(flush)
+    b4_rows = check_b4(flush)
     vocab = model_a.cfg.llm.vocab_size
     b2 = check_qmm(flush, int4=False, vocab=vocab)
     b6 = check_qmm(flush, int4=True, vocab=vocab)
@@ -632,11 +901,16 @@ def main() -> int:
     # B2 (or B6) runs once per LLM matrix in the prefill and in every decode step
     rows = {
         "a": serve("(a) pad30s int8", server_a, items_a, lambda s: {
-            "B1": layers_llm * s, "B2": tower_b2 + llm_mats * (1 + s), "B3": tower_b3, "B6": 0}),
+            "B1": layers_llm * s, "B2": tower_b2 + llm_mats * (1 + s), "B3": tower_b3, "B4": 0,
+            "B6": 0}),
         "b": serve("(b) bucket int8", server_b, items_b, lambda s: {
-            "B1": layers_llm * s, "B2": tower_b2 + llm_mats * (1 + s), "B3": 0, "B6": 0}),
+            "B1": layers_llm * s, "B2": tower_b2 + llm_mats * (1 + s), "B3": 0, "B4": 0,
+            "B6": 0}),
         "c": serve("(c) bucket int4", server_c, items_b, lambda s: {
-            "B1": layers_llm * s, "B2": tower_b2, "B3": 0, "B6": llm_mats * (1 + s)}),
+            "B1": layers_llm * s, "B2": tower_b2, "B3": 0, "B4": 0, "B6": llm_mats * (1 + s)}),
+        "greedy": serve("(b) bucket int8 greedy", server_b, items_b, lambda s: {
+            "B1": layers_llm * s, "B2": tower_b2 + llm_mats * (1 + s), "B3": 0, "B4": 0,
+            "B6": 0}, repeats=3, num_beams=1),
     }
 
     for label, server in (("int8 (B1, B2)", server_b), ("int4 (B1, B6)", server_c)):
@@ -651,9 +925,13 @@ def main() -> int:
     log("reference", f"one full-width Whisper layer at T 1500, B 3: B3 vs plain attention: "
         f"relative L2 difference {rel:.3g} (tol {REL_L2_TOL})")
 
-    profile_batch("(a) pad30s int8", server_a, items_a)
-    profile_batch("(b) bucket int8", server_b, items_b)
-    profile_batch("(c) bucket int4", server_c, items_b)
+    profile_batch("(a) pad30s int8", lambda: server_a.transcribe_many(items_a))
+    profile_batch("(b) bucket int8", lambda: server_b.transcribe_many(items_b))
+    profile_batch("(c) bucket int4", lambda: server_c.transcribe_many(items_b))
+    del server_a, server_b, server_c
+    torch.cuda.empty_cache()
+
+    rows["train"], train_agree = train_phase()
 
     def entry(key, name, source, replaces, row, config, shape):
         """The kernel's line: its launches in the configuration whose main
@@ -665,15 +943,22 @@ def main() -> int:
                 "launches_by_config": {c: r["launches"][key] for c, r in rows.items()}}
 
     print(json.dumps({"kernels": [
-        entry("B1", "beam_decode_attention", "omni_avsr_tpu_torch/csrc/beam_attention.cu",
-              "omni_avsr_tpu/ops/beam_attention.py:51", b1, "b",
-              "per launch: B 3 x 15 beams, P 176, step 17"),
+        {**entry("B1", "beam_decode_attention", "omni_avsr_tpu_torch/csrc/beam_attention.cu",
+                 "omni_avsr_tpu/ops/beam_attention.py:51", b1, "b",
+                 "per launch: B 3 x 15 beams, P 176, step 17"),
+         "one_beam": b1_greedy},
         entry("B2", "quantized_matmul", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
               "omni_avsr_tpu/ops/quant.py:54", b2, "b",
               "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head"),
         entry("B3", "flash_attention", "omni_avsr_tpu_torch/csrc/flash_attention.cu",
               "omni_avsr_tpu/ops/flash_attention.py:58", b3, "a",
               "per launch: Whisper 30 s window, B 3, 16 heads, T = S = 1500, D 64"),
+        {**entry("B4", "flash_attention_bwd", "omni_avsr_tpu_torch/csrc/flash_attention_bwd.cu",
+                 "omni_avsr_tpu/ops/flash_attention_bwd.py:44", b4_rows[1], "train",
+                 f"per launch (dq + dk/dv kernels): LLM causal, B 4, Hq 32 / Hkv 8, "
+                 f"T = S = {T_LLM_AV}, D 64; launches per train step"),
+         "cases": b4_rows, "replaces_also": "omni_avsr_tpu/ops/flash_attention_bwd.py:89",
+         "train_grad_agreement": train_agree},
         entry("B6", "quantized_matmul4", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
               "omni_avsr_tpu/ops/quant.py:156", b6, "c",
               "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head"),

@@ -5,6 +5,10 @@ numpy arrays, e.g. from `jax.device_get`), leaf for leaf, into torch
 tensors: int8 codes, packed-int4 bytes ({"w4": int8 or uint8}) and f32
 scales stay bit-identical, and floating leaves can be cast to one dtype.
 
+`split_trainable` turns such a tree into the port's training pair: f32
+trainable leaves and frozen leaves in one dtype (`train/state.py`), so
+that one JAX-initialised tree trains the same in both packages.
+
 `init_params` builds the same tree shapes directly on the device with a
 `torch.Generator`, in the distributions of the JAX package's initialisers
 (not the same numbers), for runs that need no JAX and no host-side copy
@@ -14,7 +18,7 @@ of the weights.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +44,19 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda", dtype: Optional[torch
     return {k: (params_from_numpy(v, device, dtype) if isinstance(v, dict)
                 else _to_tensor(v, device, dtype))
             for k, v in tree.items()}
+
+
+def split_trainable(tree: Dict[str, Any], predicate: Callable[[str], bool], device="cuda",
+                    frozen_dtype: Optional[torch.dtype] = torch.bfloat16
+                    ) -> Tuple[Optional[Params], Optional[Params]]:
+    """numpy tree -> (trainable leaves in f32, frozen leaves in
+    `frozen_dtype`) on `device`, split by the dotted-path `predicate`
+    (`OmniAVSR.trainable_predicate`)."""
+    from .train.state import split_params
+
+    trainable, frozen = split_params(tree, predicate)
+    return (params_from_numpy(trainable, device, torch.float32) if trainable else None,
+            params_from_numpy(frozen, device, frozen_dtype) if frozen else None)
 
 
 class _Init:

@@ -1,7 +1,7 @@
 """Typed configuration for the PyTorch port.
 
 A copy of the dataclasses of `omni_avsr_tpu/config.py` that the serving
-slice needs (the port imports nothing of the JAX package). Field names,
+and training slices need (the port imports nothing of the JAX package). Field names,
 defaults and the published geometries are the same, so a config built here
 describes the same model as its JAX twin.
 
@@ -100,9 +100,7 @@ def whisper_medium_en() -> WhisperEncoderConfig:
 
 @dataclass(frozen=True)
 class AVHubertConfig:
-    """AV-HuBERT video encoder (`av_hubert/avhubert/hubert.py:318-360`).
-    The training-mode fields are kept for a like-for-like config; the port
-    runs eval mode only."""
+    """AV-HuBERT video encoder (`av_hubert/avhubert/hubert.py:318-360`)."""
 
     encoder_embed_dim: int = 1024
     encoder_layers: int = 24
@@ -167,3 +165,20 @@ class OmniConfig:
     @property
     def video_rates(self) -> Tuple[int, ...]:
         return tuple(self.downsample_ratio_video)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer and schedule constants (`README.md:186-194`,
+    `lightning_OmniAVSR.py:152-157`)."""
+
+    lr: float = 1e-3
+    weight_decay: float = 0.1
+    betas: Tuple[float, float] = (0.9, 0.98)
+    warmup_epochs: float = 0.0
+    max_epochs: int = 8
+    grad_clip: float = 10.0
+    seed: int = 42
+    num_checkpoints_to_average: int = 4
+    log_every_steps: int = 50
+    checkpoint_dir: str = "checkpoints"

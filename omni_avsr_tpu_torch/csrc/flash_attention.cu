@@ -11,11 +11,8 @@
 //   - dropout zeroes probabilities after the softmax denominator l has
 //     been accumulated (torch's dropout(softmax(s)) @ v), scales the kept
 //     ones by 1 / (1 - rate) and rounds them to bf16 for the value product;
-//   - the keep mask is the TPU kernel's `_keep_mask`: a murmur3 finalizer
-//     over (q * seq_k + k) + h * 0x9E3779B9, xor the seed, where h is the
-//     flattened batch * Hq + head index, compared as a signed 32-bit value
-//     with round(rate * 2^32 - 2^31). It is computed in uint32_t, whose
-//     overflow wraps as XLA's int32 arithmetic does.
+//   - the keep mask is the TPU kernel's `_keep_mask`, in keep_mask.cuh,
+//     which the backward (flash_attention_bwd.cu) includes too.
 //
 // Design: one block of 4 warps per (64-query tile, batch * q-head); each
 // warp owns 16 query rows and keeps their q fragments in registers. The
@@ -42,6 +39,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "keep_mask.cuh"
 #include "mma_sm80.cuh"
 
 namespace {
@@ -50,17 +48,6 @@ constexpr int BQ = 64;    // query rows per block (4 warps x 16)
 constexpr int BKV = 64;   // keys per tile
 constexpr int THREADS = 128;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
-
-__device__ __forceinline__ bool keep_elem(uint32_t q, uint32_t k, uint32_t seq_k,
-                                          uint32_t h_mix, uint32_t seed, int32_t thresh) {
-  uint32_t x = q * seq_k + k + h_mix;
-  x ^= seed;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return (int32_t)x >= thresh;
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
@@ -191,7 +178,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
         if (dropout) {
           const int key = j0 + n * 8 + 2 * (lane & 3) + (e & 1);
           const int row = row0 + (e >> 1) * 8;
-          pv = keep_elem((uint32_t)row, (uint32_t)key, (uint32_t)S, h_mix, seed, thresh)
+          pv = port::keep_elem((uint32_t)row, (uint32_t)key, (uint32_t)S, h_mix, seed, thresh)
                    ? p * keep_scale
                    : 0.f;
         }

@@ -1,5 +1,12 @@
-"""Beam search on the ancestor route (port of `beam_search`, `beam_loop` and
-`topk_chunked` of `omni_avsr_tpu/decode/decoding.py`).
+"""Greedy decoding and beam search on the ancestor route (port of
+`greedy_decode`, `beam_search`, `beam_loop` and `topk_chunked` of
+`omni_avsr_tpu/decode/decoding.py`).
+
+Greedy takes the JAX package's kernel route: the split cache with one
+beam, every step through `llm_decode_step_beam_anc` (B1 on the card with
+K = 1), argmax, `pad_id` after EOS, and an early exit once every row has
+emitted EOS (checked per step here, per 8-step chunk there: the tokens
+are the same).
 
 HF `BeamSearchScorer` semantics, as the JAX package reproduces them
 (`modeling_OmniAVSR.py:308-323`, beams 15, 32 new tokens):
@@ -69,14 +76,14 @@ def topk_chunked(x: torch.Tensor, k: int, chunk: int = 128) -> Tuple[torch.Tenso
     return vals, idx
 
 
-class BeamOutput(NamedTuple):
-    tokens: torch.Tensor  # (B, max_new) best hypothesis, pad after it
+class DecodeOutput(NamedTuple):
+    tokens: torch.Tensor  # (B, max_new) generated ids (beam: the best hypothesis), pad after
     steps: int  # decode steps run (each ran every decoder layer once)
 
 
 def beam_loop(*, init_logits: torch.Tensor, state, step_fn, num_beams: int,
               vocab_size: int, max_new: int, eos_id: int, pad_id: int,
-              length_penalty: float = 1.0) -> BeamOutput:
+              length_penalty: float = 1.0) -> DecodeOutput:
     """Decoder-agnostic beam loop. step_fn(state, new_tok (B,K), flat_idx
     (B*K,), t) -> ((B, K, V) logits, state)."""
     B = init_logits.shape[0]
@@ -145,7 +152,61 @@ def beam_loop(*, init_logits: torch.Tensor, state, step_fn, num_beams: int,
     best_tokens = h_t[torch.arange(B, device=dev), best]
     best_len = h_l[torch.arange(B, device=dev), best]
     mask = torch.arange(max_new, device=dev)[None] < best_len[:, None]
-    return BeamOutput(torch.where(mask, best_tokens, torch.full((), pad_id, device=dev)), t)
+    return DecodeOutput(torch.where(mask, best_tokens, torch.full((), pad_id, device=dev)), t)
+
+
+def _prefill(params: Params, cfg: LLMConfig, prefix_embeds: torch.Tensor,
+             key_valid: torch.Tensor, modality: Optional[str], cache_dtype, layers):
+    """Gap-tolerant prefill of the (B, P) prefix: the (B, V) logits at each
+    row's last valid slot, the prefill cache and the (B,) number of valid
+    prefix tokens (the rope position of the first generated token)."""
+    B, P, _ = prefix_embeds.shape
+    n_valid = key_valid.sum(dim=1)
+    positions = torch.cumsum(key_valid.long(), dim=1) - 1
+    last_idx = P - 1 - torch.argmax(key_valid.flip(1).int(), dim=1)
+    cache0 = KVCache.create(cfg, B, P, dtype=cache_dtype, device=prefix_embeds.device)
+    logits0, cache0 = llm_prefill_masked(params, cfg, prefix_embeds, key_valid, positions,
+                                         last_idx, cache0, modality, layers=layers)
+    return logits0, cache0, n_valid
+
+
+def greedy_decode(
+    params: Params,
+    cfg: LLMConfig,
+    prefix_embeds: torch.Tensor,  # (B, P, H)
+    *,
+    key_valid: torch.Tensor,  # (B, P) bool gap-tolerant validity
+    max_new: int,
+    eos_id: int,
+    pad_id: int,
+    modality: Optional[str] = None,
+    cache_dtype=torch.bfloat16,
+) -> DecodeOutput:
+    """(B, max_new) argmax ids, `pad_id` after each row's EOS (the EOS
+    itself is kept). The decode step of the last token is not run: its
+    logits would pick nothing."""
+    B, P, _ = prefix_embeds.shape
+    dev = prefix_embeds.device
+    layers = unstack_layers(params, cfg)
+    logits, cache0, n_valid = _prefill(params, cfg, prefix_embeds, key_valid, modality,
+                                       cache_dtype, layers)
+    cache = AncSplitCache.from_prefill(cache0, P, 1, max_new)
+    anc = torch.zeros((B, 1, max_new), dtype=torch.int32, device=dev)  # K = 1: row 0 always
+    tokens = torch.full((B, max_new), pad_id, dtype=torch.long, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    steps = 0
+    for t in range(max_new):
+        tok = torch.argmax(logits, dim=-1)
+        tok = torch.where(done, torch.full_like(tok, pad_id), tok)
+        done = done | (tok == eos_id)
+        tokens[:, t] = tok
+        if t == max_new - 1 or bool(done.all()):
+            break
+        emb = embed_tokens(params, tok[:, None], prefix_embeds.dtype)
+        logits, cache = llm_decode_step_beam_anc(params, cfg, emb, t, n_valid, key_valid,
+                                                 cache, anc, 1, modality, layers=layers)
+        steps += 1
+    return DecodeOutput(tokens, steps)
 
 
 def beam_search(
@@ -161,7 +222,7 @@ def beam_search(
     modality: Optional[str] = None,
     length_penalty: float = 1.0,
     cache_dtype=torch.bfloat16,
-) -> BeamOutput:
+) -> DecodeOutput:
     """Prefill once per batch item (the prefix K/V is shared by all beams),
     then run the beam loop on the ancestor cache: no per-step reorder of
     the generated K/V, only of the (B, K, N) ancestor table."""
@@ -171,14 +232,8 @@ def beam_search(
     dtype = prefix_embeds.dtype
     dev = prefix_embeds.device
     layers = unstack_layers(params, cfg)
-
-    n_valid = key_valid.sum(dim=1)
-    positions = torch.cumsum(key_valid.long(), dim=1) - 1
-    rev_arg = torch.argmax(key_valid.flip(1).int(), dim=1)
-    last_idx = P - 1 - rev_arg
-    cache0 = KVCache.create(cfg, B, P, dtype=cache_dtype, device=dev)
-    logits0, cache0 = llm_prefill_masked(params, cfg, prefix_embeds, key_valid, positions,
-                                         last_idx, cache0, modality, layers=layers)
+    logits0, cache0, n_valid = _prefill(params, cfg, prefix_embeds, key_valid, modality,
+                                        cache_dtype, layers)
     n_valid_bk = n_valid.repeat_interleave(K)
     cache = AncSplitCache.from_prefill(cache0, P, K, max_new)
     anc0 = torch.arange(K, dtype=torch.int32, device=dev)[None, :, None].expand(B, K, max_new)

@@ -1,6 +1,12 @@
-"""Llama decoder with Omni-LoRA: the decode subset of
+"""Llama decoder with Omni-LoRA: the training and decode paths of
 `omni_avsr_tpu/models/llm.py` (reference `Omni_AVSR/Llama_LoRA.py`).
 
+  - `llm_backbone` runs the causal stack for training, each layer under
+    `torch.utils.checkpoint` when `remat` (the JAX package's "full" remat
+    policy); on the card, at T >= FLASH_MIN_T_TRAIN and head dim 64 or
+    128, its attention is the trainable flash kernel (B3 causal forward,
+    B4 backward), else dense with a causal mask; `llm_span_stats` puts
+    only the label-active span through the lm_head and the CE;
   - `llm_prefill_masked` runs the gap-tolerant prefix once and fills a
     static KV cache;
   - `llm_decode_step_beam_anc` is one beam step on the no-reorder ancestor
@@ -21,10 +27,13 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LLMConfig
-from ..ops.attention import NEG_INF, causal_mask, dot_product_attention
+from ..data.tokenizer import IGNORE_INDEX
+from ..ops.attention import FLASH_MIN_T_TRAIN, NEG_INF, causal_mask, dot_product_attention
 from ..ops.beam_attention import beam_decode_attention
+from ..ops.flash_attention_bwd import flash_attention_trainable
 from ..ops.norms import rms_norm
 from ..ops.quant import quantized_matmul, quantized_matmul4
 from ..ops.rope import apply_rope, rope_cos_sin
@@ -98,6 +107,77 @@ def lm_head(params: Params, cfg: LLMConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         logits = torch.matmul(xm.float(), head["w"].to(x.dtype).float())
     return logits.reshape(*x.shape[:-1], -1)
+
+
+def _decoder_layer(layer: Params, cfg: LLMConfig, x: torch.Tensor, cos: torch.Tensor,
+                   sin: torch.Tensor, mask: Optional[torch.Tensor], modality: Optional[str],
+                   flash_causal: bool) -> torch.Tensor:
+    """One pre-norm layer over the whole (B, T, H) sequence (training)."""
+    B, T, _ = x.shape
+    h = rms_norm(x, layer["input_norm"]["scale"], cfg.rms_norm_eps)
+    q, k, v = _qkv_with_lora(layer, cfg, h, modality)
+    q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q, k = apply_rope(q, k, cos, sin)
+    if flash_causal:
+        out = flash_attention_trainable(q, k, v, causal=True)
+    else:
+        out = dot_product_attention(q, k, v, mask=mask)
+    x = x + linear(out.reshape(B, T, cfg.q_dim), layer["attn"]["o"])
+    h = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
+    return x + _mlp_block(layer, h)
+
+
+def llm_backbone(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
+                 positions: torch.Tensor, modality: Optional[str] = None,
+                 remat: bool = True) -> torch.Tensor:
+    """The causal decoder stack over (B, T, H) embeddings at (B, T) rope
+    positions; returns the final hidden states before the final norm
+    (`omni_avsr_tpu/models/llm.py:316-372`, without its pipeline route).
+    With `remat` and grad enabled, each layer runs under
+    `torch.utils.checkpoint` (non-reentrant): its forward runs again in the
+    backward, flash kernel included (`maybe_remat`'s "full" policy,
+    `:390-409`)."""
+    B, T, _ = inputs_embeds.shape
+    cos, sin = rope_cos_sin(cfg, positions)
+    flash_causal = inputs_embeds.is_cuda and cfg.head_dim in (64, 128) and T >= FLASH_MIN_T_TRAIN
+    mask = None if flash_causal else causal_mask(T, T, device=inputs_embeds.device)
+    x = inputs_embeds
+    for layer in unstack_layers(params, cfg):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_decoder_layer, layer, cfg, x, cos, sin, mask, modality, flash_causal,
+                           use_reentrant=False)
+        else:
+            x = _decoder_layer(layer, cfg, x, cos, sin, mask, modality, flash_causal)
+    return x
+
+
+def token_ce_stats(logits: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (sum of -log p, valid-token count) for logits (B, N, V)
+    aligned 1:1 with targets (B, N); IGNORE_INDEX targets add exactly 0
+    (`:427-440`)."""
+    valid = targets != IGNORE_INDEX
+    safe = torch.where(valid, targets, torch.zeros_like(targets))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    token_lp = torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    total = torch.where(valid, -token_lp, torch.zeros_like(token_lp)).sum(dim=1)
+    return total, valid.sum(dim=1)
+
+
+def llm_span_stats(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
+                   labels: torch.Tensor, span: Tuple[int, int], modality: Optional[str] = None,
+                   remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shifted-CE stats over the label-active logits positions [t0, t1)
+    only: the backbone runs the whole sequence, the final norm, lm_head and
+    CE only the span (`:451-475`; exact, since the other positions' labels
+    are IGNORE_INDEX)."""
+    B, T, _ = inputs_embeds.shape
+    t0, t1 = span
+    positions = torch.arange(T, device=inputs_embeds.device)[None].expand(B, T)
+    x = llm_backbone(params, cfg, inputs_embeds, positions, modality, remat)
+    logits = lm_head(params, cfg, x[:, t0:t1])
+    return token_ce_stats(logits, labels[:, t0 + 1:t1 + 1])
 
 
 class KVCache(NamedTuple):

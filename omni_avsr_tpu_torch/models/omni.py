@@ -1,21 +1,26 @@
-"""The unified Omni-AVSR model on the decode path: encoders, matryoshka
-compression, projectors and the decode prefix (port of the serving half of
+"""The unified Omni-AVSR model: encoders, matryoshka compression,
+projectors, the three-task training forward and the decode prefix (port of
 `omni_avsr_tpu/models/omni.py`; reference `modeling_OmniAVSR.py:27-606`).
 
-Decode prefix (Llama): [BOS][<audio> A </audio>][<video> V </video>][prompt],
-per task. `infer_prefix_masked` keeps a static layout and masks each
-sample's feature slots past its own token count, so a batched decode keeps
-the reference's batch-size-1 semantics.
+Sequences (Llama), per task, with the task's subset of A and V:
+  train  : [BOS][<audio> A </audio>][<video> V </video>][prompt][text EOS]
+  labels : [bos ][-100 ...                                    ][text EOS]
+  infer  : [BOS][<audio> A </audio>][<video> V </video>][prompt]
+`infer_prefix_masked` keeps a static layout and masks each sample's feature
+slots past its own token count, so a batched decode keeps the reference's
+batch-size-1 semantics. `train_losses` is the unfused route; the fused
+three-task forward and `single_task_loss` are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..config import (
+    MODALITIES,
     AVHubertConfig,
     LLMConfig,
     LoRAConfig,
@@ -25,12 +30,12 @@ from ..config import (
     llama32_1b,
     whisper_medium_en,
 )
-from ..data.tokenizer import TokenizerBundle, synthetic_tokenizer
+from ..data.tokenizer import IGNORE_INDEX, TokenizerBundle, synthetic_tokenizer
 from ..ops.audio_frontend import log_mel_spectrogram, whisper_token_len
 from ..ops.pooling import compress
-from .avhubert import avhubert_encode
+from .avhubert import avhubert_encode, layers_to_run
 from .common import Params
-from .llm import embed_tokens
+from .llm import embed_tokens, llm_span_stats
 from .projector import project
 from .whisper import whisper_encode
 
@@ -50,6 +55,25 @@ class OmniAVSR:
             "video": tok.prompt_ids(cfg.prompt_video),
             "audiovisual": tok.prompt_ids(cfg.prompt_audiovisual),
         }
+        self.last_video_layers = 0  # AV-HuBERT layers the last video forward ran
+
+    def trainable_predicate(self, unfrozen_modules: Tuple[str, ...] = ("peft_llm", "lora_avhubert")
+                            ) -> Callable[[str], bool]:
+        """Path predicate of the trainable/frozen split (`_unfreeze_PETF`,
+        `modeling_OmniAVSR.py:234-260`; `omni_avsr_tpu/models/omni.py:87-118`):
+        projectors always train; the LLM's LoRA iff "peft_llm"; AV-HuBERT's
+        LoRA iff "lora_avhubert". (The JAX package's "full_llm" and
+        "full_towers", for its WER probe, are not ported.)"""
+
+        def pred(path: str) -> bool:
+            if path.startswith(("audio_proj", "video_proj")):
+                return True
+            if "peft_llm" in unfrozen_modules and path.startswith("llm.") and ".lora" in path:
+                return True
+            return ("lora_avhubert" in unfrozen_modules and path.startswith("avhubert.")
+                    and ".lora" in path)
+
+        return pred
 
     @property
     def _per_rate(self) -> bool:
@@ -66,8 +90,16 @@ class OmniAVSR:
         enc = compress(enc[:, :trim_len], rate, self.cfg.compression_mode)
         return project(params["audio_proj"], enc, rate if self._per_rate else None)
 
-    def encode_video(self, params: Params, video: torch.Tensor, rate: int) -> torch.Tensor:
-        enc = avhubert_encode(params["avhubert"], self.cfg.avhubert, video.to(self.dtype))
+    def encode_video(self, params: Params, video: torch.Tensor, rate: int,
+                     train_mode: bool = False,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, T//rate, d_llm) projected video tokens; `train_mode` runs the
+        ResNet's BN on batch statistics, `generator` AV-HuBERT's dropouts and
+        layerdrop (`models/avhubert.py`)."""
+        plan = layers_to_run(self.cfg.avhubert, generator)
+        self.last_video_layers = len(plan[0])
+        enc = avhubert_encode(params["avhubert"], self.cfg.avhubert, video.to(self.dtype),
+                              train_mode=train_mode, generator=generator, plan=plan)
         enc = compress(enc, rate, self.cfg.compression_mode)
         return project(params["video_proj"], enc, rate if self._per_rate else None)
 
@@ -134,6 +166,64 @@ class OmniAVSR:
             const_valid(self._embed_id(params, tok.video_eos_id, B, dev))
         const_valid(self._prompt_embeds(params, modality, B, dev))
         return torch.cat(blocks, dim=1), torch.cat(valids, dim=1)
+
+
+    def _assemble_task(self, params: Params, modality: str, av_parts: Tuple[torch.Tensor, ...],
+                       text_emb: torch.Tensor, labels: torch.Tensor):
+        """(embeds, labels with the IGNORE prefix, span) of one task's
+        training sequence, `span` the static [t0, t1) window of logits
+        positions whose shifted targets can be real
+        (`omni_avsr_tpu/models/omni.py:181-227`)."""
+        if self.cfg.llm.family != "llama":
+            raise NotImplementedError("the port trains the Llama layout only")
+        B, dev = text_emb.shape[0], text_emb.device
+        blocks = []
+        if modality in ("audio", "audiovisual"):
+            blocks += [self._embed_id(params, self.tok.audio_sos_id, B, dev), av_parts[0],
+                       self._embed_id(params, self.tok.audio_eos_id, B, dev)]
+        if modality in ("video", "audiovisual"):
+            blocks += [self._embed_id(params, self.tok.video_sos_id, B, dev), av_parts[-1],
+                       self._embed_id(params, self.tok.video_eos_id, B, dev)]
+        blocks.append(self._prompt_embeds(params, modality, B, dev))
+        prefix = torch.cat(blocks, dim=1)
+        P, Tt = prefix.shape[1], text_emb.shape[1]
+        # [BOS | prefix (P) | text (Tt-1)]: the first real target is labels[:, 1]
+        # at sequence index P + 1, so the logits span is [P, P + Tt - 1)
+        embeds = torch.cat([text_emb[:, :1], prefix, text_emb[:, 1:]], dim=1)
+        ignore = torch.full((B, P), IGNORE_INDEX, dtype=labels.dtype, device=dev)
+        lab = torch.cat([labels[:, :1], ignore, labels[:, 1:]], dim=1)
+        return embeds, lab, (P, P + Tt - 1)
+
+    def train_losses(self, params: Params, batch: Dict[str, torch.Tensor], rate_audio: int,
+                     rate_video: int, audio_trim_len: int, train_mode: bool = True,
+                     remat: bool = True,
+                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Three-task training forward: the matryoshka-weighted CE of each
+        task (`modeling_OmniAVSR.py:263-306`;
+        `omni_avsr_tpu/models/omni.py:233-280`, its unfused route). Batch:
+        preprocessed audio/audio_len/video, tokens and labels (B, Tt).
+        `train_mode` runs the ResNet's BN on batch statistics; `generator`
+        AV-HuBERT's dropouts and layerdrop."""
+        cfg, dtype = self.cfg, self.dtype
+        text_emb = embed_tokens(params["llm"], batch["tokens"].long(), dtype)
+        labels = batch["labels"]
+        # video first: its layer plan is a host sync (`layers_to_run`), which
+        # then waits for the preprocessing only, not for Whisper too
+        v = self.encode_video(params, batch["video"], rate_video, train_mode, generator).to(dtype)
+        a = self.encode_audio(params, batch["audio"], batch["audio_len"], rate_audio,
+                              audio_trim_len).to(dtype)
+        task_specific = bool(cfg.llm.lora and cfg.llm.lora.task_specific)
+        losses = {}
+        for i, m in enumerate(MODALITIES):
+            parts = {"audio": (a,), "video": (v,), "audiovisual": (a, v)}[m]
+            embeds, lab, span = self._assemble_task(params, m, parts, text_emb, labels)
+            total, count = llm_span_stats(params["llm"], cfg.llm, embeds, lab, span,
+                                          modality=m if task_specific else None, remat=remat)
+            loss = total.sum() / torch.clamp(count.sum(), min=1)
+            if cfg.matry_weights is not None:
+                loss = loss * cfg.matry_weights[i]
+            losses[m] = loss
+        return losses
 
 
 def flagship(tiny: bool, dtype=torch.bfloat16, whisper_input_mode: str = "pad30s") -> OmniAVSR:

@@ -1,11 +1,13 @@
-"""ResNet3D video frontend, eval mode (port of
-`omni_avsr_tpu/models/resnet3d.py`; AV-HuBERT's `ResEncoder`,
-`av_hubert/avhubert/resnet.py:35-169`).
+"""ResNet3D video frontend (port of `omni_avsr_tpu/models/resnet3d.py`;
+AV-HuBERT's `ResEncoder`, `av_hubert/avhubert/resnet.py:35-169`).
 
 Conv3d(1->64, k=(5,7,7), s=(1,2,2)) + BN + PReLU + MaxPool3d(k=(1,3,3),
 s=(1,2,2)) -> ResNet-18 trunk (BasicBlock x [2,2,2,2], PReLU) -> global
-average pool -> (B, T, 512). Channel-last layouts as in the JAX package;
-BatchNorms use their running statistics.
+average pool -> (B, T, 512). Channel-last layouts as in the JAX package.
+Eval mode folds the BatchNorms' running statistics into the convs; train
+mode (`train_mode=True`, the reference's frozen encoder in train()) runs
+them on batch statistics, one pass E[x^2] - E[x]^2 in f32 clamped at 0
+(`:34-53`), and, as there, does not update the running statistics.
 """
 
 from __future__ import annotations
@@ -23,10 +25,35 @@ def _prelu_vec(p: Params, name: str, cout: int, device) -> torch.Tensor:
     return p[name] if name in p else torch.zeros((cout,), device=device)
 
 
-def _basic_block(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
+def prelu(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Per-channel PReLU in x's dtype; channel is the last axis."""
+    a = a.to(x.dtype)
+    return torch.clamp(x, min=0) + a * torch.clamp(x, max=0)
+
+
+def batch_norm_train(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm over every axis but the last with the batch's statistics."""
+    axes = tuple(range(x.dim() - 1))
+    xf = x.float()
+    mean = xf.mean(dim=axes)
+    var = torch.clamp(xf.square().mean(dim=axes) - mean.square(), min=0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps) * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def _basic_block(p: Params, x: torch.Tensor, stride: int, train_mode: bool = False) -> torch.Tensor:
     cout = p["conv1"]["w"].shape[-1]
     a1 = _prelu_vec(p, "prelu1", cout, x.device)
     a2 = _prelu_vec(p, "prelu2", cout, x.device)
+    if train_mode:  # raw convs, BN on the batch, then the affine + PReLU epilogue
+        residual = x
+        if "downsample" in p:
+            r = reference_conv(x, p["downsample"]["conv"]["w"], stride, 0)
+            residual = batch_norm_train(r, p["downsample"]["bn"])
+        h = reference_conv(x, p["conv1"]["w"], stride, 1)
+        h = prelu(batch_norm_train(h, p["bn1"]), a1)
+        h = batch_norm_train(reference_conv(h, p["conv2"]["w"], 1, 1), p["bn2"])
+        return prelu(h + residual, a2)
     residual = x
     if "downsample" in p:
         sd, bd = bn_fold(p["downsample"]["bn"])
@@ -38,7 +65,7 @@ def _basic_block(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
                           residual=residual)
 
 
-def stem_pool(params: Params, video: torch.Tensor) -> torch.Tensor:
+def stem_pool(params: Params, video: torch.Tensor, train_mode: bool = False) -> torch.Tensor:
     """3D stem conv + BN + PReLU + MaxPool over (B, T, H, W, 1) frames;
     returns (B*T, H/4, W/4, 64). The stem is a Conv3d with "same" time
     padding, run in NCDHW."""
@@ -49,25 +76,29 @@ def stem_pool(params: Params, video: torch.Tensor) -> torch.Tensor:
                  stride=(1, 2, 2), padding=(2, 3, 3))  # (B, 64, T, H/2, W/2)
     x = x.permute(0, 2, 3, 4, 1)  # (B, T, H/2, W/2, 64)
     bn = stem["bn"]
-    x = batch_norm_inference(x, bn["scale"], bn["bias"], bn["mean"], bn["var"])
-    if "prelu" in stem:
-        a = stem["prelu"].to(x.dtype)
-        x = torch.clamp(x, min=0) + a * torch.clamp(x, max=0)
+    if train_mode:
+        x = batch_norm_train(x, bn)
     else:
-        x = torch.relu(x)
+        x = batch_norm_inference(x, bn["scale"], bn["bias"], bn["mean"], bn["var"])
+    x = prelu(x, stem["prelu"]) if "prelu" in stem else torch.relu(x)
     _, Tn, Hn, Wn, Cn = x.shape
     x = x.reshape(B * Tn, Hn, Wn, Cn).permute(0, 3, 1, 2)
     x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
     return x.permute(0, 2, 3, 1)
 
 
-def resnet3d_forward(params: Params, video: torch.Tensor) -> torch.Tensor:
+def trunk_layer(params: Params, name: str, x: torch.Tensor, train_mode: bool = False) -> torch.Tensor:
+    """One ResNet-18 layer (two BasicBlocks) over (B*T, H, W, C) frames."""
+    stride = 1 if name == "layer1" else 2
+    x = _basic_block(params[name]["b0"], x, stride, train_mode)
+    return _basic_block(params[name]["b1"], x, 1, train_mode)
+
+
+def resnet3d_forward(params: Params, video: torch.Tensor, train_mode: bool = False) -> torch.Tensor:
     """(B, T, H, W, 1) -> per-frame features (B, T, 512)."""
     B, T = video.shape[:2]
-    x = stem_pool(params, video)
+    x = stem_pool(params, video, train_mode)
     for name in ("layer1", "layer2", "layer3", "layer4"):
-        stride = 1 if name == "layer1" else 2
-        x = _basic_block(params[name]["b0"], x, stride)
-        x = _basic_block(params[name]["b1"], x, 1)
+        x = trunk_layer(params, name, x, train_mode)
     x = x.float().mean(dim=(1, 2)).to(x.dtype)  # AdaptiveAvgPool2d(1)
     return x.reshape(B, T, -1)

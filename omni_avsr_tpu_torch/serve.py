@@ -8,7 +8,9 @@
     texts = t.transcribe_many([{"audio": wav16k, "video": frames}, ...])
 
 Per request: eval-mode preprocessing, the gap-tolerant multimodal prefix,
-one prefill, then beam search on the ancestor cache. On the card the
+one prefill, then beam search on the ancestor cache (greedy decoding on
+the same cache with one beam when `num_beams <= 1`, as the JAX engine
+routes it). On the card the
 hand-written kernels carry it: beam-decode attention (B1) in every decode
 step, the int8 or packed-int4 matmul (B2, B6) in every quantised linear,
 and flash attention (B3) in the towers at long windows.
@@ -21,7 +23,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .decode.decoding import beam_search
+from .decode.decoding import beam_search, greedy_decode
 from .models.common import Params
 from .models.omni import OmniAVSR
 from .ops.audio_frontend import whisper_token_len
@@ -41,17 +43,10 @@ def bucket_ladder(n: int, base: int) -> int:
     return v
 
 
-def _trainable(path: str) -> bool:
-    """The leaves the JAX engine trains (projectors, LLM and AV-HuBERT
-    LoRA); its serving tree carries them in bf16."""
-    if path.startswith(("audio_proj", "video_proj")):
-        return True
-    return path.startswith(("llm.", "avhubert.")) and ".lora" in path
-
-
-def merged_params(params: Params, dtype, device) -> Params:
-    """The serving tree on `device`, its trainable leaves cast to the
-    compute dtype as the JAX engine's `merged_params` does."""
+def merged_params(params: Params, dtype, device, is_trainable) -> Params:
+    """The serving tree on `device`, the leaves `is_trainable` names (the
+    model's `trainable_predicate`) cast to the compute dtype, as the JAX
+    engine's `merged_params` does with its trainable tree."""
 
     def walk(node, prefix):
         out = {}
@@ -59,7 +54,7 @@ def merged_params(params: Params, dtype, device) -> Params:
             path = f"{prefix}.{k}" if prefix else k
             if isinstance(v, dict):
                 out[k] = walk(v, path)
-            elif _trainable(path) and v.is_floating_point():
+            elif is_trainable(path) and v.is_floating_point():
                 out[k] = v.to(device=device, dtype=dtype)
             else:
                 out[k] = v.to(device)
@@ -113,7 +108,8 @@ class Transcriber:
     ):
         self.model = model
         self.device = torch.device(device)
-        self.params = merged_params(params, model.dtype, self.device)
+        self.params = merged_params(params, model.dtype, self.device,
+                                    model.trainable_predicate())
         if quantize:
             from .ops.quant import align_int8_columns, quantize_for_decode
 
@@ -124,7 +120,8 @@ class Transcriber:
 
     def decode_ids(self, batch: Dict[str, np.ndarray], modality: str, rate_audio: int,
                    rate_video: int, trim: int, num_beams: int) -> torch.Tensor:
-        """Padded numpy batch -> (B, max_new) best-hypothesis ids."""
+        """Padded numpy batch -> (B, max_new) ids: the best beam hypothesis,
+        or the greedy ids when `num_beams <= 1`."""
         model, tok, cfg = self.model, self.model.tok, self.model.cfg
         dev = self.device
         arrays = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
@@ -143,10 +140,13 @@ class Transcriber:
             prefix = torch.nn.functional.pad(prefix, (0, 0, 0, P - P0))
             key_valid = torch.nn.functional.pad(key_valid, (0, P - P0))
             lora_mod = modality if (cfg.llm.lora and cfg.llm.lora.task_specific) else None
-            out = beam_search(
-                self.params["llm"], cfg.llm, prefix, key_valid=key_valid,
-                num_beams=num_beams, max_new=self.max_new, eos_id=tok.eos_id,
-                pad_id=tok.pad_id, modality=lora_mod, cache_dtype=model.dtype)
+            common = dict(key_valid=key_valid, max_new=self.max_new, eos_id=tok.eos_id,
+                          pad_id=tok.pad_id, modality=lora_mod, cache_dtype=model.dtype)
+            if num_beams <= 1:  # `omni_avsr_tpu/train/engine.py:311-318`
+                out = greedy_decode(self.params["llm"], cfg.llm, prefix, **common)
+            else:
+                out = beam_search(self.params["llm"], cfg.llm, prefix, num_beams=num_beams,
+                                  **common)
         self.last_decode_steps = out.steps
         return out.tokens
 

@@ -171,3 +171,81 @@ def test_flash_attention_kernel_matches_plain(cuda_device, B, T, S, Hq, Hkv, D, 
         (out, out_lse), (ref, ref_lse) = out, ref
         torch.testing.assert_close(out_lse, ref_lse, atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+# B1 with one beam: greedy decoding's launch (K * G rows = 4 at GQA 32/8)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,P,step", [(3, 176, 0), (3, 176, 17), (1, 400, 31)])
+def test_beam_attention_kernel_one_beam(cuda_device, B, P, step):
+    inp = _beam_case(B, 1, 32, 8, 64, P, 32, cuda_device, seed=P + step)
+    inp["anc"].zero_()  # greedy: row 0 at every slot
+    out = beam_decode_attention(**inp, step=step, num_beams=1)
+    ref = beam_decode_attention_plain(**inp, step=step, num_beams=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+# B4: bf16 in and out; the kernels keep the probabilities in f32 and round
+# p_drop and ds to bf16 per tile as the plain version does per element, and
+# sum dk, dv over the GQA group in f32 where the plain version sums in one
+# einsum: a bf16-level tolerance, as for B3.
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,causal,lens,rate", [
+    (2, 320, 320, 16, 16, 64, False, (320, 201), 0.1),  # AV-HuBERT: lengths, dropout
+    (2, 350, 350, 32, 8, 64, True, None, 0.0),          # the LLM: causal, GQA 32/8
+    (1, 200, 200, 8, 8, 128, True, None, 0.0),          # D 128
+    (2, 130, 150, 4, 2, 64, False, (150, 0), 0.25),     # ragged tiles, a row without keys
+    (1, 96, 96, 4, 1, 64, True, (70,), 0.1),            # causal + lengths + dropout, G 4
+])
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, T, S, Hq, Hkv, D, causal,
+                                                  lens, rate):
+    from omni_avsr_tpu_torch.ops.flash_attention import flash_attention
+    from omni_avsr_tpu_torch.ops.flash_attention_bwd import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_trainable,
+    )
+
+    g = torch.Generator(device=cuda_device).manual_seed(T + S + D)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(torch.bfloat16)
+
+    q, k, v, do = rn(B, T, Hq, D), rn(B, S, Hkv, D), rn(B, S, Hkv, D), rn(B, T, Hq, D)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda_device) if lens else None
+    kw = dict(causal=causal, kv_lengths=kv, dropout_rate=rate, dropout_seed=4321 if rate else None)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert bool(torch.isfinite(x.float()).all()), name
+        torch.testing.assert_close(x.float(), y.float(), atol=2e-2, rtol=2e-2, msg=name)
+
+    # the autograd route: B3 forward + B4 backward, one launch each
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    f_before = flash_attention.launches
+    out = flash_attention_trainable(qs, ks, vs, **kw)
+    out.backward(do)
+    assert flash_attention.launches == f_before + 1
+    assert flash_attention_bwd.launches == before + 2
+    for name, t, y in zip(("dq", "dk", "dv"), (qs, ks, vs), want):
+        torch.testing.assert_close(t.grad.float(), y.float(), atol=2e-2, rtol=2e-2, msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_rejects_bad_input(cuda_device):
+    from omni_avsr_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd
+
+    t = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=cuda_device)
+    lse = torch.zeros(2, 64, dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_bwd(t.float(), t, t, t, t, lse)
+    with pytest.raises(ValueError, match="head_dim"):
+        s = t[..., :32].contiguous()
+        flash_attention_bwd(s, s, s, s, s, lse)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        flash_attention_bwd(t, t, t, t, t, lse, dropout_rate=0.1)

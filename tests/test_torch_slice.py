@@ -131,6 +131,10 @@ def _imports(path: Path):
 def test_no_jax_imports(target):
     files = sorted((ROOT / target).rglob("*.py")) if target.endswith("torch") else [ROOT / target]
     assert files
+    if target.endswith("torch"):  # the walk reaches every module, the training slice's too
+        names = {str(f.relative_to(ROOT / target)) for f in files}
+        assert {"train/engine.py", "train/state.py", "train/optim.py", "train/checkpoint.py",
+                "ops/flash_attention_bwd.py", "decode/decoding.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]

@@ -62,10 +62,12 @@ def clips(lengths=(40, 33, 48), seed: int = 0):
 def jax_in_f32(monkeypatch):
     """Run the JAX package's serving path in f32 end to end: its modules
     name `jnp.bfloat16` for the activations, the trainable-leaf cast and
-    (as a keyword default) the decode KV cache. The package is unchanged;
+    (as a keyword default of beam search and greedy decoding) the decode
+    KV cache. The package is unchanged;
     only this test process's names are redirected, and restored after."""
     import omni_avsr_tpu.decode.decoding as jdec
 
     monkeypatch.setattr(jnp, "bfloat16", jnp.float32)
-    monkeypatch.setitem(jdec.beam_search.__kwdefaults__, "cache_dtype", jnp.float32)
+    for fn in (jdec.beam_search, jdec.greedy_decode):
+        monkeypatch.setitem(fn.__kwdefaults__, "cache_dtype", jnp.float32)
 
