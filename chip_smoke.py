@@ -17,7 +17,10 @@ Phases, each printing lines with the elapsed seconds:
      dropout cases), B4 flash backward (AV-HuBERT's training shape with
      key lengths and dropout 0.1, the LLM's causal GQA shape), B2 and B6
      int8 and packed-int4 matmuls (every decode matrix, the lm_head with
-     f32 logits, a tower matrix);
+     f32 logits, a tower matrix), B5 the beam-selection row statistics (45
+     rows of Llama-3's 128256-token vocabulary, and 8 and 13 rows), B7 the
+     fused ResNet conv (each of the trunk's conv geometries and epilogues
+     at 480 frames, summed over the 19 convs of one trunk);
   4. the full-width flagship (Whisper-medium, ResNet3D + AV-HuBERT-Large,
      Llama-3.2-1B with task-specific Omni-LoRA), random weights made on the
      card from a seed, served through `Transcriber.transcribe_many` with
@@ -26,15 +29,21 @@ Phases, each printing lines with the elapsed seconds:
            and 10.4 s (300, 280, 260 frames);
        (b) the bucketed window, int8: 3 requests of 6.4 s (160 frames);
        (c) the bucketed window, packed int4 LLM and int8 towers: as (b);
-     and (b) once more with greedy decoding (`num_beams=1`, B1 at K = 1).
+     and (b) once more with greedy decoding (`num_beams=1`, B1 at K = 1);
+     then, with the earlier trees freed,
+       (d) (b) with the LLM at Llama-3's base vocabulary of 128256 and both
+           opt-in kernel routes on (`select_kernel=True`: B5 once per beam
+           step; `conv_kernel=True`: B7 in the ResNet trunk's 19 convs).
      For each, one warm batch and 5 measured ones (3 for greedy; the
      median reported); every kernel counter is set to 0 just before each
      measured batch, read just after, and held to the count the path must
      give;
   5. reference checks at full width: the prefill and the first decode
      steps through the kernels and through the plain versions (int8 and
-     int4), and one Whisper layer at T = 1500 through B3 and through its
-     plain version;
+     int4), one Whisper layer at T = 1500 through B3 and through its
+     plain version, the ResNet of (d)'s batch (480 frames) through B7 and
+     through its plain version, and B5 on the logits of (d)'s first decode
+     step against its plain version;
   6. where the device time goes, one profiled batch per configuration;
   7. training: `OmniEngine.train_step` on the full-width flagship (30 s
      Whisper window, random weights from a seed, augmentation with a
@@ -44,7 +53,9 @@ Phases, each printing lines with the elapsed seconds:
      sequence of ~350): one warm step and 3 measured ones, the B3 and B4
      launches of each held to the count the path must give; then one
      step's loss and trainable grads through the kernels and through the
-     plain B3/B4, with the same random draws.
+     plain B3/B4, with the same random draws; then the first step once more
+     on a fresh engine with `conv_kernel=True` (B7 in the ResNet's raw
+     train-mode convs, 19 launches), its loss beside the first step's.
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -464,17 +475,192 @@ def check_qmm(flush, int4: bool, vocab: int):
     return step
 
 
+# ------------------------------------------------------------------ B5, B7
+
+VOCAB_D = 128256  # Llama-3's base vocabulary: configuration (d)
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+B5_ROWS = (B_SERVE * K, 8, 13)  # (d)'s 3 x 15 beams first (timed), 8 rows, a row count not a multiple of 8
+
+
+def b5_agreement(x):
+    """B5 against its plain version on x: chunk and row maxima bit for bit,
+    the normaliser at rtol 1e-5 (summed in another order). Returns the
+    largest absolute difference of the three outputs."""
+    import torch
+
+    from omni_avsr_tpu_torch.ops.select_topk import row_stats_chunkmax, row_stats_chunkmax_plain
+
+    got = row_stats_chunkmax(x)
+    want = row_stats_chunkmax_plain(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise RuntimeError(f"B5 at {tuple(x.shape)}: chunk or row maxima differ from the plain version")
+    torch.testing.assert_close(got[2], want[2], atol=0.0, rtol=1e-5)
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def check_b5(flush):
+    """B5 at (d)'s selection shape and two more row counts, timed at (d)'s
+    against the plain version and torch.logsumexp (which computes only the
+    normaliser of the three outputs), and the bound: each logit read once,
+    the statistics written once."""
+    import torch
+
+    from omni_avsr_tpu_torch.ops.select_topk import row_stats_chunkmax, row_stats_chunkmax_plain
+
+    max_err, timed = 0.0, None
+    for R in B5_ROWS:
+        g = torch.Generator(device=DEV).manual_seed(R)
+        x = torch.randn(R, VOCAB_D, generator=g, device=DEV) * 4
+        err = b5_agreement(x)
+        max_err = max(max_err, err)
+        if R != B5_ROWS[0]:
+            continue
+        C = VOCAB_D // 128
+        nbytes = 4 * (R * VOCAB_D + R * C + 2 * R)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4.0 * R * VOCAB_D / F32_FLOPS  # max, sub, exp, add
+        timed = dict(R=R, V=VOCAB_D, ms=time_ms(lambda: row_stats_chunkmax(x), flush),
+                     host_ms=host_ms(lambda: row_stats_chunkmax(x)),
+                     plain_ms=time_ms(lambda: row_stats_chunkmax_plain(x), flush),
+                     library_ms=time_ms(lambda: torch.logsumexp(x, dim=-1), flush),
+                     library_call="torch.logsumexp (the normaliser only)",
+                     bound_ms=max(t_bytes, t_ops) * 1e3,
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+    timed["max_abs_err"] = max_err
+    log("B5", f"kernel vs plain at R {list(B5_ROWS)} x V {VOCAB_D}: maxima bit-equal, normaliser "
+        f"within rtol 1e-5, max_abs_err {max_err:.3g}; timed: {json.dumps(timed)}")
+    return timed
+
+
+def trunk_convs(frames: int):
+    """The ResNet trunk's 19 convs after the 88x88 crop, stem and pool
+    (22x22x64), as (label, F, H, Cin, Cout, k, stride, pad, affine, act,
+    residual, count): each distinct geometry and epilogue once, with the
+    number of convs of one eval-mode trunk that have it."""
+    convs = [("layer1 conv1", frames, 22, 64, 64, 3, 1, 1, True, True, False, 2),
+             ("layer1 conv2", frames, 22, 64, 64, 3, 1, 1, True, True, True, 2)]
+    h, c = 22, 64
+    for name in ("layer2", "layer3", "layer4"):
+        ho = (h + 1) // 2
+        convs += [(f"{name} b0 conv1 s2", frames, h, c, 2 * c, 3, 2, 1, True, True, False, 1),
+                  (f"{name} downsample", frames, h, c, 2 * c, 1, 2, 0, True, False, False, 1),
+                  (f"{name} conv2", frames, ho, 2 * c, 2 * c, 3, 1, 1, True, True, True, 2),
+                  (f"{name} b1 conv1", frames, ho, 2 * c, 2 * c, 3, 1, 1, True, True, False, 1)]
+        h, c = ho, 2 * c
+    assert sum(cv[-1] for cv in convs) == 19
+    return convs
+
+
+def check_b7(flush, frames: int = 3 * 160):
+    """B7 against its plain version at every trunk conv of (d)'s batch (480
+    frames) and at the raw train-mode conv, timed against the plain version,
+    cuDNN's bf16 conv in channels_last with the epilogue as torch ops, and
+    the bound. Returns one trunk's sums (19 convs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omni_avsr_tpu_torch.ops.conv_block import conv2d_fused, conv2d_fused_plain
+
+    trunk = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, nbytes=0.0, flops=0.0)
+    max_err, rows = 0.0, []
+    cases = trunk_convs(frames) + [("raw train conv (layer2 conv2)", frames, 11, 128, 128, 3, 1,
+                                    1, False, False, False, 0)]
+    for label, Fr, H, Cin, Cout, k, stride, pad, affine, act, res, count in cases:
+        g = torch.Generator(device=DEV).manual_seed(H * Cin + Cout + k)
+        Ho = (H + 2 * pad - k) // stride + 1
+        x = (torch.randn(Fr, H, H, Cin, generator=g, device=DEV) * 0.5).to(torch.bfloat16)
+        w = (torch.randn(k, k, Cin, Cout, generator=g, device=DEV)
+             * (2.0 / (k * k * Cin)) ** 0.5).to(torch.bfloat16)
+        scale = torch.rand(Cout, generator=g, device=DEV) + 0.5 if affine else None
+        bias = torch.randn(Cout, generator=g, device=DEV) * 0.1 if affine else None
+        a = torch.rand(Cout, generator=g, device=DEV) * 0.25 if act else None
+        r = (torch.randn(Fr, Ho, Ho, Cout, generator=g, device=DEV).to(torch.bfloat16)
+             if res else None)
+        args = (x, w, stride, pad, scale, bias, a, r)
+        out = conv2d_fused(*args)
+        ref = conv2d_fused_plain(*args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out.float()).all()):
+            raise RuntimeError(f"B7 {label}: non-finite output")
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        err = (out.float() - ref.float()).abs().max().item()
+        max_err = max(max_err, err)
+        row = dict(conv=label, F=Fr, H=H, Cin=Cin, Cout=Cout, k=k, stride=stride, pad=pad,
+                   affine=affine, act=act, residual=res, per_trunk=count, max_abs_err=err)
+        if count:
+            x_cl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
+            w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            r_cl = r.permute(0, 3, 1, 2) if res else None
+
+            def library():
+                y = F.conv2d(x_cl, w_cl, stride=stride, padding=pad).float()
+                if affine:
+                    y = y * scale[:, None, None] + bias[:, None, None]
+                if res:
+                    y = y + r_cl.float()
+                if act:
+                    y = torch.clamp(y, min=0.0) + a[:, None, None] * torch.clamp(y, max=0.0)
+                return y.to(torch.bfloat16)
+
+            M, Kd = Fr * Ho * Ho, k * k * Cin
+            nbytes = 2 * (x.numel() + w.numel() + M * Cout * (2 if res else 1)) + 4 * 3 * Cout
+            flops = 2.0 * M * Kd * Cout
+            row.update(ms=time_ms(lambda: conv2d_fused(*args), flush),
+                       plain_ms=time_ms(lambda: conv2d_fused_plain(*args), flush, iters=10),
+                       library_ms=time_ms(library, flush))
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                trunk[key] += count * row[key]
+            trunk["nbytes"] += count * nbytes
+            trunk["flops"] += count * flops
+        log("B7", json.dumps(row))
+        rows.append(row)
+    trunk["bound_by"] = bound_ms(trunk["nbytes"], trunk["flops"])[1]
+    trunk["max_abs_err"] = max_err
+    trunk["tflop_per_s"] = trunk["flops"] / (trunk["ms"] * 1e-3) / 1e12
+    log("B7", f"one trunk of {frames} frames (19 convs): kernel {trunk['ms']:.4f} ms "
+        f"({trunk['tflop_per_s']:.1f} TFLOP/s of {trunk['flops'] / 1e9:.1f} GFLOP), plain "
+        f"{trunk['plain_ms']:.4f} ms, cuDNN bf16 channels_last + torch epilogue "
+        f"{trunk['library_ms']:.4f} ms, bound {trunk['bound_ms']:.4f} ms ({trunk['bound_by']}); "
+        f"max_abs_err {max_err:.3g}")
+    trunk["cases"] = rows
+    return trunk
+
+
 # --------------------------------------------------------------- serving
 
 
 def counters():
     from omni_avsr_tpu_torch.ops.beam_attention import beam_decode_attention
+    from omni_avsr_tpu_torch.ops.conv_block import conv2d_fused
     from omni_avsr_tpu_torch.ops.flash_attention import flash_attention
     from omni_avsr_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd
     from omni_avsr_tpu_torch.ops.quant import quantized_matmul, quantized_matmul4
+    from omni_avsr_tpu_torch.ops.select_topk import row_stats_chunkmax
 
     return {"B1": beam_decode_attention, "B2": quantized_matmul, "B3": flash_attention,
-            "B4": flash_attention_bwd, "B6": quantized_matmul4}
+            "B4": flash_attention_bwd, "B5": row_stats_chunkmax, "B6": quantized_matmul4,
+            "B7": conv2d_fused}
+
+
+def counts(**launches):
+    """Every kernel's expected launches, 0 where not named."""
+    return {key: launches.get(key, 0) for key in ("B1", "B2", "B3", "B4", "B5", "B6", "B7")}
+
+
+def with_vocab(model, vocab: int):
+    """`model` with the LLM at `vocab` tokens: the synthetic tokenizer's
+    base vocabulary plus its 7 specials."""
+    import dataclasses
+
+    from omni_avsr_tpu_torch.data.tokenizer import synthetic_tokenizer
+    from omni_avsr_tpu_torch.models.omni import OmniAVSR
+
+    tok = synthetic_tokenizer("llama", base_vocab=vocab - 7)
+    if tok.vocab_size != vocab:
+        raise RuntimeError(f"synthetic vocabulary {tok.vocab_size}, not {vocab}")
+    llm = dataclasses.replace(model.cfg.llm, vocab_size=vocab)
+    return OmniAVSR(dataclasses.replace(model.cfg, llm=llm), tok, dtype=model.dtype)
 
 
 def make_items(frames, seed: int):
@@ -641,6 +827,62 @@ def whisper_layer_agreement(t) -> float:
     return ((y.float() - y_ref.float()).norm() / y_ref.float().norm()).item()
 
 
+def trunk_agreement(t, items) -> float:
+    """The ResNet of a served batch (eval preprocessing, bf16) through B7
+    (19 launches) and through B7's plain version. Returns the relative L2
+    difference of the per-frame features."""
+    import torch
+
+    import omni_avsr_tpu_torch.ops.conv_block as conv_mod
+    from omni_avsr_tpu_torch.models.resnet3d import resnet3d_forward
+    from omni_avsr_tpu_torch.ops.augment import video_pipeline
+    from omni_avsr_tpu_torch.serve import pad_batch
+
+    batch, _ = pad_batch(items, "audiovisual")
+    params = t.params["avhubert"]["video_frontend"]
+    with torch.inference_mode():
+        video = video_pipeline(torch.as_tensor(batch["video"]).to(DEV),
+                               torch.as_tensor(batch["video_len"]).to(DEV)).to(t.model.dtype)
+        before = conv_mod.conv2d_fused.launches
+        y = resnet3d_forward(params, video, conv_kernel=True)
+        if conv_mod.conv2d_fused.launches != before + 19:
+            raise RuntimeError("the ResNet forward did not launch B7 19 times")
+        kernel = conv_mod.conv2d_fused
+        conv_mod.conv2d_fused = conv_mod.conv2d_fused_plain
+        try:
+            y_ref = resnet3d_forward(params, video, conv_kernel=True)
+        finally:
+            conv_mod.conv2d_fused = kernel
+    if not bool(torch.isfinite(y.float()).all()):
+        raise RuntimeError("non-finite ResNet features on the B7 route")
+    log("reference", f"ResNet of {video.shape[0]} x {video.shape[1]} frames of "
+        f"{tuple(video.shape[2:4])}: B7 19 launches")
+    return ((y.float() - y_ref.float()).norm() / y_ref.float().norm()).item()
+
+
+def select_agreement(t, items):
+    """B5 on the logits of the first decode step of a served batch (the
+    second selection of the beam loop; the first selects from the prefill's
+    logits) against its plain version. Returns (shape, max_abs_err)."""
+    import omni_avsr_tpu_torch.decode.decoding as dec
+
+    captured = []
+    kernel = dec.row_stats_chunkmax
+
+    def capture(x):
+        if len(captured) < 2:
+            captured.append(x.clone())
+        return kernel(x)
+
+    dec.row_stats_chunkmax = capture
+    try:
+        t.transcribe_many(items)
+    finally:
+        dec.row_stats_chunkmax = kernel
+    x = captured[1]
+    return tuple(x.shape), b5_agreement(x)
+
+
 # --------------------------------------------------------------- training
 
 
@@ -695,7 +937,7 @@ def train_launches(model, flash_tasks: int, video_layers: int):
     backward) and B4 once; nothing else."""
     n = flash_tasks * model.cfg.llm.num_layers
     return {"B1": 0, "B2": 0, "B3": model.cfg.whisper.num_layers + video_layers + 2 * n,
-            "B4": video_layers + n, "B6": 0}
+            "B4": video_layers + n, "B5": 0, "B6": 0, "B7": 0}
 
 
 def check_route_launches(route: str, used) -> None:
@@ -797,9 +1039,35 @@ def train_phase():
     agree = dict(loss_kernel=lk, loss_plain=lp, grad_rel_l2=rel, grad_norm=gp.norm().item())
     log("reference", f"one full-width train step, B3/B4 vs plain, same draws: {json.dumps(agree)} "
         f"(tol {REL_L2_TOL})")
+    del engine, leaves, result, gk, gp
+    torch.cuda.empty_cache()
+
+    # the first step again on a fresh engine (same weights, seed and draws)
+    # with the ResNet's raw train-mode convs through B7
+    params = init_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    engine = OmniEngine(model, params, TrainConfig(lr=1e-3), noise_bank=bank, seed=0,
+                        device=DEV, conv_kernel=True)
+    del params
+    engine.sample_rates = lambda: (4, 2)
+    for fn in fns.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    loss = float(engine.train_step({**batch, "audio_trim_len": trim}))
+    dt = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = {**train_launches(model, len(flash_tasks), model.last_video_layers), "B7": 19}
+    if launches != want:
+        raise RuntimeError(f"train step with conv_kernel: kernel launches {launches}, expected "
+                           f"{want} ({model.last_video_layers} AV-HuBERT layers ran)")
+    if not np.isfinite(loss):
+        raise RuntimeError(f"train step with conv_kernel: loss {loss}")
+    conv_row = dict(config=f"train B {B_TRAIN} x {FRAMES_TRAIN} frames, pad30s, conv_kernel",
+                    first_step_s=dt, loss=loss, first_step_loss_without=warm,
+                    avhubert_layers_run=model.last_video_layers, launches=launches)
+    log("train", f"the first step with B7 in the ResNet: {json.dumps(conv_row)}")
     del engine
     torch.cuda.empty_cache()
-    return row, agree
+    return row, agree, conv_row
 
 
 def profile_batch(label: str, run) -> None:
@@ -879,6 +1147,8 @@ def main() -> int:
     vocab = model_a.cfg.llm.vocab_size
     b2 = check_qmm(flush, int4=False, vocab=vocab)
     b6 = check_qmm(flush, int4=True, vocab=vocab)
+    b5 = check_b5(flush)
+    b7 = check_b7(flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -900,17 +1170,14 @@ def main() -> int:
     tower_b3 = model_a.cfg.whisper.num_layers + model_a.cfg.avhubert.encoder_layers
     # B2 (or B6) runs once per LLM matrix in the prefill and in every decode step
     rows = {
-        "a": serve("(a) pad30s int8", server_a, items_a, lambda s: {
-            "B1": layers_llm * s, "B2": tower_b2 + llm_mats * (1 + s), "B3": tower_b3, "B4": 0,
-            "B6": 0}),
-        "b": serve("(b) bucket int8", server_b, items_b, lambda s: {
-            "B1": layers_llm * s, "B2": tower_b2 + llm_mats * (1 + s), "B3": 0, "B4": 0,
-            "B6": 0}),
-        "c": serve("(c) bucket int4", server_c, items_b, lambda s: {
-            "B1": layers_llm * s, "B2": tower_b2, "B3": 0, "B4": 0, "B6": llm_mats * (1 + s)}),
-        "greedy": serve("(b) bucket int8 greedy", server_b, items_b, lambda s: {
-            "B1": layers_llm * s, "B2": tower_b2 + llm_mats * (1 + s), "B3": 0, "B4": 0,
-            "B6": 0}, repeats=3, num_beams=1),
+        "a": serve("(a) pad30s int8", server_a, items_a, lambda s: counts(
+            B1=layers_llm * s, B2=tower_b2 + llm_mats * (1 + s), B3=tower_b3)),
+        "b": serve("(b) bucket int8", server_b, items_b, lambda s: counts(
+            B1=layers_llm * s, B2=tower_b2 + llm_mats * (1 + s))),
+        "c": serve("(c) bucket int4", server_c, items_b, lambda s: counts(
+            B1=layers_llm * s, B2=tower_b2, B6=llm_mats * (1 + s))),
+        "greedy": serve("(b) bucket int8 greedy", server_b, items_b, lambda s: counts(
+            B1=layers_llm * s, B2=tower_b2 + llm_mats * (1 + s)), repeats=3, num_beams=1),
     }
 
     for label, server in (("int8 (B1, B2)", server_b), ("int4 (B1, B6)", server_c)):
@@ -931,7 +1198,34 @@ def main() -> int:
     del server_a, server_b, server_c
     torch.cuda.empty_cache()
 
-    rows["train"], train_agree = train_phase()
+    # (d): (b) with the LLM at Llama-3's base vocabulary (128256, a multiple
+    # of 128, so the selection kernel takes it) and both opt-in kernel routes
+    t = time.perf_counter()
+    model_d = with_vocab(model_b, VOCAB_D)
+    params = init_params(model_d.cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    server_d = Transcriber(model_d, params, quantize="int8", device="cuda", select_kernel=True,
+                           conv_kernel=True)
+    del params
+    torch.cuda.synchronize()
+    log("model", f"(d): the flagship with a {VOCAB_D}-token LLM vocabulary, int8, select_kernel "
+        f"and conv_kernel on, in {time.perf_counter() - t:.1f} s")
+    rows["d"] = serve("(d) bucket int8 select conv", server_d, items_b, lambda s: counts(
+        B1=layers_llm * s, B2=tower_b2 + llm_mats * (1 + s), B5=s, B7=19))
+    rel = trunk_agreement(server_d, items_b)
+    if rel > REL_L2_TOL:
+        raise RuntimeError(f"ResNet at full width: B7 vs plain relative L2 {rel:.3g}")
+    log("reference", f"the ResNet of (d)'s batch, B7 vs plain: relative L2 difference {rel:.3g} "
+        f"(tol {REL_L2_TOL})")
+    shape, err = select_agreement(server_d, items_b)
+    log("reference", f"B5 on the logits {shape} of (d)'s first decode step: maxima bit-equal, "
+        f"normaliser within rtol 1e-5, max_abs_err {err:.3g}")
+    b5["real_logits_max_abs_err"] = err
+    b7["trunk_rel_l2"] = rel
+    profile_batch("(d) bucket int8 select conv", lambda: server_d.transcribe_many(items_b))
+    del server_d
+    torch.cuda.empty_cache()
+
+    rows["train"], train_agree, rows["train conv"] = train_phase()
 
     def entry(key, name, source, replaces, row, config, shape):
         """The kernel's line: its launches in the configuration whose main
@@ -959,9 +1253,20 @@ def main() -> int:
                  f"T = S = {T_LLM_AV}, D 64; launches per train step"),
          "cases": b4_rows, "replaces_also": "omni_avsr_tpu/ops/flash_attention_bwd.py:89",
          "train_grad_agreement": train_agree},
+        {**entry("B5", "row_stats_chunkmax", "omni_avsr_tpu_torch/csrc/select_topk.cu",
+                 "omni_avsr_tpu/ops/select_topk.py:52", b5, "d",
+                 f"per launch: {B_SERVE} x 15 beams = 45 rows, V {VOCAB_D}; library_ms is "
+                 f"torch.logsumexp, which gives the normaliser only"),
+         "timed": b5},
         entry("B6", "quantized_matmul4", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
               "omni_avsr_tpu/ops/quant.py:156", b6, "c",
               "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head"),
+        {**entry("B7", "conv2d_fused", "omni_avsr_tpu_torch/csrc/conv_block.cu",
+                 "omni_avsr_tpu/ops/conv_block.py:70", b7, "d",
+                 "one ResNet trunk of 480 frames (19 convs, summed); library_ms is cuDNN's "
+                 "bf16 conv in channels_last with the epilogue as torch ops"),
+         "cases": b7["cases"], "trunk_rel_l2": b7["trunk_rel_l2"],
+         "tflop_per_s": b7["tflop_per_s"]},
     ]}), flush=True)
     log("done", f"{time.perf_counter() - T0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -20,7 +20,10 @@ Candidate selection is the JAX package's default "fused" route: the exact
 per-beam top-2K of the raw logits, then the 2K*K survivors are scored. The
 loop stops early once no running beam can beat the worst kept hypothesis,
 which leaves the result unchanged. Ties resolve to the lower index, as
-`jax.lax.top_k` does.
+`jax.lax.top_k` does. With `select_kernel=True` (the JAX package's
+`OMNI_SELECT_KERNEL=1`) each step's row max, normaliser and 128-wide chunk
+maxima come from one pass of the stats kernel B5
+(`ops/select_topk.py::row_stats_chunkmax`) instead of three passes.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..models.llm import (
     unstack_layers,
     update_ancestors,
 )
+from ..ops.select_topk import CHUNK, row_stats_chunkmax, select_stats_supported
 
 NEG = -1e9
 
@@ -51,19 +55,25 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def topk_chunked(x: torch.Tensor, k: int, chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+def topk_chunked(x: torch.Tensor, k: int, chunk: int = 128,
+                 chunk_maxima: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over the last axis through a chunk-max prefilter: the
     top-k chunks by maximum hold every element of the top k, so the finish
-    runs over k*chunk survivors (recursing once with chunk 16)."""
+    runs over k*chunk survivors (recursing once with chunk 16).
+    `chunk_maxima` are precomputed maxima of this (chunk, V) split (from
+    B5), which needs V % chunk == 0; given them, short rows take the
+    prefilter too."""
     V = x.shape[-1]
-    if V <= 4 * k * chunk:
+    if chunk_maxima is None and V <= 4 * k * chunk:
         return top_k(x, k)
     C = -(-V // chunk)
     if C * chunk != V:
+        if chunk_maxima is not None:
+            raise ValueError(f"chunk_maxima needs V % chunk == 0 (V {V}, chunk {chunk})")
         pad = torch.full((*x.shape[:-1], C * chunk - V), NEG, dtype=x.dtype, device=x.device)
         x = torch.cat([x, pad], dim=-1)
     xc = x.reshape(*x.shape[:-1], C, chunk)
-    cm = xc.amax(dim=-1)
+    cm = chunk_maxima if chunk_maxima is not None else xc.amax(dim=-1)
     kc = min(k, C)
     _, cidx = top_k(cm, kc)
     cand = torch.gather(xc, -2, cidx[..., None].expand(*cidx.shape, chunk))
@@ -76,6 +86,13 @@ def topk_chunked(x: torch.Tensor, k: int, chunk: int = 128) -> Tuple[torch.Tenso
     return vals, idx
 
 
+def select_kernel_supported(vocab_size: int) -> bool:
+    """The vocabularies the JAX package's `OMNI_SELECT_KERNEL=1` routes to
+    the stats kernel (`decode/decoding.py:431-434`): at least 16384 and
+    `select_stats_supported`."""
+    return vocab_size >= 16384 and select_stats_supported(vocab_size)
+
+
 class DecodeOutput(NamedTuple):
     tokens: torch.Tensor  # (B, max_new) generated ids (beam: the best hypothesis), pad after
     steps: int  # decode steps run (each ran every decoder layer once)
@@ -83,9 +100,10 @@ class DecodeOutput(NamedTuple):
 
 def beam_loop(*, init_logits: torch.Tensor, state, step_fn, num_beams: int,
               vocab_size: int, max_new: int, eos_id: int, pad_id: int,
-              length_penalty: float = 1.0) -> DecodeOutput:
+              length_penalty: float = 1.0, select_kernel: bool = False) -> DecodeOutput:
     """Decoder-agnostic beam loop. step_fn(state, new_tok (B,K), flat_idx
-    (B*K,), t) -> ((B, K, V) logits, state)."""
+    (B*K,), t) -> ((B, K, V) logits, state). `select_kernel` takes each
+    step's selection statistics from B5 (V % 128 == 0)."""
     B = init_logits.shape[0]
     K, V = num_beams, vocab_size
     dev = init_logits.device
@@ -115,9 +133,15 @@ def beam_loop(*, init_logits: torch.Tensor, state, step_fn, num_beams: int,
     t = 0
     while t < max_new and not done():
         x = logits.float()
-        mx = x.amax(dim=-1, keepdim=True)
-        lse = torch.log(torch.exp(x - mx).sum(dim=-1, keepdim=True))
-        vals, vidx = topk_chunked(x, 2 * K)  # (B, K, 2K) per beam
+        if select_kernel:  # one pass: chunk maxima, row max, normaliser (`decoding.py:510-523`)
+            cm, mx, se = row_stats_chunkmax(x.reshape(B * K, V))
+            mx = mx.reshape(B, K, 1)
+            lse = torch.log(se).reshape(B, K, 1)
+            vals, vidx = topk_chunked(x, 2 * K, chunk_maxima=cm.reshape(B, K, -1))
+        else:
+            mx = x.amax(dim=-1, keepdim=True)
+            lse = torch.log(torch.exp(x - mx).sum(dim=-1, keepdim=True))
+            vals, vidx = topk_chunked(x, 2 * K)  # (B, K, 2K) per beam
         cand_sel = cum[:, :, None] + ((vals - mx) - lse)
         scores2k, sel = top_k(cand_sel.reshape(B, K * 2 * K), 2 * K)
         v_sel = torch.gather(vidx.reshape(B, K * 2 * K), 1, sel)
@@ -222,13 +246,20 @@ def beam_search(
     modality: Optional[str] = None,
     length_penalty: float = 1.0,
     cache_dtype=torch.bfloat16,
+    select_kernel: bool = False,
 ) -> DecodeOutput:
     """Prefill once per batch item (the prefix K/V is shared by all beams),
     then run the beam loop on the ancestor cache: no per-step reorder of
-    the generated K/V, only of the (B, K, N) ancestor table."""
+    the generated K/V, only of the (B, K, N) ancestor table.
+    `select_kernel` takes the selection statistics from B5; it needs a
+    vocabulary that the JAX package's opt-in takes the kernel for
+    (`select_kernel_supported`), else it raises."""
     B, P, _ = prefix_embeds.shape
     K = num_beams
     V = cfg.vocab_size
+    if select_kernel and not select_kernel_supported(V):
+        raise ValueError(f"select_kernel: vocabulary {V} is not supported by the selection "
+                         f"stats kernel (needs V % {CHUNK} == 0 and 16384 <= V <= 212992)")
     dtype = prefix_embeds.dtype
     dev = prefix_embeds.device
     layers = unstack_layers(params, cfg)
@@ -249,4 +280,5 @@ def beam_search(
 
     return beam_loop(init_logits=logits0, state=(cache, anc0.contiguous()), step_fn=step_fn,
                      num_beams=K, vocab_size=V, max_new=max_new, eos_id=eos_id,
-                     pad_id=pad_id, length_penalty=length_penalty)
+                     pad_id=pad_id, length_penalty=length_penalty,
+                     select_kernel=select_kernel)

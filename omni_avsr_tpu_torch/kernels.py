@@ -88,6 +88,12 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The device's streaming multiprocessors, for the wrappers' grid plans."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check(name: str, t: torch.Tensor, shape, dtype) -> None:
     """What every kernel wrapper asks of a tensor it hands to a kernel:
     the shape and dtype the kernel reads, on a CUDA device, contiguous and

@@ -97,9 +97,10 @@ def _encoder_layer(layer: Params, cfg: AVHubertConfig, x: torch.Tensor,
 
 
 def avhubert_extract_features(params: Params, cfg: AVHubertConfig, video: torch.Tensor,
-                              train_mode: bool = False) -> torch.Tensor:
-    """Video features, zero-filled audio half, concat fuse (`hubert.py:695-728`)."""
-    vf = resnet3d_forward(params["video_frontend"], video, train_mode)
+                              train_mode: bool = False, conv_kernel: bool = False) -> torch.Tensor:
+    """Video features, zero-filled audio half, concat fuse (`hubert.py:695-728`);
+    `conv_kernel` runs the ResNet trunk's convs through B7."""
+    vf = resnet3d_forward(params["video_frontend"], video, train_mode, conv_kernel)
     vfeat = linear(vf, params["video_proj"])
     afeat = torch.zeros_like(vfeat)
     if cfg.modality_fuse == "concat":
@@ -128,13 +129,15 @@ def layers_to_run(cfg: AVHubertConfig, generator: Optional[torch.Generator]):
 def avhubert_encode(params: Params, cfg: AVHubertConfig, video: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None, train_mode: bool = False,
                     generator: Optional[torch.Generator] = None,
-                    plan: Optional[Tuple[List[int], List[Optional[int]]]] = None) -> torch.Tensor:
+                    plan: Optional[Tuple[List[int], List[Optional[int]]]] = None,
+                    conv_kernel: bool = False) -> torch.Tensor:
     """`extract_finetune` over video only: (B, T, D); `lengths` (B,) masks
     each clip's padded frames as keys. `plan` is `layers_to_run`'s (layers,
-    seeds), drawn here from `generator` when not given."""
+    seeds), drawn here from `generator` when not given. `conv_kernel` runs
+    the ResNet trunk's convs through B7."""
     assert cfg.layer_norm_first, "the post-LN variant is not ported"
     keep, seeds = plan if plan is not None else layers_to_run(cfg, generator)
-    feats = avhubert_extract_features(params, cfg, video, train_mode)
+    feats = avhubert_extract_features(params, cfg, video, train_mode, conv_kernel)
     feats = _dropout(generator, feats, cfg.dropout_input)
     x = feats + _pos_conv(feats, params["pos_conv"], cfg)
     x = _dropout(generator, x, cfg.dropout)

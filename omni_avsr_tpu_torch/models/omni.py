@@ -92,14 +92,17 @@ class OmniAVSR:
 
     def encode_video(self, params: Params, video: torch.Tensor, rate: int,
                      train_mode: bool = False,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     conv_kernel: bool = False) -> torch.Tensor:
         """(B, T//rate, d_llm) projected video tokens; `train_mode` runs the
         ResNet's BN on batch statistics, `generator` AV-HuBERT's dropouts and
-        layerdrop (`models/avhubert.py`)."""
+        layerdrop (`models/avhubert.py`), `conv_kernel` the ResNet trunk's
+        convs through B7."""
         plan = layers_to_run(self.cfg.avhubert, generator)
         self.last_video_layers = len(plan[0])
         enc = avhubert_encode(params["avhubert"], self.cfg.avhubert, video.to(self.dtype),
-                              train_mode=train_mode, generator=generator, plan=plan)
+                              train_mode=train_mode, generator=generator, plan=plan,
+                              conv_kernel=conv_kernel)
         enc = compress(enc, rate, self.cfg.compression_mode)
         return project(params["video_proj"], enc, rate if self._per_rate else None)
 
@@ -134,9 +137,11 @@ class OmniAVSR:
         rate_audio: Optional[int] = None,
         rate_video: Optional[int] = None,
         audio_trim_max: Optional[int] = None,
+        conv_kernel: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(embeds (B, P, D), key_valid (B, P)) with per-sample exact audio
-        and video token counts inside one static layout."""
+        and video token counts inside one static layout; `conv_kernel` runs
+        the ResNet trunk's convs through B7."""
         key = "audio" if "audio" in batch else "video"
         B = batch[key].shape[0]
         dev = batch[key].device
@@ -158,7 +163,8 @@ class OmniAVSR:
             valids.append(torch.arange(a.shape[1], device=dev)[None] < n_a[:, None])
             const_valid(self._embed_id(params, tok.audio_eos_id, B, dev))
         if modality in ("video", "audiovisual"):
-            v = self.encode_video(params, batch["video"], rate_video).to(self.dtype)
+            v = self.encode_video(params, batch["video"], rate_video,
+                                  conv_kernel=conv_kernel).to(self.dtype)
             n_v = batch["video_len"] // rate_video
             const_valid(self._embed_id(params, tok.video_sos_id, B, dev))
             blocks.append(v)
@@ -196,20 +202,22 @@ class OmniAVSR:
 
     def train_losses(self, params: Params, batch: Dict[str, torch.Tensor], rate_audio: int,
                      rate_video: int, audio_trim_len: int, train_mode: bool = True,
-                     remat: bool = True,
-                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                     remat: bool = True, generator: Optional[torch.Generator] = None,
+                     conv_kernel: bool = False) -> Dict[str, torch.Tensor]:
         """Three-task training forward: the matryoshka-weighted CE of each
         task (`modeling_OmniAVSR.py:263-306`;
         `omni_avsr_tpu/models/omni.py:233-280`, its unfused route). Batch:
         preprocessed audio/audio_len/video, tokens and labels (B, Tt).
         `train_mode` runs the ResNet's BN on batch statistics; `generator`
-        AV-HuBERT's dropouts and layerdrop."""
+        AV-HuBERT's dropouts and layerdrop; `conv_kernel` the ResNet trunk's
+        convs through B7."""
         cfg, dtype = self.cfg, self.dtype
         text_emb = embed_tokens(params["llm"], batch["tokens"].long(), dtype)
         labels = batch["labels"]
         # video first: its layer plan is a host sync (`layers_to_run`), which
         # then waits for the preprocessing only, not for Whisper too
-        v = self.encode_video(params, batch["video"], rate_video, train_mode, generator).to(dtype)
+        v = self.encode_video(params, batch["video"], rate_video, train_mode, generator,
+                              conv_kernel).to(dtype)
         a = self.encode_audio(params, batch["audio"], batch["audio_len"], rate_audio,
                               audio_trim_len).to(dtype)
         task_specific = bool(cfg.llm.lora and cfg.llm.lora.task_specific)

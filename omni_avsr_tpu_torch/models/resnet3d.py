@@ -8,6 +8,11 @@ Eval mode folds the BatchNorms' running statistics into the convs; train
 mode (`train_mode=True`, the reference's frozen encoder in train()) runs
 them on batch statistics, one pass E[x^2] - E[x]^2 in f32 clamped at 0
 (`:34-53`), and, as there, does not update the running statistics.
+`conv_kernel=True` routes every trunk conv through the fused conv B7
+(`ops/conv_block.py::fused_conv`), as `OMNI_CONV_KERNEL=1` does in the JAX
+package: in eval mode with the folded BN, the residual and PReLU in its
+epilogue (19 launches per forward), in train mode the raw convs. The stem
+is not B7 there either.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv_block import bn_fold, reference_conv
+from ..ops.conv_block import bn_fold, fused_conv
 from ..ops.norms import batch_norm_inference
 from .common import Params
 
@@ -41,28 +46,30 @@ def batch_norm_train(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Ten
     return y.to(x.dtype)
 
 
-def _basic_block(p: Params, x: torch.Tensor, stride: int, train_mode: bool = False) -> torch.Tensor:
+def _basic_block(p: Params, x: torch.Tensor, stride: int, train_mode: bool = False,
+                 conv_kernel: bool = False) -> torch.Tensor:
     cout = p["conv1"]["w"].shape[-1]
     a1 = _prelu_vec(p, "prelu1", cout, x.device)
     a2 = _prelu_vec(p, "prelu2", cout, x.device)
+    kw = dict(use_kernel=conv_kernel)
     if train_mode:  # raw convs, BN on the batch, then the affine + PReLU epilogue
         residual = x
         if "downsample" in p:
-            r = reference_conv(x, p["downsample"]["conv"]["w"], stride, 0)
+            r = fused_conv(x, p["downsample"]["conv"]["w"], stride, 0, **kw)
             residual = batch_norm_train(r, p["downsample"]["bn"])
-        h = reference_conv(x, p["conv1"]["w"], stride, 1)
+        h = fused_conv(x, p["conv1"]["w"], stride, 1, **kw)
         h = prelu(batch_norm_train(h, p["bn1"]), a1)
-        h = batch_norm_train(reference_conv(h, p["conv2"]["w"], 1, 1), p["bn2"])
+        h = batch_norm_train(fused_conv(h, p["conv2"]["w"], 1, 1, **kw), p["bn2"])
         return prelu(h + residual, a2)
     residual = x
     if "downsample" in p:
         sd, bd = bn_fold(p["downsample"]["bn"])
-        residual = reference_conv(x, p["downsample"]["conv"]["w"], stride, 0, scale=sd, bias=bd)
+        residual = fused_conv(x, p["downsample"]["conv"]["w"], stride, 0, scale=sd, bias=bd, **kw)
     s1, b1 = bn_fold(p["bn1"])
-    h = reference_conv(x, p["conv1"]["w"], stride, 1, scale=s1, bias=b1, prelu_a=a1)
+    h = fused_conv(x, p["conv1"]["w"], stride, 1, scale=s1, bias=b1, prelu_a=a1, **kw)
     s2, b2 = bn_fold(p["bn2"])
-    return reference_conv(h, p["conv2"]["w"], 1, 1, scale=s2, bias=b2, prelu_a=a2,
-                          residual=residual)
+    return fused_conv(h, p["conv2"]["w"], 1, 1, scale=s2, bias=b2, prelu_a=a2,
+                      residual=residual, **kw)
 
 
 def stem_pool(params: Params, video: torch.Tensor, train_mode: bool = False) -> torch.Tensor:
@@ -87,18 +94,20 @@ def stem_pool(params: Params, video: torch.Tensor, train_mode: bool = False) -> 
     return x.permute(0, 2, 3, 1)
 
 
-def trunk_layer(params: Params, name: str, x: torch.Tensor, train_mode: bool = False) -> torch.Tensor:
+def trunk_layer(params: Params, name: str, x: torch.Tensor, train_mode: bool = False,
+                conv_kernel: bool = False) -> torch.Tensor:
     """One ResNet-18 layer (two BasicBlocks) over (B*T, H, W, C) frames."""
     stride = 1 if name == "layer1" else 2
-    x = _basic_block(params[name]["b0"], x, stride, train_mode)
-    return _basic_block(params[name]["b1"], x, 1, train_mode)
+    x = _basic_block(params[name]["b0"], x, stride, train_mode, conv_kernel)
+    return _basic_block(params[name]["b1"], x, 1, train_mode, conv_kernel)
 
 
-def resnet3d_forward(params: Params, video: torch.Tensor, train_mode: bool = False) -> torch.Tensor:
+def resnet3d_forward(params: Params, video: torch.Tensor, train_mode: bool = False,
+                     conv_kernel: bool = False) -> torch.Tensor:
     """(B, T, H, W, 1) -> per-frame features (B, T, 512)."""
     B, T = video.shape[:2]
     x = stem_pool(params, video, train_mode)
     for name in ("layer1", "layer2", "layer3", "layer4"):
-        x = trunk_layer(params, name, x, train_mode)
+        x = trunk_layer(params, name, x, train_mode, conv_kernel)
     x = x.float().mean(dim=(1, 2)).to(x.dtype)  # AdaptiveAvgPool2d(1)
     return x.reshape(B, T, -1)

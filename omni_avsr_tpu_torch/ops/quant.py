@@ -29,7 +29,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..kernels import check, load
+from ..kernels import check, load, sm_count
 
 Leaf = Dict[str, torch.Tensor]
 
@@ -41,7 +41,7 @@ def quantize_per_channel(w: torch.Tensor, bits: int = 8) -> Leaf:
     wf = w.float()
     amax = wf.abs().amax(dim=-2)
     scale = torch.clamp(amax / qmax, min=1e-12)
-    q = torch.clamp(torch.round(wf / scale[..., None, :]), -qmax, qmax).to(torch.int8)
+    q = torch.clamp(torch.round(wf / scale[..., None, :]), -qmax, qmax).to(torch.int8).contiguous()
     return {"w": q, "s": scale}
 
 
@@ -215,11 +215,6 @@ def _launcher(int4: bool):
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _split_plan(M: int, ncols: int, K: int, device: torch.device) -> int:
     """Slices of K per output tile: enough blocks for about two per SM
     when the tiles alone are fewer than the SMs, each slice at least 4
@@ -228,7 +223,7 @@ def _split_plan(M: int, ncols: int, K: int, device: torch.device) -> int:
     bm, bn, bk = (64, 64, 64) if M <= 64 else (128, 128, 32)
     tiles = -(-M // bm) * -(-ncols // bn)
     ktiles = -(-K // bk)
-    sms = _sm_count(device)
+    sms = sm_count(device)
     if tiles >= sms:
         return 1
     splits = max(1, min(-(-2 * sms // tiles), ktiles // 4, 16))

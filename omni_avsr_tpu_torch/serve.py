@@ -13,7 +13,11 @@ the same cache with one beam when `num_beams <= 1`, as the JAX engine
 routes it). On the card the
 hand-written kernels carry it: beam-decode attention (B1) in every decode
 step, the int8 or packed-int4 matmul (B2, B6) in every quantised linear,
-and flash attention (B3) in the towers at long windows.
+and flash attention (B3) in the towers at long windows. Two opt-in
+switches mirror the JAX package's: `select_kernel=True` (its
+`OMNI_SELECT_KERNEL=1`) takes each beam step's selection statistics from
+the stats kernel B5, and `conv_kernel=True` (its `OMNI_CONV_KERNEL=1`)
+runs the ResNet trunk's 19 convs through the fused conv B7.
 """
 
 from __future__ import annotations
@@ -105,8 +109,12 @@ class Transcriber:
         max_new_tokens: Optional[int] = None,
         quantize: Optional[str] = None,  # "int8", or "int4" (packed LLM, int8 towers)
         device="cuda",
+        select_kernel: bool = False,  # beam selection statistics through B5
+        conv_kernel: bool = False,  # the ResNet trunk's convs through B7
     ):
         self.model = model
+        self.select_kernel = select_kernel
+        self.conv_kernel = conv_kernel
         self.device = torch.device(device)
         self.params = merged_params(params, model.dtype, self.device,
                                     model.trainable_predicate())
@@ -132,7 +140,8 @@ class Transcriber:
             if "audio" in arrays:
                 proc["audio"] = audio_pipeline(arrays["audio"], arrays["audio_len"])
             prefix, key_valid = model.infer_prefix_masked(
-                self.params, proc, modality, rate_audio, rate_video, trim)
+                self.params, proc, modality, rate_audio, rate_video, trim,
+                conv_kernel=self.conv_kernel)
             B, P0, _ = prefix.shape
             P = model.prefix_slots(modality, rate_audio, rate_video, trim,
                                    batch["video"].shape[1] if "video" in batch else 0)
@@ -146,7 +155,7 @@ class Transcriber:
                 out = greedy_decode(self.params["llm"], cfg.llm, prefix, **common)
             else:
                 out = beam_search(self.params["llm"], cfg.llm, prefix, num_beams=num_beams,
-                                  **common)
+                                  select_kernel=self.select_kernel, **common)
         self.last_decode_steps = out.steps
         return out.tokens
 

@@ -12,6 +12,9 @@ into the masters and applies AdamW with the global-norm clip.
 `augment=False` trains on the decode-time computation end to end: eval
 preprocessing, eval-mode BN and no dropout (the JAX package's setting for
 its WER probe, `benchmarks/wer_probe.py`). Decoding lives in `serve.py`.
+`conv_kernel=True` runs the ResNet trunk's convs through the fused conv
+B7, as the JAX package's `OMNI_CONV_KERNEL=1` does in its train step too
+(the raw convs of train-mode BN; the frozen trunk takes no grad).
 """
 
 from __future__ import annotations
@@ -49,8 +52,10 @@ class OmniEngine:
         seed: int = 42,
         augment: bool = True,
         device="cuda",
+        conv_kernel: bool = False,
     ):
         self.model = model
+        self.conv_kernel = conv_kernel
         self.cfg = model.cfg
         self.train_cfg = train_cfg
         self.device = torch.device(device)
@@ -90,7 +95,8 @@ class OmniEngine:
         mode = is_train and self.augment
         losses = self.model.train_losses(self._params(), proc, rate_a, rate_v, trim_len,
                                          train_mode=mode,
-                                         generator=self.generator if mode else None)
+                                         generator=self.generator if mode else None,
+                                         conv_kernel=self.conv_kernel)
         total = (losses["audio"] + losses["video"] + losses["audiovisual"]) / 3.0
         return total, losses
 

@@ -249,3 +249,85 @@ def test_flash_attention_bwd_rejects_bad_input(cuda_device):
         flash_attention_bwd(s, s, s, s, s, lse)
     with pytest.raises(ValueError, match="dropout_seed"):
         flash_attention_bwd(t, t, t, t, t, lse, dropout_rate=0.1)
+
+
+# B5: chunk maxima and the row max are exact on both sides; the normaliser
+# is summed in another order (per block, online against a running max).
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,V", [(45, 128256), (8, 128256), (13, 16384), (1, 128), (3, 1280)])
+def test_row_stats_kernel_matches_plain(cuda_device, R, V):
+    from omni_avsr_tpu_torch.ops.select_topk import row_stats_chunkmax, row_stats_chunkmax_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(R + V)
+    x = torch.randn(R, V, generator=g, device=cuda_device) * 4
+    before = row_stats_chunkmax.launches
+    cm, mx, se = row_stats_chunkmax(x)
+    assert row_stats_chunkmax.launches == before + 1
+    rcm, rmx, rse = row_stats_chunkmax_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(cm, rcm) and torch.equal(mx, rmx)
+    torch.testing.assert_close(se, rse, atol=0.0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_row_stats_rejects_bad_input(cuda_device):
+    from omni_avsr_tpu_torch.ops.select_topk import row_stats_chunkmax
+
+    x = torch.zeros(4, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        row_stats_chunkmax(x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        row_stats_chunkmax(torch.zeros(256, 4, device=cuda_device).t())
+
+
+# B7: bf16 operands, f32 accumulators on both sides; the kernel sums in
+# another order and stores bf16 (or f32 for an f32 x).
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,H,Cin,Cout,k,stride,pad,affine,act,res,x_f32", [
+    (480, 22, 64, 64, 3, 1, 1, True, True, True, False),    # layer1 conv2
+    (480, 22, 64, 128, 3, 2, 1, True, True, False, False),  # layer2 conv1
+    (480, 22, 64, 128, 1, 2, 0, True, False, False, False),  # layer2 downsample
+    (480, 3, 512, 512, 3, 1, 1, True, True, True, False),   # layer4 conv2, K 4608
+    (37, 11, 128, 128, 3, 1, 1, False, False, False, False),  # raw train conv, ragged M
+    (5, 7, 24, 40, 3, 2, 1, True, True, False, True),       # f32 x, Cin 24, Cout 40
+    (3, 6, 16, 32, 1, 1, 0, True, False, True, True),       # f32 x and residual
+])
+def test_conv_block_kernel_matches_plain(cuda_device, F, H, Cin, Cout, k, stride, pad, affine,
+                                         act, res, x_f32):
+    from omni_avsr_tpu_torch.ops.conv_block import FusedConv, conv2d_fused, conv2d_fused_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(F + H + Cin + Cout + k)
+    dt = torch.float32 if x_f32 else torch.bfloat16
+    Ho = (H + 2 * pad - k) // stride + 1
+    x = (torch.randn(F, H, H, Cin, generator=g, device=cuda_device) * 0.5).to(dt)
+    w = (torch.randn(k, k, Cin, Cout, generator=g, device=cuda_device) * (2.0 / (k * k * Cin)) ** 0.5
+         ).to(torch.bfloat16)
+    scale = torch.rand(Cout, generator=g, device=cuda_device) + 0.5 if affine else None
+    bias = torch.randn(Cout, generator=g, device=cuda_device) * 0.1 if affine else None
+    a = torch.rand(Cout, generator=g, device=cuda_device) * 0.25 if act else None
+    r = torch.randn(F, Ho, Ho, Cout, generator=g, device=cuda_device).to(dt) if res else None
+    before = conv2d_fused.launches
+    out = conv2d_fused(x, w, stride, pad, scale, bias, a, r)
+    assert conv2d_fused.launches == before + 1
+    ref = conv2d_fused_plain(x, w, stride, pad, scale, bias, a, r)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype == dt and out.shape == ref.shape == (F, Ho, Ho, Cout)
+    tol = dict(atol=1e-3, rtol=1e-3) if x_f32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    # the autograd function's forward is the kernel
+    y = FusedConv.apply(x, w, scale, bias, a, r, stride, pad)
+    assert conv2d_fused.launches == before + 2
+    torch.testing.assert_close(y.float(), out.float(), atol=0.0, rtol=0.0)
+
+
+@pytest.mark.cuda
+def test_conv_block_rejects_bad_input(cuda_device):
+    from omni_avsr_tpu_torch.ops.conv_block import conv2d_fused
+
+    x = torch.zeros(2, 8, 8, 12, dtype=torch.bfloat16, device=cuda_device)
+    w = torch.zeros(3, 3, 12, 16, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv2d_fused(x, w, 1, 1)
+    x16 = torch.zeros(2, 8, 8, 16, dtype=torch.float16, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        conv2d_fused(x16, w[:, :, :1].expand(3, 3, 16, 16), 1, 1)

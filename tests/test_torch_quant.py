@@ -200,3 +200,22 @@ def test_int4_linear_and_lm_head():
     ours = lm_head(tp, cfg, torch.from_numpy(x))
     assert ours.dtype == torch.float32 and ours.shape == (3, 5, 700)
     np.testing.assert_allclose(ours.numpy(), ref, **QMM_TOL)
+
+
+@pytest.mark.parametrize("vocab", [256, 261])
+def test_tied_lm_head_codes_are_contiguous(vocab):
+    """The tied lm_head is quantised from the embedding's transpose; its
+    codes must be contiguous (B2 reads them row by row) also at a width
+    that `align_int8_columns` leaves unpadded, like Llama-3's 128256."""
+    from omni_avsr_tpu_torch.ops.quant import (
+        align_int8_columns,
+        quantize_llm_params,
+        quantize_per_channel,
+    )
+
+    embed = torch.randn(vocab, 32, generator=torch.Generator().manual_seed(vocab))
+    llm = {"embed": {"w": embed}, "layers": {"attn": {}, "mlp": {}}}
+    head = align_int8_columns(quantize_llm_params(llm))["lm_head"]
+    assert head["w"].is_contiguous() and head["s"].shape == (vocab,)
+    np.testing.assert_array_equal(head["w"][:, :vocab].numpy(),
+                                  quantize_per_channel(embed.t().contiguous())["w"].numpy())

@@ -134,7 +134,8 @@ def test_no_jax_imports(target):
     if target.endswith("torch"):  # the walk reaches every module, the training slice's too
         names = {str(f.relative_to(ROOT / target)) for f in files}
         assert {"train/engine.py", "train/state.py", "train/optim.py", "train/checkpoint.py",
-                "ops/flash_attention_bwd.py", "decode/decoding.py"} <= names
+                "ops/flash_attention_bwd.py", "decode/decoding.py", "ops/select_topk.py",
+                "ops/conv_block.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]

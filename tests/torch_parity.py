@@ -71,3 +71,24 @@ def jax_in_f32(monkeypatch):
     for fn in (jdec.beam_search, jdec.greedy_decode):
         monkeypatch.setitem(fn.__kwdefaults__, "cache_dtype", jnp.float32)
 
+
+
+def jax_conv_kernel(monkeypatch):
+    """Route the JAX package's `fused_conv` (which takes its XLA reference
+    off the TPU) through its Pallas kernel B7, `conv2d_fused_pallas`, in
+    interpret mode, as `OMNI_CONV_KERNEL=1` routes it on the TPU. The
+    operands are rounded to bf16 first with the true bf16 type, which is
+    what the kernel does itself: under `jax_in_f32` its own cast names the
+    redirected `jnp.bfloat16` and would keep them in f32. Only this test
+    process's name is redirected, and restored after."""
+    import omni_avsr_tpu.ops.conv_block as jcb
+
+    kernel = jcb.conv2d_fused_pallas
+    bf16 = jnp.dtype("bfloat16")
+
+    def fused_conv(x, w, stride=1, pad=1, scale=None, bias=None, prelu_a=None, residual=None):
+        x = x.astype(bf16).astype(x.dtype)
+        w = w.astype(bf16).astype(w.dtype)
+        return kernel(x, w, stride, pad, scale, bias, prelu_a, residual, interpret=True)
+
+    monkeypatch.setattr(jcb, "fused_conv", fused_conv)
