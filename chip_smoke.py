@@ -6,7 +6,8 @@
 Phases, each printing lines with the elapsed seconds:
   1. the card: name and power limit, from nvidia-smi;
   2. the nvcc build of every kernel source in omni_avsr_tpu_torch/csrc/,
-     one nvcc per source, all started together;
+     one nvcc per source, all started together, and ptxas's registers,
+     shared memory and spills of the kernels this slice rebuilt (B2, B4);
   3. each kernel against its plain PyTorch version at the shapes the
      serving and training paths give it, with its time, the plain
      version's, a PyTorch library call's and the card's lower bound for
@@ -15,9 +16,11 @@ Phases, each printing lines with the elapsed seconds:
      the one beam of greedy decoding), B3 flash attention (Whisper's 30 s
      window, AV-HuBERT, and causal / key-length / GQA / D 128 / lse /
      dropout cases), B4 flash backward (AV-HuBERT's training shape with
-     key lengths and dropout 0.1, the LLM's causal GQA shape), B2 and B6
-     int8 and packed-int4 matmuls (every decode matrix, the lm_head with
-     f32 logits, a tower matrix), B5 the beam-selection row statistics (45
+     key lengths and dropout 0.1, the LLM's causal GQA shape; three calls
+     under the profiler must run its two kernels and nothing else), B2 and
+     B6 int8 and packed-int4 matmuls (every decode matrix, the lm_head with
+     f32 logits, a tower matrix; B2 in the card layout of
+     `arrange_int8_for_card`), B5 the beam-selection row statistics (45
      rows of Llama-3's 128256-token vocabulary, and 8 and 13 rows), B7 the
      fused ResNet conv (each of the trunk's conv geometries and epilogues
      at 480 frames, summed over the 19 convs of one trunk);
@@ -38,7 +41,11 @@ Phases, each printing lines with the elapsed seconds:
      median reported); every kernel counter is set to 0 just before each
      measured batch, read just after, and held to the count the path must
      give;
-  5. reference checks at full width: the prefill and the first decode
+  5. B2 at every distinct (M, K, N) that one measured batch of (a) and of
+     (b) launched it with (the wrapper counts launches by shape), each
+     against its plain version, timed beside cuBLAS's bf16 product and the
+     bound, and summed over the batch's tower, prefill and decode launches;
+     then reference checks at full width: the prefill and the first decode
      steps through the kernels and through the plain versions (int8 and
      int4), one Whisper layer at T = 1500 through B3 and through its
      plain version, the ResNet of (d)'s batch (480 frames) through B7 and
@@ -67,6 +74,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -394,6 +402,18 @@ def check_b4(flush):
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
         row["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         row["operations_bound_ms"] = flops / BF16_FLOPS * 1e3
+        # the wrapper allocates and launches its two kernels, and runs no other
+        # op: three warm calls under the profiler show those two names alone
+        acts = device_activities(lambda: [flash_attention_bwd(q, k, v, o, do, lse, **kw)
+                                          for _ in range(3)])
+        by_name: dict = {}
+        for n, us in acts:
+            by_name.setdefault((re.search(r"(\w+)<", n) or re.search(r"(\w+)\(", n)).group(1),
+                               []).append(us)
+        if sorted(by_name) != ["flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"] or len(acts) > 6:
+            raise RuntimeError(f"B4 {name}: three calls ran the device work {acts}, not the "
+                               f"two kernels alone")
+        row["device_kernels_us"] = {n: sum(v) / len(v) for n, v in by_name.items()}
         log("B4", json.dumps(row))
         rows.append(row)
         profile_batch(f"B4 {name}", lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw))
@@ -414,7 +434,7 @@ def check_qmm(flush, int4: bool, vocab: int):
     import torch
 
     from omni_avsr_tpu_torch.ops.quant import (
-        align_int8_columns,
+        arrange_int8_for_card,
         pack_int4,
         quantize_per_channel,
         quantized_matmul,
@@ -437,7 +457,7 @@ def check_qmm(flush, int4: bool, vocab: int):
         x = torch.randn(M, Kd, generator=g, device=DEV).to(torch.bfloat16)
         q = quantize_per_channel(w, bits=4 if int4 else 8)
         del w
-        leaf = pack_int4(q) if int4 else align_int8_columns(q)  # the serving layout
+        leaf = pack_int4(q) if int4 else arrange_int8_for_card(q)  # the serving layout
         out_dtype = torch.float32 if name == "lm_head" else None
         out = kernel(x, leaf, out_dtype=out_dtype)
         ref = plain(x, leaf, out_dtype=out_dtype)
@@ -458,7 +478,9 @@ def check_qmm(flush, int4: bool, vocab: int):
                    library_ms=time_ms(lambda: x @ w_bf16, flush))
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
         log(label, json.dumps(row))
-        if name != TOWER_MAT[0]:
+        if name == TOWER_MAT[0]:
+            step["tower"] = row
+        else:
             reps = 1 if name == "lm_head" else 16
             for key in ("ms", "plain_ms", "old_route_ms", "library_ms", "bound_ms"):
                 step[key] += reps * row[key]
@@ -473,6 +495,75 @@ def check_qmm(flush, int4: bool, vocab: int):
         f"(2 bytes per weight) {step['library_ms']:.4f} ms, "
         f"bound {step['bound_ms']:.4f} ms ({step['bound_by']}); max_abs_err {max_err:.3g}")
     return step
+
+
+def b2_stage(M: int, Kd: int, Nd: int, vocab: int, llm_dims) -> str:
+    """Which stage of a served batch runs B2 at (M, K, N): the decode steps
+    (M = 3 requests x 15 beams, with their lm_head), the LLM prefill (the
+    LLM's widths, and the lm_head of the last prefix token) or the towers."""
+    if M == B_SERVE * K:
+        return "decode"
+    if Nd == vocab or Kd in llm_dims:
+        return "prefill"
+    return "tower"
+
+
+def b2_per_batch(flush, label: str, shapes, vocab: int, llm_dims):
+    """B2 at every distinct (M, K, N) that one served batch launched it
+    with, each against its plain version, timed (cold L2) beside cuBLAS's
+    bf16 product on the dequantised weight and the bound; summed over the
+    batch's launches by stage. Returns {stage: sums} and the shape rows."""
+    import torch
+
+    from omni_avsr_tpu_torch.ops.quant import (
+        arrange_int8_for_card,
+        quantize_per_channel,
+        quantized_matmul,
+        quantized_matmul_plain,
+    )
+
+    sums = {st: dict(launches=0, ms=0.0, library_ms=0.0, bound_ms=0.0, nbytes=0.0, flops=0.0)
+            for st in ("tower", "prefill", "decode", "batch")}
+    rows = []
+    for (M, Kd, Nd), count in shapes:
+        g = torch.Generator(device=DEV).manual_seed(M + Kd + Nd)
+        w = torch.randn(Kd, Nd, generator=g, device=DEV) * 0.02
+        x = torch.randn(M, Kd, generator=g, device=DEV).to(torch.bfloat16)
+        q = quantize_per_channel(w)
+        del w
+        w_bf16 = (q["w"].float() * q["s"]).to(torch.bfloat16)
+        leaf = arrange_int8_for_card(q)
+        del q
+        out_dtype = torch.float32 if Nd == vocab else None
+        out = quantized_matmul(x, leaf, out_dtype=out_dtype)
+        ref = quantized_matmul_plain(x, leaf, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **(F32_OUT_TOL if out_dtype else BF16_TOL))
+        nbytes = M * Kd * 2 + Kd * Nd + Nd * 4 + M * Nd * (4 if out_dtype else 2)
+        flops = 2.0 * M * Kd * Nd
+        stage = b2_stage(M, Kd, Nd, vocab, llm_dims)
+        row = dict(stage=stage, M=M, K=Kd, N=Nd, launches=count,
+                   max_abs_err=(out.float() - ref.float()).abs().max().item(),
+                   ms=time_ms(lambda: quantized_matmul(x, leaf, out_dtype=out_dtype), flush),
+                   library_ms=time_ms(lambda: x @ w_bf16, flush))
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        rows.append(row)
+        log("B2", f"{label}: {json.dumps(row)}")
+        for st in (stage, "batch"):
+            for key in ("ms", "library_ms", "bound_ms"):
+                sums[st][key] += count * row[key]
+            sums[st]["launches"] += count
+            sums[st]["nbytes"] += count * nbytes
+            sums[st]["flops"] += count * flops
+        del x, leaf, w_bf16, out, ref
+    torch.cuda.empty_cache()
+    for st, v in sums.items():
+        v["bound_by"] = bound_ms(v["nbytes"], v["flops"])[1] if v["launches"] else None
+        log("B2", f"{label}, one batch, {st}: {v['launches']} launches, kernel "
+            f"{v['ms']:.4f} ms, cuBLAS bf16 {v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+            f"({v['bound_by']})")
+    return sums, rows
 
 
 # ------------------------------------------------------------------ B5, B7
@@ -643,6 +734,14 @@ def counters():
             "B7": conv2d_fused}
 
 
+def reset_counts(fns) -> None:
+    """Every kernel counter to 0, and B2's count by (M, K, N)."""
+    for fn in fns.values():
+        fn.launches = 0
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()
+
+
 def counts(**launches):
     """Every kernel's expected launches, 0 where not named."""
     return {key: launches.get(key, 0) for key in ("B1", "B2", "B3", "B4", "B5", "B6", "B7")}
@@ -687,8 +786,7 @@ def serve(label: str, server, items, expected, repeats: int = SERVE_REPEATS, **k
     fns = counters()
     times = []
     for _ in range(repeats):
-        for fn in fns.values():
-            fn.launches = 0
+        reset_counts(fns)
         t = time.perf_counter()
         texts = server.transcribe_many(items, **kw)
         torch.cuda.synchronize()
@@ -708,8 +806,9 @@ def serve(label: str, server, items, expected, repeats: int = SERVE_REPEATS, **k
     row = dict(config=label, requests=len(items), audio_s=audio_s, batch_s=dt,
                batch_s_each=times, s_per_request=dt / len(items), audio_s_per_s=audio_s / dt,
                decode_steps=steps, launches=launches,
+               b2_shapes=sorted(fns["B2"].shapes.items()),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log("serve", json.dumps(row))
+    log("serve", json.dumps({k: v for k, v in row.items() if k != "b2_shapes"}))
     for i, s in enumerate(texts):
         log("serve", f"{label} request {i}: {s[:120]}")
     return row
@@ -986,8 +1085,7 @@ def train_phase():
     fns = counters()
     times, losses, launches_each, video_layers = [], [], [], []
     for _ in range(3):
-        for fn in fns.values():
-            fn.launches = 0
+        reset_counts(fns)
         t = time.perf_counter()
         loss = float(step())  # a host sync: the step has ended on the device
         times.append(time.perf_counter() - t)
@@ -1020,8 +1118,7 @@ def train_phase():
     result = {}
     for route in ("kernel", "plain"):
         with plain_train_route() if route == "plain" else contextlib.nullcontext():
-            for fn in fns.values():
-                fn.launches = 0
+            reset_counts(fns)
             engine.generator.manual_seed(20261017)
             total, _ = engine._loss(arrays, 4, 2, trim_len, is_train=True)
             grads = torch.autograd.grad(total, leaves, allow_unused=True)
@@ -1049,8 +1146,7 @@ def train_phase():
                         device=DEV, conv_kernel=True)
     del params
     engine.sample_rates = lambda: (4, 2)
-    for fn in fns.values():
-        fn.launches = 0
+    reset_counts(fns)
     t = time.perf_counter()
     loss = float(engine.train_step({**batch, "audio_trim_len": trim}))
     dt = time.perf_counter() - t
@@ -1068,6 +1164,20 @@ def train_phase():
     del engine
     torch.cuda.empty_cache()
     return row, agree, conv_row
+
+
+def device_activities(run):
+    """(name, device us) of each device activity that one call of `run`
+    starts, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def profile_batch(label: str, run) -> None:
@@ -1126,6 +1236,9 @@ def main() -> int:
     kernels.build_all(sources)
     log("build", f"nvcc {sources} in {time.perf_counter() - t:.2f} s (one nvcc per source, "
         f"in parallel)")
+    for name in ("quant_matmul", "flash_attention_bwd"):  # the kernels this slice rebuilt
+        for row in kernels.ptxas_report(name):
+            log("ptxas", f"{name}: {json.dumps(row)}")
 
     # the three serving configurations' models and requests
     model_a = flagship(tiny=False, whisper_input_mode="pad30s")
@@ -1149,7 +1262,6 @@ def main() -> int:
     b6 = check_qmm(flush, int4=True, vocab=vocab)
     b5 = check_b5(flush)
     b7 = check_b7(flush)
-    del flush
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
@@ -1191,6 +1303,15 @@ def main() -> int:
         raise RuntimeError(f"Whisper layer at T 1500: B3 vs plain relative L2 {rel:.3g}")
     log("reference", f"one full-width Whisper layer at T 1500, B 3: B3 vs plain attention: "
         f"relative L2 difference {rel:.3g} (tol {REL_L2_TOL})")
+
+    # B2 at every shape of one (a) and one (b) batch, summed by stage
+    llm_dims = (model_a.cfg.llm.hidden_size, model_a.cfg.llm.intermediate_size)
+    b2_batches = {}
+    for key in ("a", "b"):
+        sums, shape_rows = b2_per_batch(flush, rows[key]["config"], rows[key]["b2_shapes"],
+                                        vocab, llm_dims)
+        b2_batches[key] = dict(config=rows[key]["config"], by_stage=sums, shapes=shape_rows)
+    del flush
 
     profile_batch("(a) pad30s int8", lambda: server_a.transcribe_many(items_a))
     profile_batch("(b) bucket int8", lambda: server_b.transcribe_many(items_b))
@@ -1241,9 +1362,14 @@ def main() -> int:
                  "omni_avsr_tpu/ops/beam_attention.py:51", b1, "b",
                  "per launch: B 3 x 15 beams, P 176, step 17"),
          "one_beam": b1_greedy},
-        entry("B2", "quantized_matmul", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
-              "omni_avsr_tpu/ops/quant.py:54", b2, "b",
-              "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head"),
+        {**entry("B2", "quantized_matmul", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
+                 "omni_avsr_tpu/ops/quant.py:54", b2, "b",
+                 "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head; tower_ms and "
+                 "prefill_ms: one (b) batch's tower and prefill launches, summed"),
+         "tower_ms": b2_batches["b"]["by_stage"]["tower"]["ms"],
+         "prefill_ms": b2_batches["b"]["by_stage"]["prefill"]["ms"],
+         "per_batch": {k: v["by_stage"] for k, v in b2_batches.items()},
+         "tower_fc1_m4500": b2["tower"]},
         entry("B3", "flash_attention", "omni_avsr_tpu_torch/csrc/flash_attention.cu",
               "omni_avsr_tpu/ops/flash_attention.py:58", b3, "a",
               "per launch: Whisper 30 s window, B 3, 16 heads, T = S = 1500, D 64"),

@@ -10,26 +10,38 @@
 //   p  = exp(q k^T * scale - lse), 0 where masked;
 //   dv = p_drop^T d_out, with p_drop = keep ? p / (1 - rate) : 0;
 //   dp = (d_out v^T) * keep / (1 - rate);
-//   ds = p * (dp - dsum) * scale, dsum = rowsum(d_out * out) (the wrapper);
+//   ds = p * (dp - dsum) * scale, dsum = rowsum(d_out * out) (the dq kernel);
 //   dq = ds k, dk = ds^T q.
 // p_drop and ds are rounded to bf16 for their products, as the TPU kernels
 // round them to the input dtype. The keep mask is the forward's
 // (keep_mask.cuh), so both directions drop the same probabilities.
 //
-// Design: two kernels of 4 warps, launched one after the other.
-//   - dq: one block per (64-query tile, batch * q-head); each warp owns 16
-//     query rows and keeps their q and d_out fragments in registers. The
-//     block walks 64-key tiles of its kv head, K and V double-buffered in
-//     shared memory with cp.async; S = q k^T and dP = d_out v^T are bf16
-//     mma.sync with f32 accumulators, dS goes from those accumulators
-//     straight into the A fragments of dS k.
-//   - dk/dv: one block per (64-key tile, batch * q-head); each warp owns 16
-//     keys and keeps their k and v fragments in registers, and the block
-//     walks 64-query tiles of q, d_out, lse and dsum. It computes S^T and
-//     dP^T with keys as rows, so P^T and dS^T are A fragments of
-//     P_drop^T d_out and dS^T q. It writes dk and dv per QUERY head in f32;
-//     the wrapper sums them over the GQA group, as the TPU version does in
-//     XLA: no atomics, the same result on every run.
+// Design: two kernels, launched one after the other on the same stream;
+// the wrapper allocates dq, dk, dv and the dsum buffer and runs no other op.
+// Every product is a Hopper wgmma (m64, f32 accumulators): q, k, v and
+// d_out tiles of 64 rows reach shared memory by cp.async in the 128-byte
+// swizzle that wgmma's descriptors read, in 64-column blocks; S and dP
+// come from two shared-memory operands, and P (dropped) and dS go from
+// their accumulators straight into registers as the A operand of the
+// products that follow, against a k, q or d_out tile read transposed.
+//   - dq: one warpgroup per (64-query tile, batch * q-head). It loads the
+//     tile's q, d_out and out, computes dsum = rowsum(d_out * out) in f32
+//     for its rows and stores it to a (B * Hq, T) buffer for the second
+//     kernel. It walks the 64-key tiles of its kv head, K and V
+//     double-buffered: S = q k^T and dP = d_out v^T (SS), dS in registers,
+//     dq += dS k (RS, k transposed).
+//   - dk/dv: one block of two warpgroups per (64-key tile, batch * KV
+//     head). The block walks the G query heads of the kv head's group and,
+//     for each, the query tiles that see its keys, reading q, d_out, lse
+//     and the first kernel's dsum; warpgroup w takes every other one of
+//     these steps, with its own double-buffered tiles and barrier. Each
+//     step: S^T = k q^T and dP^T = v d_out^T (SS, keys as rows), P_drop^T
+//     and dS^T in registers, dv += P_drop^T d_out and dk += dS^T q (RS,
+//     d_out and q transposed). dk and dv stay in f32 registers over the
+//     whole group; the two warpgroups' sums are added through shared memory
+//     at the end, and the block stores dk and dv once, in bf16. The GQA sum
+//     happens in the kernel, in a fixed order: no atomics and no
+//     per-query-head buffer, the same result on every run.
 // Under `causal`, tiles that are wholly masked are skipped (the key loop of
 // dq ends at the tile's last query, the query loop of dk/dv starts at the
 // tile's first key), and both loops end at the key length.
@@ -40,11 +52,10 @@
 // (5 us at 989 TFLOP/s) against 29 MB of q, k, v, out, d_out, lse, dq, dk
 // and dv (9 us at 3.35 TB/s); at AV-HuBERT's (B 4, 16 heads, T = S = 320)
 // 4.2 GFLOP (4 us) against 21 MB (6 us): both bound by bytes on paper, and
-// by launch and latency in practice at these small sizes. These two
-// kernels do 7 products, not 5 (S and dP in both), and move the f32
-// per-head dk/dv as well: the price of needing neither atomics nor a
-// stored P. mma.sync from ldmatrix fragments reaches a fraction of the
-// wgmma peak; a wgmma/TMA version in one pass is later work.
+// by latency in practice at these small sizes: a step's five products
+// depend on one another through registers, so a warpgroup waits on each.
+// These two kernels do 7 products, not 5 (S and dP in both): the price of
+// needing neither atomics nor a stored P.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,24 +63,27 @@
 
 #include "keep_mask.cuh"
 #include "mma_sm80.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
 constexpr int BQ = 64;   // query rows per tile
 constexpr int BKV = 64;  // keys per tile
-constexpr int THREADS = 128;
+constexpr int DQ_THREADS = 128;   // one warpgroup
+constexpr int DKV_THREADS = 256;  // two warpgroups
 
 struct Args {
   const __nv_bfloat16* q;     // (B, T, Hq, D)
   const __nv_bfloat16* k;     // (B, S, Hkv, D)
   const __nv_bfloat16* v;     // (B, S, Hkv, D)
+  const __nv_bfloat16* o;     // (B, T, Hq, D): the forward's output
   const __nv_bfloat16* dout;  // (B, T, Hq, D)
   const float* lse;           // (B * Hq, T)
-  const float* dsum;          // (B * Hq, T)
+  float* dsum;                // (B * Hq, T): written by dq, read by dk/dv
   const int32_t* kv_lens;     // (B,) or null
   __nv_bfloat16* dq;          // (B, T, Hq, D)
-  float* dk;                  // (B, S, Hq, D): per query head
-  float* dv;                  // (B, S, Hq, D): per query head
+  __nv_bfloat16* dk;          // (B, S, Hkv, D)
+  __nv_bfloat16* dv;          // (B, S, Hkv, D)
   int T, S, Hq, Hkv;
   float scale;
   int causal, dropout;
@@ -78,18 +92,64 @@ struct Args {
   float keep_scale;
 };
 
-// Copies `rows` rows of D bf16 starting at row r0 of a (rows_total, stride)
-// matrix into a padded shared tile, zero-filling rows past `limit`.
+// A tile of 64 rows x D bf16 in shared memory: 64-column blocks of 64 rows
+// x 128 bytes (8 KB), the 16-byte chunk c of row r at chunk c ^ (r % 8).
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
+constexpr int TILE = 64 * D * 2;
+
+// The byte offset of 16-byte chunk cc (columns 8 cc .. 8 cc + 7) of row r.
+__device__ __forceinline__ int swz(int r, int cc) {
+  return (cc >> 3) * 8192 + r * 128 + (((cc & 7) ^ (r & 7)) << 4);
+}
+
+// Copies rows r0 .. r0 + 63 of a (rows_total, stride) matrix into a tile,
+// zero-filling rows past `limit`.
+template <int D, int THREADS>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const __nv_bfloat16* base,
                                           const __nv_bfloat16* any_valid, size_t stride, int r0,
                                           int limit, int tid) {
-  constexpr int LD = D + 8, ROW_CHUNKS = D / 8;
-  for (int i = tid; i < 64 * ROW_CHUNKS; i += THREADS) {
-    const int r = i / ROW_CHUNKS, c = (i % ROW_CHUNKS) * 8;
+  constexpr int CH = D / 8;
+  for (int i = tid; i < 64 * CH; i += THREADS) {
+    const int r = i / CH, cc = i % CH;
     const bool ok = r0 + r < limit;
-    port::cp_async16(dst + r * LD + c, ok ? base + (size_t)(r0 + r) * stride + c : any_valid, ok);
+    port::cp_async16(dst + swz(r, cc), ok ? base + (size_t)(r0 + r) * stride + cc * 8 : any_valid,
+                     ok);
   }
+}
+
+// cp.async writes (generic proxy) become visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A tile as a K-major operand (its rows are m or n, its columns k): the
+// 16-deep step kk.
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int kk) {
+  return port::wgmma_desc_sw128(port::smem_addr(tile) + (kk >> 2) * 8192 + (kk & 3) * 32);
+}
+
+// A tile as the transposed B operand (its rows are k, its columns n): the
+// 16-deep step c (rows 16 c ..), 64-column blocks 8 KB apart.
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int c) {
+  return port::wgmma_desc_sw128(port::smem_addr(tile) + c * 2048, 8192);
+}
+
+// The A fragment of 16-deep step c from an m64n64 accumulator (columns
+// 16 c .. 16 c + 15 become k), rounded to bf16.
+__device__ __forceinline__ void acc_to_a(const float (&d)[32], int c, uint32_t (&a)[4]) {
+  a[0] = port::pack_bf16x2(d[8 * c], d[8 * c + 1]);
+  a[1] = port::pack_bf16x2(d[8 * c + 2], d[8 * c + 3]);
+  a[2] = port::pack_bf16x2(d[8 * c + 4], d[8 * c + 5]);
+  a[3] = port::pack_bf16x2(d[8 * c + 6], d[8 * c + 7]);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~(uintptr_t)1023);
 }
 
 __device__ __forceinline__ int key_limit(const Args& a, int b) {
@@ -97,20 +157,21 @@ __device__ __forceinline__ int key_limit(const Args& a, int b) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Args a) {
-  constexpr int LD = D + 8;
-  constexpr int KSTEPS = D / 16;
-  constexpr int DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sDO = sQ + BQ * LD;
-  __nv_bfloat16* sK = sDO + BQ * LD;      // 2 stages
-  __nv_bfloat16* sV = sK + 2 * BKV * LD;  // 2 stages
+__global__ void __launch_bounds__(DQ_THREADS) flash_bwd_dq_kernel(const Args a) {
+  constexpr int TB = TILE<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);
+  unsigned char* sDO = sQ + TB;
+  unsigned char* sO = sDO + TB;
+  unsigned char* sK = sO + TB;       // 2 stages
+  unsigned char* sV = sK + 2 * TB;   // 2 stages
+  float* sDsum = reinterpret_cast<float*>(sV + 2 * TB);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.y;
+  // the last query tiles first: under `causal` they see the most keys
+  const int bh = blockIdx.x % (gridDim.x / ((a.T + BQ - 1) / BQ));
+  const int q0 = ((a.T + BQ - 1) / BQ - 1 - blockIdx.x / (gridDim.x / ((a.T + BQ - 1) / BQ))) * BQ;
   const int b = bh / a.Hq, h = bh % a.Hq, hkv = h / (a.Hq / a.Hkv);
-  const int q0 = blockIdx.x * BQ;
   const int T = a.T, S = a.S;
 
   const int kv_limit = key_limit(a, b);
@@ -120,14 +181,41 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Args a) {
   const size_t q_stride = (size_t)a.Hq * D, kv_stride = (size_t)a.Hkv * D;
   const size_t q_off = ((size_t)b * T * a.Hq + h) * D;
   const size_t kv_off = ((size_t)b * S * a.Hkv + hkv) * D;
-  load_tile<D>(sQ, a.q + q_off, a.q, q_stride, q0, T, tid);
-  load_tile<D>(sDO, a.dout + q_off, a.dout, q_stride, q0, T, tid);
+  load_tile<D, DQ_THREADS>(sQ, a.q + q_off, a.q, q_stride, q0, T, tid);
+  load_tile<D, DQ_THREADS>(sDO, a.dout + q_off, a.dout, q_stride, q0, T, tid);
+  load_tile<D, DQ_THREADS>(sO, a.o + q_off, a.o, q_stride, q0, T, tid);
   auto load_kv = [&](int stage, int tile) {
-    load_tile<D>(sK + stage * BKV * LD, a.k + kv_off, a.k, kv_stride, tile * BKV, S, tid);
-    load_tile<D>(sV + stage * BKV * LD, a.v + kv_off, a.v, kv_stride, tile * BKV, S, tid);
+    load_tile<D, DQ_THREADS>(sK + stage * TB, a.k + kv_off, a.k, kv_stride, tile * BKV, S, tid);
+    load_tile<D, DQ_THREADS>(sV + stage * TB, a.v + kv_off, a.v, kv_stride, tile * BKV, S, tid);
   };
   if (n_tiles > 0) load_kv(0, 0);
   port::cp_async_commit();
+  port::cp_async_wait<0>();
+  __syncthreads();
+
+  // dsum = rowsum(d_out * out) in f32: two threads per row, each half of D
+  {
+    const int r = tid >> 1;
+    float acc = 0.f;
+#pragma unroll
+    for (int cc = (tid & 1) * (D / 16); cc < ((tid & 1) + 1) * (D / 16); ++cc) {
+      const uint4 d4 = *reinterpret_cast<const uint4*>(sDO + swz(r, cc));
+      const uint4 o4 = *reinterpret_cast<const uint4*>(sO + swz(r, cc));
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d4);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 df = __bfloat1622float2(d2[i]), of = __bfloat1622float2(o2[i]);
+        acc += df.x * of.x + df.y * of.y;
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((tid & 1) == 0) {
+      sDsum[r] = acc;
+      if (q0 + r < T) a.dsum[(size_t)bh * T + q0 + r] = acc;
+    }
+  }
+  __syncthreads();  // sDsum written
 
   const int row0 = q0 + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
   float lse_r[2], dsum_r[2];
@@ -135,268 +223,236 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Args a) {
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + i * 8;
     lse_r[i] = row < T ? a.lse[(size_t)bh * T + row] : 0.f;
-    dsum_r[i] = row < T ? a.dsum[(size_t)bh * T + row] : 0.f;
+    dsum_r[i] = sDsum[row - q0];
   }
-  float acc[DT][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < DT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  uint32_t qf[KSTEPS][4], df[KSTEPS][4];
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   const uint32_t h_mix = (uint32_t)bh * 0x9E3779B9u;
 
   for (int t = 0; t < n_tiles; ++t) {
     port::cp_async_wait<0>();
-    __syncthreads();  // tile t (and at t = 0 the q, d_out tiles) landed; tile t-1 is consumed
+    fence_async();
+    __syncthreads();  // tile t landed; tile t-1 is consumed
     if (t + 1 < n_tiles) load_kv((t + 1) & 1, t + 1);
     port::cp_async_commit();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const int off = (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
-        port::ldmatrix_x4(qf[kk], sQ + off);
-        port::ldmatrix_x4(df[kk], sDO + off);
-      }
-    }
-    const __nv_bfloat16* tK = sK + (t & 1) * BKV * LD;
-    const __nv_bfloat16* tV = sV + (t & 1) * BKV * LD;
+    const unsigned char* tK = sK + (t & 1) * TB;
+    const unsigned char* tV = sV + (t & 1) * TB;
     const int j0 = t * BKV;
 
-    // S = q k^T and dP = d_out v^T, 16 rows x 64 keys per warp
-    float s[BKV / 8][4], dp[BKV / 8][4];
+    // S = q k^T and dP = d_out v^T: 64 queries x 64 keys
+    float s[32], dp[32];
+    port::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < BKV / 8; ++n)
+    for (int kk = 0; kk < D / 16; ++kk)
+      port::WgmmaSS<64>::mma(s, desc_k(sQ, kk), desc_k(tK, kk), kk > 0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BKV / 16; ++np) {
-        uint32_t r[4];
-        const int off = (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                        ((lane >> 3) & 1) * 8;
-        port::ldmatrix_x4(r, tK + off);
-        port::mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
-        port::mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
-        port::ldmatrix_x4(r, tV + off);
-        port::mma_bf16(dp[2 * np], df[kk], r[0], r[1]);
-        port::mma_bf16(dp[2 * np + 1], df[kk], r[2], r[3]);
-      }
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      port::WgmmaSS<64>::mma(dp, desc_k(sDO, kk), desc_k(tV, kk), kk > 0);
+    port::wgmma_commit();
+    port::wgmma_wait<0>();
 
     // dS = p * (dp * keep / (1 - rate) - dsum) * scale, kept in s
 #pragma unroll
-    for (int n = 0; n < BKV / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j0 + n * 8 + 2 * (lane & 3) + (e & 1);
-        const int row = row0 + (e >> 1) * 8;
-        const bool valid = key < kv_limit && row < T && !(a.causal && key > row);
-        const float p = valid ? __expf(s[n][e] * a.scale - lse_r[e >> 1]) : 0.f;
-        float dpv = dp[n][e];
-        if (a.dropout)
-          dpv = port::keep_elem((uint32_t)row, (uint32_t)key, (uint32_t)S, h_mix, a.seed,
-                                a.thresh) ? dpv * a.keep_scale : 0.f;
-        s[n][e] = p * (dpv - dsum_r[e >> 1]) * a.scale;
-      }
+    for (int i = 0; i < 32; ++i) {
+      const int key = j0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const int r = (i >> 1) & 1, row = row0 + 8 * r;
+      const bool valid = key < kv_limit && row < T && !(a.causal && key > row);
+      const float p = valid ? __expf(s[i] * a.scale - lse_r[r]) : 0.f;
+      float dpv = dp[i];
+      if (a.dropout)
+        dpv = port::keep_elem((uint32_t)row, (uint32_t)key, (uint32_t)S, h_mix, a.seed,
+                              a.thresh) ? dpv * a.keep_scale : 0.f;
+      s[i] = p * (dpv - dsum_r[r]) * a.scale;
     }
 
-    // dq += dS k: the accumulators of key tiles 2c, 2c+1 are the A fragment
-    // of the c-th 16-key step
+    // dq += dS k, k read transposed (its rows are the keys)
+    port::wgmma_fence();
 #pragma unroll
     for (int c = 0; c < BKV / 16; ++c) {
       uint32_t af[4];
-      af[0] = port::pack_bf16x2(s[2 * c][0], s[2 * c][1]);
-      af[1] = port::pack_bf16x2(s[2 * c][2], s[2 * c][3]);
-      af[2] = port::pack_bf16x2(s[2 * c + 1][0], s[2 * c + 1][1]);
-      af[3] = port::pack_bf16x2(s[2 * c + 1][2], s[2 * c + 1][3]);
-#pragma unroll
-      for (int dp2 = 0; dp2 < DT / 2; ++dp2) {
-        uint32_t r[4];
-        const int krow = c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        port::ldmatrix_x4_trans(r, tK + krow * LD + dp2 * 16 + (lane >> 4) * 8);
-        port::mma_bf16(acc[2 * dp2], af, r[0], r[1]);
-        port::mma_bf16(acc[2 * dp2 + 1], af, r[2], r[3]);
-      }
+      acc_to_a(s, c, af);
+      port::WgmmaRS<D>::template mma<1>(acc, af, desc_mn(tK, c));
     }
+    port::wgmma_commit();
+    port::wgmma_wait<0>();
   }
   port::cp_async_wait<0>();
 
+  // acc[4j + 2r + e] = row row0 + 8r, column 8j + 2 (lane % 4) + e
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + i * 8;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
     if (row >= T) continue;
     __nv_bfloat16* drow = a.dq + ((size_t)b * T + row) * q_stride + (size_t)h * D;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const int d = dt * 8 + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(drow + d) = port::pack_bf16x2(acc[dt][2 * i], acc[dt][2 * i + 1]);
-    }
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(drow + 8 * j + 2 * (lane & 3)) =
+          port::pack_bf16x2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Args a) {
-  constexpr int LD = D + 8;
-  constexpr int KSTEPS = D / 16;
-  constexpr int DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + BKV * LD;
-  __nv_bfloat16* sQ = sV + BKV * LD;     // 2 stages
-  __nv_bfloat16* sDO = sQ + 2 * BQ * LD;  // 2 stages
-  float* sL = reinterpret_cast<float*>(sDO + 2 * BQ * LD);  // lse, 2 stages
-  float* sDs = sL + 2 * BQ;                                 // dsum, 2 stages
+__global__ void __launch_bounds__(DKV_THREADS) flash_bwd_dkv_kernel(const Args a) {
+  constexpr int TB = TILE<D>;
+  constexpr int WG_BYTES = 4 * TB + 4 * BQ * (int)sizeof(float);  // a warpgroup's ring
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = align1024(smem_raw);
+  unsigned char* sV = sK + TB;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.y;
-  const int b = bh / a.Hq, h = bh % a.Hq, hkv = h / (a.Hq / a.Hkv);
-  const int k0 = blockIdx.x * BKV;
+  const int wg = warp >> 2, wq = warp & 3, wtid = tid & 127;  // warpgroup, warp in it
+  // this warpgroup's ring: 2 stages of (q tile, d_out tile), then lse and dsum
+  unsigned char* sQ = sV + TB + wg * WG_BYTES;
+  unsigned char* sDO = sQ + 2 * TB;
+  float* sL = reinterpret_cast<float*>(sDO + 2 * TB);
+  float* sDs = sL + 2 * BQ;
+
+  // the first key tiles first: under `causal` the most queries see them
+  const int bkv = blockIdx.x % (gridDim.x / ((a.S + BKV - 1) / BKV));
+  const int k0 = blockIdx.x / (gridDim.x / ((a.S + BKV - 1) / BKV)) * BKV;
+  const int b = bkv / a.Hkv, hkv = bkv % a.Hkv;
+  const int G = a.Hq / a.Hkv;
   const int T = a.T, S = a.S;
 
   const int kv_limit = key_limit(a, b);
   const int q_end = k0 < kv_limit ? (T + BQ - 1) / BQ : 0;  // no valid key here: dk = dv = 0
   const int q_begin = a.causal ? k0 / BQ : 0;  // earlier queries see none of these keys
   const int n_q = max(0, q_end - q_begin);
+  const int n_it = G * n_q;  // (head of the group, query tile), heads outer
+  const int n_mine = (n_it - wg + 1) / 2;  // this warpgroup's steps: wg, wg + 2, ...
 
   const size_t q_stride = (size_t)a.Hq * D, kv_stride = (size_t)a.Hkv * D;
-  const size_t q_off = ((size_t)b * T * a.Hq + h) * D;
   const size_t kv_off = ((size_t)b * S * a.Hkv + hkv) * D;
-  load_tile<D>(sK, a.k + kv_off, a.k, kv_stride, k0, S, tid);
-  load_tile<D>(sV, a.v + kv_off, a.v, kv_stride, k0, S, tid);
-  auto load_q = [&](int stage, int tile) {
-    const int i0 = tile * BQ;
-    load_tile<D>(sQ + stage * BQ * LD, a.q + q_off, a.q, q_stride, i0, T, tid);
-    load_tile<D>(sDO + stage * BQ * LD, a.dout + q_off, a.dout, q_stride, i0, T, tid);
-    for (int r = tid; r < BQ; r += THREADS) {  // plain loads: the rows need not be aligned
-      const int row = i0 + r;
-      sL[stage * BQ + r] = row < T ? a.lse[(size_t)bh * T + row] : 0.f;
-      sDs[stage * BQ + r] = row < T ? a.dsum[(size_t)bh * T + row] : 0.f;
+  load_tile<D, DKV_THREADS>(sK, a.k + kv_off, a.k, kv_stride, k0, S, tid);
+  load_tile<D, DKV_THREADS>(sV, a.v + kv_off, a.v, kv_stride, k0, S, tid);
+  auto load_q = [&](int stage, int it) {
+    const int h = hkv * G + it / n_q;
+    const int i0 = (q_begin + it % n_q) * BQ;
+    const size_t q_off = ((size_t)b * T * a.Hq + h) * D;
+    const size_t bh = (size_t)b * a.Hq + h;
+    load_tile<D, 128>(sQ + stage * TB, a.q + q_off, a.q, q_stride, i0, T, wtid);
+    load_tile<D, 128>(sDO + stage * TB, a.dout + q_off, a.dout, q_stride, i0, T, wtid);
+    if (wtid < BQ) {  // plain loads: the rows need not be aligned
+      const int row = i0 + wtid;
+      sL[stage * BQ + wtid] = row < T ? a.lse[bh * T + row] : 0.f;
+      sDs[stage * BQ + wtid] = row < T ? a.dsum[bh * T + row] : 0.f;
     }
   };
-  if (n_q > 0) load_q(0, q_begin);
+  if (n_mine > 0) load_q(0, wg);
   port::cp_async_commit();
+  port::cp_async_wait<0>();
+  fence_async();
+  __syncthreads();  // k, v and both warpgroups' first tiles landed
 
-  const int key0 = k0 + warp * 16 + (lane >> 2);  // this thread's keys: key0, key0 + 8
-  float dk[DT][4], dv[DT][4];
+  const int key0 = k0 + wq * 16 + (lane >> 2);  // this thread's keys: key0, key0 + 8
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int i = 0; i < DT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-  uint32_t kf[KSTEPS][4], vf[KSTEPS][4];
-  const uint32_t h_mix = (uint32_t)bh * 0x9E3779B9u;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
-  for (int it = 0; it < n_q; ++it) {
-    port::cp_async_wait<0>();
-    __syncthreads();  // tile `it` (and at it = 0 the k, v tiles) landed; tile it-1 is consumed
-    if (it + 1 < n_q) load_q((it + 1) & 1, q_begin + it + 1);
+  for (int m = 0; m < n_mine; ++m) {
+    if (m > 0) {
+      port::cp_async_wait<0>();
+      fence_async();
+      named_barrier(1 + wg, 128);  // this warpgroup's step m landed; step m-1 is consumed
+    }
+    if (m + 1 < n_mine) load_q((m + 1) & 1, wg + 2 * (m + 1));
     port::cp_async_commit();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const int off = (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
-        port::ldmatrix_x4(kf[kk], sK + off);
-        port::ldmatrix_x4(vf[kk], sV + off);
-      }
-    }
-    const __nv_bfloat16* tQ = sQ + (it & 1) * BQ * LD;
-    const __nv_bfloat16* tDO = sDO + (it & 1) * BQ * LD;
-    const float* tL = sL + (it & 1) * BQ;
-    const float* tDs = sDs + (it & 1) * BQ;
-    const int i0 = (q_begin + it) * BQ;
+    const int it = wg + 2 * m;
+    const unsigned char* tQ = sQ + (m & 1) * TB;
+    const unsigned char* tDO = sDO + (m & 1) * TB;
+    const float* tL = sL + (m & 1) * BQ;
+    const float* tDs = sDs + (m & 1) * BQ;
+    const int h = hkv * G + it / n_q;
+    const int i0 = (q_begin + it % n_q) * BQ;
+    const uint32_t h_mix = (uint32_t)(b * a.Hq + h) * 0x9E3779B9u;
 
-    // S^T = k q^T and dP^T = v d_out^T, 16 keys x 64 queries per warp
-    float s[BQ / 8][4], dp[BQ / 8][4];
+    // S^T = k q^T and dP^T = v d_out^T: 64 keys x 64 queries
+    float s[32], dp[32];
+    port::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
+    for (int kk = 0; kk < D / 16; ++kk)
+      port::WgmmaSS<64>::mma(s, desc_k(sK, kk), desc_k(tQ, kk), kk > 0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BQ / 16; ++np) {
-        uint32_t r[4];
-        const int off = (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                        ((lane >> 3) & 1) * 8;
-        port::ldmatrix_x4(r, tQ + off);
-        port::mma_bf16(s[2 * np], kf[kk], r[0], r[1]);
-        port::mma_bf16(s[2 * np + 1], kf[kk], r[2], r[3]);
-        port::ldmatrix_x4(r, tDO + off);
-        port::mma_bf16(dp[2 * np], vf[kk], r[0], r[1]);
-        port::mma_bf16(dp[2 * np + 1], vf[kk], r[2], r[3]);
-      }
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      port::WgmmaSS<64>::mma(dp, desc_k(sV, kk), desc_k(tDO, kk), kk > 0);
+    port::wgmma_commit();
+    port::wgmma_wait<0>();
 
     // P_drop^T into s, dS^T into dp
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = n * 8 + 2 * (lane & 3) + (e & 1);
-        const int row = i0 + qc;
-        const int key = key0 + (e >> 1) * 8;
-        const bool valid = key < kv_limit && row < T && !(a.causal && key > row);
-        const float p = valid ? __expf(s[n][e] * a.scale - tL[qc]) : 0.f;
-        float pd = p, dpv = dp[n][e];
-        if (a.dropout) {
-          const bool keep = port::keep_elem((uint32_t)row, (uint32_t)key, (uint32_t)S, h_mix,
-                                            a.seed, a.thresh);
-          pd = keep ? p * a.keep_scale : 0.f;
-          dpv = keep ? dpv * a.keep_scale : 0.f;
-        }
-        s[n][e] = pd;
-        dp[n][e] = p * (dpv - tDs[qc]) * a.scale;
+    for (int i = 0; i < 32; ++i) {
+      const int qc = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const int row = i0 + qc;
+      const int key = key0 + 8 * ((i >> 1) & 1);
+      const bool valid = key < kv_limit && row < T && !(a.causal && key > row);
+      const float p = valid ? __expf(s[i] * a.scale - tL[qc]) : 0.f;
+      float pd = p, dpv = dp[i];
+      if (a.dropout) {
+        const bool keep = port::keep_elem((uint32_t)row, (uint32_t)key, (uint32_t)S, h_mix,
+                                          a.seed, a.thresh);
+        pd = keep ? p * a.keep_scale : 0.f;
+        dpv = keep ? dpv * a.keep_scale : 0.f;
       }
+      s[i] = pd;
+      dp[i] = p * (dpv - tDs[qc]) * a.scale;
     }
 
-    // dv += P_drop^T d_out, dk += dS^T q: the accumulators of query tiles
-    // 2c, 2c+1 are the A fragments of the c-th 16-query step
+    // dv += P_drop^T d_out, dk += dS^T q, d_out and q read transposed
+    port::wgmma_fence();
 #pragma unroll
     for (int c = 0; c < BQ / 16; ++c) {
       uint32_t ap[4], ad[4];
-      ap[0] = port::pack_bf16x2(s[2 * c][0], s[2 * c][1]);
-      ap[1] = port::pack_bf16x2(s[2 * c][2], s[2 * c][3]);
-      ap[2] = port::pack_bf16x2(s[2 * c + 1][0], s[2 * c + 1][1]);
-      ap[3] = port::pack_bf16x2(s[2 * c + 1][2], s[2 * c + 1][3]);
-      ad[0] = port::pack_bf16x2(dp[2 * c][0], dp[2 * c][1]);
-      ad[1] = port::pack_bf16x2(dp[2 * c][2], dp[2 * c][3]);
-      ad[2] = port::pack_bf16x2(dp[2 * c + 1][0], dp[2 * c + 1][1]);
-      ad[3] = port::pack_bf16x2(dp[2 * c + 1][2], dp[2 * c + 1][3]);
-#pragma unroll
-      for (int dp2 = 0; dp2 < DT / 2; ++dp2) {
-        uint32_t r[4];
-        const int off = (c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp2 * 16 +
-                        (lane >> 4) * 8;
-        port::ldmatrix_x4_trans(r, tDO + off);
-        port::mma_bf16(dv[2 * dp2], ap, r[0], r[1]);
-        port::mma_bf16(dv[2 * dp2 + 1], ap, r[2], r[3]);
-        port::ldmatrix_x4_trans(r, tQ + off);
-        port::mma_bf16(dk[2 * dp2], ad, r[0], r[1]);
-        port::mma_bf16(dk[2 * dp2 + 1], ad, r[2], r[3]);
-      }
+      acc_to_a(s, c, ap);
+      acc_to_a(dp, c, ad);
+      port::WgmmaRS<D>::template mma<1>(dv, ap, desc_mn(tDO, c));
+      port::WgmmaRS<D>::template mma<1>(dk, ad, desc_mn(tQ, c));
     }
+    port::wgmma_commit();
+    port::wgmma_wait<0>();
   }
   port::cp_async_wait<0>();
+  __syncthreads();  // both warpgroups are done with their rings
 
+  // warpgroup 1 leaves its sums in shared memory (its ring, 512 * D bytes);
+  // warpgroup 0 adds them and stores dk, dv in bf16
+  float* red = reinterpret_cast<float*>(sV + TB + WG_BYTES);
+  if (wg == 1) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + i * 8;
+    for (int i = 0; i < D / 2; ++i) {
+      red[i * 128 + wtid] = dk[i];
+      red[(D / 2 + i) * 128 + wtid] = dv[i];
+    }
+  }
+  __syncthreads();
+  if (wg == 1) return;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk[i] += red[i * 128 + wtid];
+    dv[i] += red[(D / 2 + i) * 128 + wtid];
+  }
+  // dk[4j + 2r + e] = key key0 + 8r, column 8j + 2 (lane % 4) + e
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + r * 8;
     if (key >= S) continue;
-    const size_t off = (((size_t)b * S + key) * a.Hq + h) * D;
+    const size_t off = (((size_t)b * S + key) * a.Hkv + hkv) * D;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const int d = dt * 8 + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(a.dk + off + d) = make_float2(dk[dt][2 * i], dk[dt][2 * i + 1]);
-      *reinterpret_cast<float2*>(a.dv + off + d) = make_float2(dv[dt][2 * i], dv[dt][2 * i + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      const int d = 8 * j + 2 * (lane & 3);
+      *reinterpret_cast<uint32_t*>(a.dk + off + d) =
+          port::pack_bf16x2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(a.dv + off + d) =
+          port::pack_bf16x2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
     }
   }
 }
 
 template <int D>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr size_t tile = (size_t)(D + 8) * 2;  // bytes per padded bf16 row
-  constexpr size_t smem_dq = (2 * BQ + 4 * BKV) * tile;
-  constexpr size_t smem_dkv = (2 * BKV + 4 * BQ) * tile + 4 * BQ * sizeof(float);
+  constexpr size_t smem_dq = 1024 + 7 * (size_t)TILE<D> + BQ * sizeof(float);
+  constexpr size_t smem_dkv = 1024 + 2 * (size_t)TILE<D> + 2 * (4 * (size_t)TILE<D> + 4 * BQ * 4);
+  static_assert(4 * TILE<D> + 4 * BQ * 4 >= 512 * D, "a ring holds a warpgroup's dk/dv sums");
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
@@ -407,37 +463,39 @@ int launch(const Args& a, int B, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
-  flash_bwd_dq_kernel<D><<<dim3((a.T + BQ - 1) / BQ, B * a.Hq), THREADS, smem_dq, stream>>>(a);
+  flash_bwd_dq_kernel<D><<<(a.T + BQ - 1) / BQ * B * a.Hq, DQ_THREADS, smem_dq, stream>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkv_kernel<D><<<dim3((a.S + BKV - 1) / BKV, B * a.Hq), THREADS, smem_dkv, stream>>>(a);
+  flash_bwd_dkv_kernel<D>
+      <<<(a.S + BKV - 1) / BKV * B * a.Hkv, DKV_THREADS, smem_dkv, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, out, d_out (B, T, Hq, D) and k, v (B, S, Hkv, D) bf16 contiguous;
-// lse and dsum (B * Hq, T) f32; kv_lens (B,) int32 or null ->
-// dq (B, T, Hq, D) bf16, dk and dv (B, S, Hq, D) f32 per query head.
-// dropout != 0 applies the forward's keep mask (seed, thresh) with
+// q, out, d_out (B, T, Hq, D) and k, v (B, S, Hkv, D) bf16 contiguous; lse
+// (B * Hq, T) f32; kv_lens (B,) int32 or null -> dq (B, T, Hq, D), dk and dv
+// (B, S, Hkv, D) bf16, and dsum (B * Hq, T) f32 (scratch between the two
+// kernels). dropout != 0 applies the forward's keep mask (seed, thresh) with
 // keep_scale = 1 / (1 - rate).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
-                                          const void* dout, const void* lse, const void* dsum,
-                                          const void* kv_lens, void* dq, void* dk, void* dv,
-                                          int B, int T, int S, int Hq, int Hkv, int D,
+                                          const void* o, const void* dout, const void* lse,
+                                          void* dsum, const void* kv_lens, void* dq, void* dk,
+                                          void* dv, int B, int T, int S, int Hq, int Hkv, int D,
                                           float scale, int causal, int dropout, int seed,
                                           int thresh, float keep_scale, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const __nv_bfloat16*>(q),
                static_cast<const __nv_bfloat16*>(k),
                static_cast<const __nv_bfloat16*>(v),
+               static_cast<const __nv_bfloat16*>(o),
                static_cast<const __nv_bfloat16*>(dout),
                static_cast<const float*>(lse),
-               static_cast<const float*>(dsum),
+               static_cast<float*>(dsum),
                static_cast<const int32_t*>(kv_lens),
                static_cast<__nv_bfloat16*>(dq),
-               static_cast<float*>(dk),
-               static_cast<float*>(dv),
+               static_cast<__nv_bfloat16*>(dk),
+               static_cast<__nv_bfloat16*>(dv),
                T, S, Hq, Hkv, scale, causal, dropout, (uint32_t)seed, (int32_t)thresh,
                keep_scale};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

@@ -1,373 +1,487 @@
-// Weight-only quantised matmul for Hopper (sm_90a): y = (x @ w) * s[col]
-// with x bf16 (M, K), w int8 (K, N) or packed int4, s f32 (N,), an f32
-// accumulator and a bf16 or f32 result.
+// Weight-only int8 matmul for Hopper (sm_90a): y = (x @ w) * s[col] with
+// x bf16 (M, K), w int8 codes, s f32 (N,), an f32 accumulator and a bf16 or
+// f32 result.
 //
-// Replaces two TPU kernels of `omni_avsr_tpu/ops/quant.py`:
-//   - B2 `_qmm_kernel` (`quantized_matmul`): int8 codes;
-//   - B6 `_qmm4_kernel` (`quantized_matmul4`): two int4 codes per byte, in
-//     `pack_int4`'s layout. Within each block_n-wide column chunk the low
-//     nibble of byte j holds column j as offset binary (code + 8) and the
-//     high nibble holds column j + block_n/2, signed. The TPU kernel keeps
-//     the offset in the product and subtracts 8 * rowsum(x) at the end
-//     (Mosaic has no 8-bit shift); here each nibble is decoded straight to
-//     its signed code, which is the same function.
+// Replaces B2 `_qmm_kernel` (`quantized_matmul`) of
+// `omni_avsr_tpu/ops/quant.py`. The codes are the JAX package's, read in the
+// card layout of `omni_avsr_tpu_torch/ops/quant.py::arrange_int8_for_card`:
+// (Np/64, Kp/64, 4096) bytes, N padded to a multiple of 128 and K to one of
+// 64 with zero codes. Each 4096-byte chunk holds 64 weight columns x 64 k
+// as four 16-column tiles of 1024 bytes; in a tile, the 512 bytes of each
+// 32-deep half are one 16-byte word per lane: the lane's bf16 A fragments
+// of mma.sync m16n8k16 (and of wgmma, whose warps hold the same fragments)
+// for two 16-deep steps, in register order. So a warp's weights for one
+// 64-deep step are two conflict-free 16-byte shared-memory loads per lane,
+// converted in registers (exact: byte ^ 0x80 under the exponent of 2^23,
+// minus 2^23 + 128) straight into A fragments. Each weight byte crosses
+// shared memory once; nothing is converted back into shared memory.
 //
-// Design: one block per (BM x BN) output tile and, when the tiles are too
-// few to fill the card, per slice of K (split-K; the slices' f32 partial
-// sums go to a workspace that `qmm_reduce` sums, scales and casts). The
-// block walks its K range in BK-deep steps through a ring of STAGES
-// shared-memory stages filled with cp.async: the x tile as bf16 and the
-// weight tile as raw bytes (int8 codes, or BN/2 bytes of nibble pairs that
-// decode to BN columns). Each step converts the raw weights to bf16 in
-// shared memory once, and the warps run bf16 mma.sync (m16n8k16, f32
-// accumulate) with ldmatrix fragment loads. The epilogue multiplies by
-// s[col] and stores bf16 or f32.
+// The product is taken swapped, y^T = w^T x^T: the weight columns are the
+// tensor cores' row operand (A), the tokens (rows of x) their N. Both
+// kernels stream with one producer warp whose lane 0 keeps a ring of
+// shared-memory stages full: TMA loads of x tiles (tokens x 64 k, 128-byte
+// swizzle; rows past M and k past K read as zero) and bulk copies of the
+// contiguous code chunks, each stage completing on its mbarrier; consumers
+// release a stage through a second mbarrier.
 //
-// Bound on the H100 SXM (3.35 TB/s, 989 TFLOP/s bf16):
-//   - decode, M = B x beams = 45: memory-bound. One decode step reads
-//     ~1.24 GB of int8 codes (0.37 ms); int4 halves that. The design keeps
-//     three weight stages in flight per block and splits K so that a
-//     2048-column matrix still gives ~256 blocks; what holds it back is the
-//     64-row tile (30% idle at M = 45), the workspace round trip of the
-//     split (through L2) and the per-launch cost at these small sizes.
-//   - towers and prefill, M = 528 to 4500: compute-bound (fc1 at M 4500,
-//     1024 x 4096: 37.7 GFLOP, 38 us). 128 x 128 tiles with 8 warps; the
-//     mma.sync route reaches a fraction of the wgmma peak, and the weight
-//     conversion costs one pass over each tile per block. wgmma, TMA and
-//     warp specialisation are later work.
+//   - decode, M <= 64 (M 45 = 3 requests x 15 beams; bound by bytes: one
+//     step reads 1.24 GB of codes, 0.37 ms at 3.35 TB/s). The token tile is
+//     M rounded up to 16 (48 at M 45). A block owns a group of CW 16-column
+//     tiles and splits K KS ways among its warps: warp (k group kg, column
+//     warp cw) takes 16 columns and the kg-th 64-deep step of each
+//     KS*64-deep stage, with bf16 mma.sync (16 columns x 8 tokens, x
+//     fragments by ldmatrix from the swizzled x tile). The KS partial sums
+//     are added through shared memory in a fixed order: no workspace, no
+//     second launch, the same result on every run. What bounds these small
+//     products on the card is less the bytes than the issue rate of one SM
+//     (the conversion and the mma instructions of its warps) and each
+//     launch's fixed latency, so the plan spreads every matrix over all
+//     SMs: the narrow q|k|v, o and down in groups of 16 or 32 columns with
+//     K split 8 or 4 ways, the wide gate|up and lm_head in groups of 128
+//     (fewer x reads) with K split 2 ways, one block per SM walking its
+//     share of the groups while the ring streams on. (Splitting K across a
+//     cluster's blocks instead, with the sums added through distributed
+//     shared memory, measured slower on the card: each block pays the fixed
+//     latency again.)
+//     The same kernel takes 64-token tiles (a grid of them) for the towers'
+//     and prefill's products whose wgmma tiles would fill less than a
+//     quarter of the SMs (the 1024-wide ones at the bucketed window).
+//   - towers and prefill, M > 64 (bound by operations: fc1 at M 4500 is
+//     37.7 GFLOP, 38 us at 989 TFLOP/s). Token tiles of 128 or 256, two
+//     consumer warpgroups of 64 columns each, wgmma m64nNk16 with A from
+//     registers and the x tile as the shared-memory B operand, one 64-deep
+//     step per stage. Each warpgroup converts its step's fragments while the
+//     other's wgmma run; it waits for its own wgmma before converting the
+//     next step (converting while they run makes ptxas serialise them).
+// The epilogue multiplies by s[col] and stores bf16 or f32 (the tower kernel
+// through shared memory, 16 bytes a store).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_sm80.cuh"
+#include "tma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
-using port::cp_async16;
+constexpr int BK = 64;            // k per step
+constexpr int W_TILE = 64 * BK;   // code bytes of 64 columns per step
+constexpr int MAX_SMEM = 232448;  // the H100's dynamic shared memory per block
 
-template <int BM_, int BN_, int BK_, int WM_, int WN_, int STAGES_, bool INT4_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_, STAGES = STAGES_;
-  static constexpr bool INT4 = INT4_;
-  static constexpr int WARPS_M = BM / WM, WARPS_N = BN / WN;
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int MT = WM / 16, NT = WN / 8;
-  static constexpr int A_LD = BK + 8;                   // bf16 per x row in smem (padded)
-  static constexpr int W_LD = BN + 8;                   // bf16 per weight row in smem
-  static constexpr int RAW_LD = INT4 ? BN / 2 : BN;     // raw weight bytes per k row
-  static constexpr int A_STAGE = BM * A_LD;             // bf16 elements
-  static constexpr int RAW_STAGE = BK * RAW_LD;         // bytes
-  static constexpr size_t SMEM =
-      (size_t)STAGES * A_STAGE * 2 + (size_t)BK * W_LD * 2 + (size_t)STAGES * RAW_STAGE;
+// Four int8 codes -> two bf16 pairs (bytes 0,1 and 2,3), exactly.
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = v ^ 0x80808080u;  // offset binary, b + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  lo = port::pack_bf16x2(f0, f1);
+  hi = port::pack_bf16x2(f2, f3);
+}
+
+// A warp's 16 columns x 64 k of one step (at `wt`, lane-offset): the A
+// fragments of four 16-deep steps, a[4 kk .. 4 kk + 3].
+__device__ __forceinline__ void load_a(const unsigned char* wt, uint32_t (&a)[16]) {
+  const uint4 v0 = *reinterpret_cast<const uint4*>(wt);
+  const uint4 v1 = *reinterpret_cast<const uint4*>(wt + 512);
+  int8x4_to_bf16(v0.x, a[0], a[1]);
+  int8x4_to_bf16(v0.y, a[2], a[3]);
+  int8x4_to_bf16(v0.z, a[4], a[5]);
+  int8x4_to_bf16(v0.w, a[6], a[7]);
+  int8x4_to_bf16(v1.x, a[8], a[9]);
+  int8x4_to_bf16(v1.y, a[10], a[11]);
+  int8x4_to_bf16(v1.z, a[12], a[13]);
+  int8x4_to_bf16(v1.w, a[14], a[15]);
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The ring: `stages` stages of KS x (an x tile of NT x 64 and the codes of
+// CW 16-column tiles x 64 k), x tiles first (1024-byte aligned, as the
+// 128-byte swizzle needs), then the codes, then the full and empty barriers.
+template <int NT, int KS, int CW>
+struct Ring {
+  static constexpr int X_TILE = NT * BK * 2;        // a multiple of 1024
+  static constexpr int X_STAGE = KS * X_TILE;
+  static constexpr int W_STAGE = KS * CW * 1024;
+  static size_t smem(int stages) {
+    return 1024 + (size_t)stages * (X_STAGE + W_STAGE) + 2 * (size_t)stages * sizeof(uint64_t);
+  }
+  unsigned char* x;
+  unsigned char* w;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ Ring(unsigned char* raw, int stages) {
+    x = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                         ~(uintptr_t)1023);
+    w = x + (size_t)stages * X_STAGE;
+    full = reinterpret_cast<uint64_t*>(w + (size_t)stages * W_STAGE);
+    empty = full + stages;
+  }
 };
 
-// M <= 64 (decode): 64 x 64 tiles, 4 warps of 32 x 32, 4 stages.
-// Larger M: 128 x 128 tiles, 8 warps of 64 x 32, 3 stages.
-// `omni_avsr_tpu_torch/ops/quant.py::_split_plan` mirrors these tiles.
-template <bool INT4>
-using SmallTile = Tile<64, 64, 64, 32, 32, 4, INT4>;
-template <bool INT4>
-using LargeTile = Tile<128, 128, 32, 64, 32, 3, INT4>;
-
-__device__ __forceinline__ void int8x16_to_bf16(const uint4 raw, uint4 (&out)[2]) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-  uint32_t* o = reinterpret_cast<uint32_t*>(out);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = port::pack_bf16x2((float)b[2 * i], (float)b[2 * i + 1]);
+// The offset in a stage of the codes of 16-column tile cw, step kg: with
+// whole 64-column chunks, (chunk, step, tile in the chunk), as the card
+// layout keeps a chunk's steps contiguous; else (step, tile).
+template <int KS, int CW>
+__device__ __forceinline__ int w_offset(int cw, int kg) {
+  return CW >= 4 ? ((cw >> 2) * KS + kg) * W_TILE + (cw & 3) * 1024 : (kg * CW + cw) * 1024;
 }
 
-// 16 nibble-pair bytes -> 16 low codes (offset binary) and 16 high codes.
-__device__ __forceinline__ void int4x32_to_bf16(const uint4 raw, uint4 (&lo)[2], uint4 (&hi)[2]) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-  uint32_t* ol = reinterpret_cast<uint32_t*>(lo);
-  uint32_t* oh = reinterpret_cast<uint32_t*>(hi);
+// The producer's loop (lane 0 of the producer warp) over one group of CW
+// 16-column tiles from tile t0: its stage i, the ring's stage it0 + i, holds
+// steps i*KS .. + KS - 1 of the x rows m0.. and of the group's codes. The
+// codes go first: they need no tensor map.
+template <int NT, int KS, int CW>
+__device__ __forceinline__ void produce(const Ring<NT, KS, CW>& r, const CUtensorMap* x_map,
+                                        const int8_t* wc, int t0, int m0, int ksteps,
+                                        int nstages, int stages, int it0) {
+  using R = Ring<NT, KS, CW>;
+  for (int i = 0; i < nstages; ++i) {
+    const int it = it0 + i, st = it % stages;
+    if (it >= stages) port::mbar_wait(&r.empty[st], ((it / stages) - 1) & 1);
+    port::mbar_arrive_expect_tx(&r.full[st], R::X_STAGE + R::W_STAGE);
+    unsigned char* w = r.w + (size_t)st * R::W_STAGE;
+    if (CW >= 4) {  // whole chunks: all KS steps of a chunk in one copy
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int p0 = b[2 * i], p1 = b[2 * i + 1];
-    ol[i] = port::pack_bf16x2((float)((p0 & 0xF) - 8), (float)((p1 & 0xF) - 8));
-    oh[i] = port::pack_bf16x2((float)(p0 >> 4), (float)(p1 >> 4));  // arithmetic shift
+      for (int g = 0; g < CW / 4; ++g)
+        port::bulk_load(w + w_offset<KS, CW>(4 * g, 0),
+                        wc + ((size_t)(t0 / 4 + g) * ksteps + (size_t)i * KS) * W_TILE,
+                        KS * W_TILE, &r.full[st]);
+    } else {  // CW tiles of one chunk, one copy per step
+#pragma unroll
+      for (int kg = 0; kg < KS; ++kg)
+        port::bulk_load(w + w_offset<KS, CW>(0, kg),
+                        wc + ((size_t)(t0 / 4) * ksteps + (size_t)i * KS + kg) * W_TILE +
+                            (t0 % 4) * 1024,
+                        CW * 1024, &r.full[st]);
+    }
+#pragma unroll
+    for (int kg = 0; kg < KS; ++kg)
+      port::tma_load_2d(r.x + (size_t)st * R::X_STAGE + kg * R::X_TILE, x_map, &r.full[st],
+                        (i * KS + kg) * BK, m0);
   }
 }
 
-template <class C>
-__global__ void __launch_bounds__(C::THREADS) qmm_kernel(
-    const __nv_bfloat16* __restrict__ x,  // (M, K)
-    const int8_t* __restrict__ w,         // int8: (K, w_ld); int4: (K, chunks * bn2)
-    const float* __restrict__ s,          // (N,)
-    void* __restrict__ out,               // (M, N) bf16 or f32
-    float* __restrict__ ws,               // (splits, M, N) f32 partials when split
-    int M, int N, int K, int wp, int kt_per, int out_f32) {
-  // wp: int8, the codes' row stride w_ld >= N (a multiple of 16; the columns
-  // past N are zero); int4, bn2 = block_n / 2 of the packing.
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sW = sA + C::STAGES * C::A_STAGE;
-  int8_t* sRaw = reinterpret_cast<int8_t*>(sW + C::BK * C::W_LD);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp / C::WARPS_N;
-  const int wn = warp % C::WARPS_N;
-  const int m0 = blockIdx.y * C::BM;
-  const int splits = gridDim.z;
-  const int ktiles = (K + C::BK - 1) / C::BK;
-  const int kt0 = blockIdx.z * kt_per;
-  const int nk = min(ktiles, kt0 + kt_per) - kt0;
-
-  // The block's weight columns: int8 reads BN bytes of each k row from
-  // column n0; int4 reads BN/2 bytes of chunk c from byte j0, whose low
-  // nibbles are columns c*2*bn2 + j0 + [0, BN/2) and high nibbles columns
-  // c*2*bn2 + bn2 + j0 + [0, BN/2).
-  int n0, w_ld, raw_col, hi_col;
-  if constexpr (C::INT4) {
-    const int bn2 = wp;
-    const int per_chunk = bn2 / (C::BN / 2);
-    const int chunk = blockIdx.x / per_chunk;
-    const int j0 = (blockIdx.x % per_chunk) * (C::BN / 2);
-    const int chunks = (N + 2 * bn2 - 1) / (2 * bn2);
-    w_ld = chunks * bn2;
-    raw_col = chunk * bn2 + j0;
-    n0 = chunk * 2 * bn2 + j0;
-    hi_col = n0 + bn2;
+__device__ __forceinline__ void store_out(void* out, size_t off, float v, int out_f32) {
+  if (out_f32) {
+    static_cast<float*>(out)[off] = v;
   } else {
-    w_ld = wp;
-    n0 = blockIdx.x * C::BN;
-    raw_col = n0;
-    hi_col = 0;
+    static_cast<__nv_bfloat16*>(out)[off] = __float2bfloat16(v);
+  }
+}
+
+// ----------------------------------------------------------------- decode
+
+template <int NT, int CW, int KS>
+__global__ void __launch_bounds__(32 * CW * KS + 32, 1)
+    qmm8_decode_kernel(const __grid_constant__ CUtensorMap x_map,  // x (M, K) bf16
+                       const int8_t* __restrict__ wc,               // (Np/64, ksteps, 4096)
+                       const float* __restrict__ s,                 // (N,)
+                       void* __restrict__ out,                      // (M, N) bf16 or f32
+                       int M, int N, int ksteps, int stages, int groups, int out_f32) {
+  constexpr int NF = NT / 8;  // 8-token fragments
+  constexpr int CONSUMERS = 32 * CW * KS;
+  constexpr int PART = CW * NF * 4 * 32;  // floats of one k group's partial sums
+  using R = Ring<NT, KS, CW>;
+  extern __shared__ unsigned char smem_raw[];
+  const R r(smem_raw, stages);
+  float* red = reinterpret_cast<float*>(r.empty + stages);  // KS - 1 partial sums
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nstages = ksteps / KS;  // per column group
+  const int m0 = blockIdx.y * NT;   // the block's token tile
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      port::mbar_init(&r.full[i], 1);
+      port::mbar_init(&r.empty[i], CW * KS);  // one arrival per consumer warp
+    }
+    port::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // the block walks column groups blockIdx.x, + gridDim.x, ..., one ring
+  // pass of nstages stages each; the ring's stage count runs on across them
+  if (warp == CW * KS) {  // the producer warp
+    if (lane == 0) {
+      port::prefetch_tensor_map(&x_map);
+      for (int grp = blockIdx.x, it = 0; grp < groups; grp += gridDim.x, it += nstages)
+        produce(r, &x_map, wc, grp * CW, m0, ksteps, nstages, stages, it);
+    }
+    return;
   }
 
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * C::BK;
-    __nv_bfloat16* a = sA + stage * C::A_STAGE;
-    constexpr int A_CHUNKS = C::BM * C::BK / 8;
-    for (int i = tid; i < A_CHUNKS; i += C::THREADS) {
-      const int r = i / (C::BK / 8), c = (i % (C::BK / 8)) * 8;
-      const bool ok = (m0 + r < M) && (k0 + c < K);
-      const __nv_bfloat16* src = ok ? x + (size_t)(m0 + r) * K + k0 + c : x;
-      cp_async16(a + r * C::A_LD + c, src, ok);
-    }
-    int8_t* raw = sRaw + stage * C::RAW_STAGE;
-    constexpr int W_CHUNKS = C::BK * C::RAW_LD / 16;
-    for (int i = tid; i < W_CHUNKS; i += C::THREADS) {
-      const int r = i / (C::RAW_LD / 16), c = (i % (C::RAW_LD / 16)) * 16;
-      // int8: a 16-column chunk lies wholly inside or outside the row
-      // (w_ld % 16 == 0); int4: the packed row holds every chunk's bytes
-      const bool ok = (k0 + r < K) && (C::INT4 || raw_col + c < w_ld);
-      const int8_t* src = ok ? w + (size_t)(k0 + r) * w_ld + raw_col + c : w;
-      cp_async16(raw + r * C::RAW_LD + c, src, ok);
-    }
-  };
-
-  auto convert_stage = [&](int stage) {
-    const int8_t* raw = sRaw + stage * C::RAW_STAGE;
-    constexpr int W_CHUNKS = C::BK * C::RAW_LD / 16;
-    for (int i = tid; i < W_CHUNKS; i += C::THREADS) {
-      const int r = i / (C::RAW_LD / 16), c = (i % (C::RAW_LD / 16)) * 16;
-      const uint4 v = *reinterpret_cast<const uint4*>(raw + r * C::RAW_LD + c);
-      uint4* dst = reinterpret_cast<uint4*>(sW + r * C::W_LD + c);
-      if constexpr (C::INT4) {
-        uint4 lo[2], hi[2];
-        int4x32_to_bf16(v, lo, hi);
-        uint4* dst_hi = reinterpret_cast<uint4*>(sW + r * C::W_LD + C::BN / 2 + c);
-        dst[0] = lo[0];
-        dst[1] = lo[1];
-        dst_hi[0] = hi[0];
-        dst_hi[1] = hi[1];
-      } else {
-        uint4 o[2];
-        int8x16_to_bf16(v, o);
-        dst[0] = o[0];
-        dst[1] = o[1];
-      }
-    }
-  };
-
-  float acc[C::MT][C::NT][4];
+  const int kg = warp / CW, cw = warp % CW;  // k group, column warp
+  // this lane's ldmatrix row (token) within a 16-token pair and its 16-byte k chunk
+  const int xrow = (lane & 7) + ((lane >> 4) << 3), xchunk = (lane >> 3) & 1;
+  for (int grp = blockIdx.x, it = 0; grp < groups; grp += gridDim.x, it += nstages) {
+    const int n_base = (grp * CW + cw) * 16 + (lane >> 2);
+    float sc[2];  // the scales, loaded while the loop runs
 #pragma unroll
-  for (int i = 0; i < C::MT; ++i)
+    for (int h = 0; h < 2; ++h) sc[h] = kg == 0 && n_base + 8 * h < N ? s[n_base + 8 * h] : 0.f;
+    float acc[NF][4];
 #pragma unroll
-    for (int j = 0; j < C::NT; ++j)
+    for (int j = 0; j < NF; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int i = it; i < it + nstages; ++i) {
+      const int st = i % stages;
+      port::mbar_wait(&r.full[st], (i / stages) & 1);
+      uint32_t a[16];
+      load_a(r.w + (size_t)st * R::W_STAGE + w_offset<KS, CW>(cw, kg) + lane * 16, a);
+      const unsigned char* xt = r.x + (size_t)st * R::X_STAGE + kg * R::X_TILE;
 #pragma unroll
-  for (int st = 0; st < C::STAGES - 1; ++st) {
-    if (st < nk) load_stage(st, kt0 + st);
-    port::cp_async_commit();
-  }
-
-  const int row_base = m0 + wm * C::WM;
-  const bool pairs = (N & 1) == 0;  // an even N keeps (col, col+1) pairs 8-byte aligned
-  for (int it = 0; it < nk; ++it) {
-    port::cp_async_wait<C::STAGES - 2>();
-    __syncthreads();  // stage `it` landed; every warp is done with step it-1
-    const int nxt = it + C::STAGES - 1;
-    if (nxt < nk) load_stage(nxt % C::STAGES, kt0 + nxt);
-    port::cp_async_commit();
-    convert_stage(it % C::STAGES);
-    __syncthreads();
-
-    const __nv_bfloat16* a = sA + (it % C::STAGES) * C::A_STAGE;
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
 #pragma unroll
-    for (int kk = 0; kk < C::BK / 16; ++kk) {
-      uint32_t bfr[C::NT][2];
-#pragma unroll
-      for (int np = 0; np < C::NT / 2; ++np) {
-        uint32_t r[4];
-        const int krow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int ncol = wn * C::WN + np * 16 + (lane >> 4) * 8;
-        port::ldmatrix_x4_trans(r, sW + krow * C::W_LD + ncol);
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < C::MT; ++mt) {
-        if (row_base + mt * 16 >= M) continue;  // warp-uniform: rows past M
-        uint32_t afr[4];
-        const int arow = wm * C::WM + mt * 16 + (lane & 15);
-        port::ldmatrix_x4(afr, a + arow * C::A_LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int nt = 0; nt < C::NT; ++nt) port::mma_bf16(acc[mt][nt], afr, bfr[nt][0], bfr[nt][1]);
-      }
-    }
-  }
-  port::cp_async_wait<0>();
-
-  // Epilogue: local column lc -> global column (int4: the high half of the
-  // tile maps to the chunk's second half). Pairs (lc, lc+1) never straddle
-  // the halves; with an odd N they are stored one value at a time.
-#pragma unroll
-  for (int mt = 0; mt < C::MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < C::NT; ++nt) {
-      const int lc = wn * C::WN + nt * 8 + 2 * (lane & 3);
-      int col;
-      if constexpr (C::INT4) {
-        col = lc < C::BN / 2 ? n0 + lc : hi_col + lc - C::BN / 2;
-      } else {
-        col = n0 + lc;
-      }
-      if (col >= N) continue;
-      const bool has1 = col + 1 < N;
-      const float s0 = splits > 1 ? 1.f : s[col];
-      const float s1 = splits > 1 || !has1 ? 1.f : s[col + 1];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = row_base + mt * 16 + (lane >> 2) + half * 8;
-        if (row >= M) continue;
-        const float v0 = acc[mt][nt][2 * half] * s0, v1 = acc[mt][nt][2 * half + 1] * s1;
-        const size_t off = (size_t)row * N + col;
-        if (splits > 1 || out_f32) {
-          float* o = splits > 1 ? ws + (size_t)blockIdx.z * M * N + off
-                                : static_cast<float*>(out) + off;
-          if (pairs) {
-            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-          } else {
-            o[0] = v0;
-            if (has1) o[1] = v1;
-          }
-        } else {
-          __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + off;
-          if (pairs) {
-            *reinterpret_cast<uint32_t*>(o) = port::pack_bf16x2(v0, v1);
-          } else {
-            o[0] = __float2bfloat16(v0);
-            if (has1) o[1] = __float2bfloat16(v1);
-          }
+        for (int np = 0; np < NF / 2; ++np) {
+          const int row = np * 16 + xrow;
+          const int chunk = (kk * 2 + xchunk) ^ (row & 7);  // the TMA's 128-byte swizzle
+          uint32_t b[4];
+          port::ldmatrix_x4(b, xt + row * 128 + chunk * 16);
+          port::mma_bf16(acc[2 * np], ak, b[0], b[1]);
+          port::mma_bf16(acc[2 * np + 1], ak, b[2], b[3]);
         }
       }
+      __syncwarp();
+      if (lane == 0) port::mbar_arrive(&r.empty[st]);
+    }
+    // the k groups' partial sums, added in a fixed order
+    if (KS > 1) {
+      named_barrier(1, CONSUMERS);  // the last group's sums are read
+      if (kg > 0) {
+#pragma unroll
+        for (int j = 0; j < NF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            red[(kg - 1) * PART + ((cw * NF + j) * 4 + e) * 32 + lane] = acc[j][e];
+      }
+      named_barrier(1, CONSUMERS);
+      if (kg > 0) continue;
+#pragma unroll
+      for (int g = 1; g < KS; ++g)
+#pragma unroll
+        for (int j = 0; j < NF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[j][e] += red[(g - 1) * PART + ((cw * NF + j) * 4 + e) * 32 + lane];
+    }
+    // D row = weight column n, D column = token m: y[m, n] = acc * s[n]
+    const int m_base = m0 + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n_base + 8 * h;
+      if (n >= N) continue;
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m_base + 8 * j + e;
+          if (m < M) store_out(out, (size_t)m * N + n, acc[j][2 * h + e] * sc[h], out_f32);
+        }
     }
   }
 }
 
-// Split-K: out[m, n] = (sum over slices of ws[z, m, n]) * s[n].
-__global__ void qmm_reduce(const float* __restrict__ ws, const float* __restrict__ s,
-                           void* __restrict__ out, int M, int N, int splits, int out_f32) {
-  const size_t total = (size_t)M * N;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float a = 0.f;
-    for (int z = 0; z < splits; ++z) a += ws[(size_t)z * total + i];
-    a *= s[i % N];
-    if (out_f32) {
-      static_cast<float*>(out)[i] = a;
-    } else {
-      static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(a);
-    }
-  }
-}
+// ---------------------------------------------------------- towers, prefill
 
-template <class C>
-int launch(const void* x, const void* w, const void* s, void* out, void* ws, int M, int N,
-           int K, int wp, int splits, int out_f32, cudaStream_t stream) {
-  static bool smem_set = false;  // the attribute is per kernel, per device context
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        qmm_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = true;
+template <int NT>
+__global__ void __launch_bounds__(288, 1)
+    qmm8_tower_kernel(const __grid_constant__ CUtensorMap x_map,  // x (M, K) bf16
+                      const int8_t* __restrict__ wc,               // (Np/64, ksteps, 4096)
+                      const float* __restrict__ s,                 // (N,)
+                      void* __restrict__ out,                      // (M, N) bf16 or f32
+                      int M, int N, int ksteps, int stages, int out_f32) {
+  using R = Ring<NT, 1, 8>;
+  constexpr int ACC = NT / 2;  // f32 accumulators per thread
+  extern __shared__ unsigned char smem_raw[];
+  const R r(smem_raw, stages);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tile0 = blockIdx.x * 2;  // the block's first 64-column tile
+  const int m0 = blockIdx.y * NT;
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      port::mbar_init(&r.full[i], 1);
+      port::mbar_init(&r.empty[i], 8);  // one arrival per consumer warp
+    }
+    port::fence_mbar_init();
   }
-  int ntiles;
-  if constexpr (C::INT4) {
-    const int bn2 = wp;
-    if (bn2 % (C::BN / 2)) return (int)cudaErrorInvalidValue;
-    const int chunks = (N + 2 * bn2 - 1) / (2 * bn2);
-    ntiles = chunks * (2 * bn2 / C::BN);
+  __syncthreads();
+
+  if (warp == 8) {  // the producer warp
+    if (lane == 0) {
+      port::prefetch_tensor_map(&x_map);
+      produce(r, &x_map, wc, 4 * tile0, m0, ksteps, ksteps, stages, 0);
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, wq = warp & 3;  // warpgroup, warp within it
+  const int n0 = tile0 * 64, nl = wg * 64 + wq * 16 + (lane >> 2);  // this thread's column
+  float sc[2];  // the scales, loaded while the loop runs
+#pragma unroll
+  for (int h = 0; h < 2; ++h) sc[h] = n0 + nl + 8 * h < N ? s[n0 + nl + 8 * h] : 0.f;
+  float acc[ACC];
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < ksteps; ++i) {
+    const int st = i % stages;
+    port::mbar_wait(&r.full[st], (i / stages) & 1);
+    uint32_t a[16];
+    load_a(r.w + (size_t)st * R::W_STAGE + w_offset<1, 8>(warp, 0) + lane * 16, a);
+    port::wgmma_fence();
+    const uint32_t xb = port::smem_u32(r.x + (size_t)st * R::X_STAGE);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+      port::WgmmaRS<NT>::mma(acc, ak, port::wgmma_desc_sw128(xb + kk * 32));
+    }
+    port::wgmma_commit();
+    port::wgmma_wait<0>();
+    if (lane == 0) port::mbar_arrive(&r.empty[st]);
+  }
+
+  // D row = weight column n, D column = token m: y[m, n] = acc * s[n], laid
+  // out (m, n) in the idle ring (rows of 132 floats: no bank conflicts) and
+  // stored 16 bytes at a time along n
+  constexpr int LDO = 132;
+  float* tile = reinterpret_cast<float*>(r.x);
+  named_barrier(1, 256);  // both warpgroups are done with the ring
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        tile[(8 * j + 2 * (lane & 3) + e) * LDO + nl + 8 * h] = acc[4 * j + 2 * h + e] * sc[h];
+  named_barrier(1, 256);
+  const int rows = min(NT, M - m0), cols = min(128, N - n0);
+  const int vec = out_f32 ? 4 : 8;  // values per 16-byte store
+  if (cols == 128 && N % vec == 0) {
+    for (int c = tid; c < rows * (128 / vec); c += 256) {
+      const int m = c / (128 / vec), n = (c % (128 / vec)) * vec;
+      const float4* src = reinterpret_cast<const float4*>(tile + m * LDO + n);
+      const size_t off = (size_t)(m0 + m) * N + n0 + n;
+      if (out_f32) {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + off) = src[0];
+      } else {
+        const float4 u = src[0], v = src[1];
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + off) =
+            make_uint4(port::pack_bf16x2(u.x, u.y), port::pack_bf16x2(u.z, u.w),
+                       port::pack_bf16x2(v.x, v.y), port::pack_bf16x2(v.z, v.w));
+      }
+    }
   } else {
-    ntiles = (N + C::BN - 1) / C::BN;
+    for (int c = tid; c < rows * 128; c += 256) {
+      const int m = c / 128, n = c % 128;
+      if (n < cols) store_out(out, (size_t)(m0 + m) * N + n0 + n, tile[m * LDO + n], out_f32);
+    }
   }
-  const int ktiles = (K + C::BK - 1) / C::BK;
-  const int kt_per = (ktiles + splits - 1) / splits;
-  if ((ktiles + kt_per - 1) / kt_per != splits) return (int)cudaErrorInvalidValue;
-  const dim3 grid(ntiles, (M + C::BM - 1) / C::BM, splits);
-  qmm_kernel<C><<<grid, C::THREADS, C::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), out, static_cast<float*>(ws), M, N, K, wp, kt_per, out_f32);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  const size_t total = (size_t)M * N;
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  qmm_reduce<<<blocks, 256, 0, stream>>>(static_cast<const float*>(ws),
-                                         static_cast<const float*>(s), out, M, N, splits,
-                                         out_f32);
+}
+
+// ------------------------------------------------------------------ launch
+
+template <class Kernel>
+int set_smem(Kernel kernel, size_t smem, size_t& done) {
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > done) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    done = smem;
+  }
+  return 0;
+}
+
+template <int NT, int CW, int KS>
+int launch_decode(const void* x, const void* wc, const void* s, void* out, int M, int N, int K,
+                  int Kp, int stages, int blocks, int out_f32, cudaStream_t stream) {
+  static size_t smem_set = 0;  // the attribute is per kernel, per device context
+  const size_t smem = Ring<NT, KS, CW>::smem(stages) + (size_t)(KS - 1) * CW * NT * 64;
+  int rc = set_smem(qmm8_decode_kernel<NT, CW, KS>, smem, smem_set);
+  if (rc != 0) return rc;
+  CUtensorMap map;
+  rc = port::encode_bf16_sw128(&map, x, M, K, K, BK, NT);
+  if (rc != 0) return rc;
+  const int groups = (N + 16 * CW - 1) / (16 * CW);
+  const dim3 grid(min(blocks, groups), (M + NT - 1) / NT);
+  qmm8_decode_kernel<NT, CW, KS><<<grid, 32 * CW * KS + 32, smem, stream>>>(
+      map, static_cast<const int8_t*>(wc), static_cast<const float*>(s), out, M, N, Kp / BK,
+      stages, groups, out_f32);
   return (int)cudaGetLastError();
 }
 
-template <bool INT4>
-int dispatch(const void* x, const void* w, const void* s, void* out, void* ws, int M, int N,
-             int K, int wp, int splits, int out_f32, void* stream) {
-  // int8 rows load in 16-byte chunks from a row stride w_ld = wp >= N
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || splits < 1 ||
-      (!INT4 && (wp < N || wp % 16))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (M <= 64) {
-    return launch<SmallTile<INT4>>(x, w, s, out, ws, M, N, K, wp, splits, out_f32, st);
-  }
-  return launch<LargeTile<INT4>>(x, w, s, out, ws, M, N, K, wp, splits, out_f32, st);
+template <int NT>
+int launch_tower(const void* x, const void* wc, const void* s, void* out, int M, int N, int K,
+                 int Kp, int stages, int out_f32, cudaStream_t stream) {
+  static size_t smem_set = 0;
+  const size_t smem = Ring<NT, 1, 8>::smem(stages);
+  int rc = set_smem(qmm8_tower_kernel<NT>, smem, smem_set);
+  if (rc != 0) return rc;
+  CUtensorMap map;
+  rc = port::encode_bf16_sw128(&map, x, M, K, K, BK, NT);
+  if (rc != 0) return rc;
+  const dim3 grid((N + 127) / 128, (M + NT - 1) / NT);
+  qmm8_tower_kernel<NT><<<grid, 288, smem, stream>>>(map, static_cast<const int8_t*>(wc),
+                                                     static_cast<const float*>(s), out, M, N,
+                                                     Kp / BK, stages, out_f32);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (M, K) bf16, w (K, w_ld) int8 with w_ld >= N a multiple of 16, s (N,)
-// f32 -> out (M, N) bf16 or f32. `ws` holds splits * M * N floats when
-// splits > 1.
-extern "C" int qmm8_launch(const void* x, const void* w, const void* s, void* out, void* ws,
-                           int M, int N, int K, int w_ld, int splits, int out_f32,
-                           void* stream) {
-  return dispatch<false>(x, w, s, out, ws, M, N, K, w_ld, splits, out_f32, stream);
-}
-
-// The same with w packed two codes per byte, (K, chunks, bn2) int8,
-// chunks = ceil(N / (2 * bn2)).
-extern "C" int qmm4_launch(const void* x, const void* w, const void* s, void* out, void* ws,
-                           int M, int N, int K, int bn2, int splits, int out_f32,
-                           void* stream) {
-  if (bn2 <= 0 || bn2 % 64) return (int)cudaErrorInvalidValue;
-  return dispatch<true>(x, w, s, out, ws, M, N, K, bn2, splits, out_f32, stream);
+// x (M, K) bf16, wc the card layout (Np/64, Kp/64, 4096) int8, s (N,) f32 ->
+// out (M, N) bf16 or f32, by the plan (nt, cw, ks, stages, blocks) of
+// `ops/quant.py::qmm8_plan`: nt <= 64 takes the decode kernel, with token
+// tiles of nt = M rounded up to 16 (M <= 64) or of 64, cw column warps and
+// a k split ks among a block's warps (an instantiated pair below, ks
+// dividing Kp / 64) and at most `blocks` blocks per token tile walking the
+// column groups; nt 128 or 256 (M > 64) the tower kernel (cw 8, ks 1), one
+// block a tile. Anything else, or a
+// layout that does not fit M, N, K, is refused.
+extern "C" int qmm8_launch(const void* x, const void* wc, const void* s, void* out, int M,
+                           int N, int K, int Kp, int Np, int nt, int cw, int ks, int stages,
+                           int blocks, int out_f32, void* stream) {
+  const bool layout_ok = K > 0 && K % 16 == 0 && Kp % BK == 0 && Kp >= K && Kp - K < BK &&
+                         N > 0 && Np % 128 == 0 && Np >= N && Np - N < 128;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(wc) % 16 == 0;
+  const bool plan_ok =
+      M > 0 && stages >= 2 && stages <= 8 && blocks >= 1 &&
+      (nt <= 64 ? (nt == (M <= 64 ? (M + 15) / 16 * 16 : 64) &&
+                   (cw == 1 || cw == 2 || cw == 4 || cw == 8) &&
+                   (ks == 1 || ks == 2 || ks == 4 || ks == 8) && cw * ks <= 16 &&
+                   (Kp / BK) % ks == 0)
+                : (M > 64 && (nt == 128 || nt == 256) && cw == 8 && ks == 1 &&
+                   stages * (nt * BK * 2 + 2 * W_TILE) >= nt * 132 * 4));  // the epilogue's tile
+  if (!layout_ok || !aligned || !plan_ok) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (nt == 128) return launch_tower<128>(x, wc, s, out, M, N, K, Kp, stages, out_f32, st);
+  if (nt == 256) return launch_tower<256>(x, wc, s, out, M, N, K, Kp, stages, out_f32, st);
+#define QMM8_DECODE(NT_, CW_, KS_)                                                         \
+  if (nt == NT_ && cw == CW_ && ks == KS_)                                                 \
+    return launch_decode<NT_, CW_, KS_>(x, wc, s, out, M, N, K, Kp, stages, blocks, out_f32, \
+                                        st);
+#define QMM8_DECODE_NT(NT_) \
+  QMM8_DECODE(NT_, 1, 4)    \
+  QMM8_DECODE(NT_, 1, 8)    \
+  QMM8_DECODE(NT_, 2, 4)    \
+  QMM8_DECODE(NT_, 2, 8)    \
+  QMM8_DECODE(NT_, 4, 1)    \
+  QMM8_DECODE(NT_, 4, 2)    \
+  QMM8_DECODE(NT_, 4, 4)    \
+  QMM8_DECODE(NT_, 8, 1)    \
+  QMM8_DECODE(NT_, 8, 2)
+  QMM8_DECODE_NT(16)
+  QMM8_DECODE_NT(32)
+  QMM8_DECODE_NT(48)
+  QMM8_DECODE_NT(64)
+#undef QMM8_DECODE_NT
+#undef QMM8_DECODE
+  return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,9 @@ Each `csrc/<name>.cu` is compiled for sm_90a on first use into
 `build/torch_kernels/` at the repository root, under a file name that
 carries a hash of the source and of the shared `csrc/*.cuh` headers, so
 an edited source is rebuilt and an unchanged one is loaded as it is.
-`build_all` starts one `nvcc` per source at once. Nothing here runs at
-import time.
+`build_all` starts one `nvcc` per source at once; each build keeps ptxas's
+report (registers, shared memory, spills per kernel) beside its library
+(`ptxas_report`). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -74,10 +76,48 @@ def build_all(names: Iterable[str]) -> List[Path]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".ptxas.txt").write_text(log)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return [library_path(n) for n in names]
+
+
+def _kernel_name(mangled: str) -> str:
+    """`name<int template arguments>` of a mangled kernel symbol: the
+    length-prefixed identifier that ends in "_kernel", and the integers
+    (Li<n>E) after it."""
+    found = []  # (length, end): the shortest one is the kernel's own name
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group(0))):
+            n = int(m.group(0)[i:])
+            if mangled[m.end(): m.end() + n].endswith("_kernel"):
+                found.append((n, m.end()))
+    if not found:
+        return mangled
+    n, start = min(found)
+    args = ",".join(re.findall(r"Li(\d+)E", mangled[start + n:].split("EEv")[0]))
+    return mangled[start: start + n] + (f"<{args}>" if args else "")
+
+
+def ptxas_report(name: str) -> List[dict]:
+    """ptxas's report for each kernel of the built csrc/<name>.cu: the
+    kernel (its template arguments), registers, static shared memory and
+    spill bytes. Dynamic shared memory is set per launch by the wrappers."""
+    path = library_path(name).with_suffix(".ptxas.txt")
+    rows: List[dict] = []
+    for line in path.read_text().splitlines() if path.exists() else []:
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            rows.append({"kernel": _kernel_name(entry.group(1))})
+        elif rows and "spill" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            rows[-1].update(spill_stores=int(st), spill_loads=int(ld))
+        elif rows and "Used" in line:
+            rows[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["static_smem"] = int(smem.group(1)) if smem else 0
+    return rows
 
 
 @functools.lru_cache(maxsize=None)

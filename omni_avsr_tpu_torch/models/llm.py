@@ -102,7 +102,7 @@ def lm_head(params: Params, cfg: LLMConfig, x: torch.Tensor) -> torch.Tensor:
     xm = x.reshape(-1, x.shape[-1]).contiguous()
     if "w4" in head:
         logits = quantized_matmul4(xm, head, out_dtype=torch.float32)
-    elif head["w"].dtype == torch.int8:
+    elif "wc" in head or head["w"].dtype == torch.int8:
         logits = quantized_matmul(xm, head, out_dtype=torch.float32)
     else:
         logits = torch.matmul(xm.float(), head["w"].to(x.dtype).float())

@@ -10,8 +10,9 @@ dropout keep mask (`ops/flash_attention.py::keep_mask`):
     dp = (do v^T) * keep / (1 - rate)
     ds = p * (dp - rowsum(do * o)) * scale
     dq = ds k,  dk = ds^T q
-dk and dv are formed per query head and summed over each kv head's GQA
-group. The (T x S) matrices never reach memory on the card.
+dk and dv are summed over each kv head's GQA group. The (T x S) matrices
+never reach memory on the card; there, rowsum(do * o) and the group sums
+are taken inside the kernels.
 
 `flash_attention_bwd` is the wrapper. A tensor on the CPU takes
 `flash_attention_bwd_plain`, the same math densely in torch; a CUDA tensor
@@ -32,7 +33,7 @@ import torch
 from ..kernels import check, load
 from .flash_attention import _M32, _threshold, flash_attention, keep_mask
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 \
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 \
     + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -123,27 +124,26 @@ def _launch(q, k, v, o, do, lse, causal, kv_lengths, scale, dropout_rate, dropou
         lens_ptr = kv_lengths.data_ptr()
     if len({t.device for t in (q, k, v, o, do, lse, kv_lengths) if t is not None}) != 1:
         raise ValueError("inputs on several devices")
-    # rowsum(do * o) in f32, an XLA op beside the TPU kernels too (`:172`)
-    dsum = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).reshape(B * Hq, T).contiguous()
+    # the wrapper allocates and launches; rowsum(do * o) (an XLA op beside
+    # the TPU kernels, `:172`) and the GQA group sums happen in the kernels
     dq = torch.empty_like(q)
-    dk_ph = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
-    dv_ph = torch.empty_like(dk_ph)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dsum = torch.empty((B * Hq, T), dtype=torch.float32, device=q.device)
     seed = int(dropout_seed) if dropout_rate > 0.0 else 0
     seed = ((seed & _M32) ^ 2**31) - 2**31  # as a signed 32-bit int, for ctypes
     with torch.cuda.device(q.device):
         rc = _launcher()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dsum.data_ptr(), lens_ptr, dq.data_ptr(), dk_ph.data_ptr(), dv_ph.data_ptr(),
-            B, T, S, Hq, Hkv, D, float(D ** -0.5 if scale is None else scale), int(causal),
-            int(dropout_rate > 0.0), seed, _threshold(dropout_rate) if dropout_rate > 0.0 else 0,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), lens_ptr, dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, T, S, Hq, Hkv, D, float(D ** -0.5 if scale is None else scale),
+            int(causal), int(dropout_rate > 0.0), seed,
+            _threshold(dropout_rate) if dropout_rate > 0.0 else 0,
             float(1.0 / (1.0 - dropout_rate)),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1
-    G = Hq // Hkv
-    dk = dk_ph.view(B, S, Hkv, G, D).sum(dim=3).to(k.dtype)
-    dv = dv_ph.view(B, S, Hkv, G, D).sum(dim=3).to(v.dtype)
     return dq, dk, dv
 
 
@@ -162,7 +162,7 @@ def flash_attention_bwd(
 ):
     """(dq, dk, dv). CPU tensors take the plain version; CUDA tensors (bf16,
     contiguous, D 64 or 128, f32 lse, int32 lengths) launch the two kernels
-    and count one launch in `flash_attention_bwd.launches`."""
+    and nothing else, and count one launch in `flash_attention_bwd.launches`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal, kv_lengths, scale,
                                          dropout_rate, dropout_seed)

@@ -50,8 +50,9 @@ def save_checkpoint(ckpt_dir: str, step: int, state: TrainState, keep: int = 4) 
     return path
 
 
-def restore_checkpoint(path: str, device="cpu") -> TrainState:
-    """The saved state, its tensors on `device` (masters require grad)."""
+def restore_checkpoint(path: str, device="cuda") -> TrainState:
+    """The saved state, its tensors on `device` (masters require grad): the
+    card unless the caller asks for the CPU."""
     raw = torch.load(path, map_location=device, weights_only=False)
     trainable = tree_map(lambda x: x.requires_grad_(True), raw["trainable"])
     return TrainState(raw["step"], trainable, raw["opt_state"])
@@ -70,7 +71,7 @@ def average_last_n(ckpt_dir: str, n: int):
     assert ckpts, f"no checkpoints in {ckpt_dir}"
     acc = None
     for path in ckpts:
-        tree = tree_map(lambda x: x.detach().double(), restore_checkpoint(path).trainable)
+        tree = tree_map(lambda x: x.detach().double(), restore_checkpoint(path, device="cpu").trainable)
         acc = tree if acc is None else _add(acc, tree)
     return tree_map(lambda x: (x / len(ckpts)).float(), acc)
 

@@ -87,22 +87,33 @@ def _quant_inputs(M, K, N, device, seed, bits=8):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N,out_f32", [
-    (45, 2048, 3072, False),   # decode q|k|v (split-K)
-    (45, 8192, 2048, False),   # decode down (split-K)
-    (45, 2048, 8017, True),    # an odd width like the lm_head's 128261, f32 out
-    (528, 2048, 2048, False),  # prefill
-    (975, 1024, 4096, False),  # tower fc1, ragged M
-    (1, 64, 16, True),         # smallest
+    (45, 2048, 3072, False),    # decode q|k|v: token tile 48, 32-column groups
+    (45, 2048, 2048, True),     # decode o: 16-column groups, K split 8 ways
+    (45, 2048, 16384, False),   # decode gate|up: 128-column groups
+    (45, 8192, 2048, False),    # decode down
+    (45, 2048, 128261, True),   # the lm_head: odd N, f32 logits, blocks walk the groups
+    (1, 1024, 1024, True),      # one token
+    (3, 2048, 3072, False),     # greedy decoding, 3 requests
+    (64, 4096, 1024, False),    # the largest decode tile
+    (65, 1024, 4096, True),     # one row past it: two 64-token tiles
+    (528, 2048, 2048, False),   # prefill (3 x 176): wgmma, 128-token tiles
+    (480, 4096, 1024, False),   # AV-HuBERT fc2, bucketed window: mma.sync, 64-token tiles
+    (975, 1024, 1024, True),    # Whisper q, bucketed window: 64-token tiles, 128 columns
+    (975, 1024, 4096, False),   # Whisper fc1, bucketed window: ragged M
+    (4500, 1024, 4096, False),  # Whisper fc1 at the 30 s window, 256-token tiles
+    (4500, 4096, 1024, True),   # Whisper fc2
+    (1, 64, 16, True),          # smallest
+    (7, 48, 37, False),         # K not a multiple of 64, N of 16
 ])
 def test_quantized_matmul_kernel_matches_plain(cuda_device, M, K, N, out_f32):
     from omni_avsr_tpu_torch.ops.quant import (
-        align_int8_columns,
+        arrange_int8_for_card,
         quantized_matmul,
         quantized_matmul_plain,
     )
 
     x, q = _quant_inputs(M, K, N, cuda_device, seed=M + N)
-    q = align_int8_columns(q)
+    q = arrange_int8_for_card(q)
     out_dtype = torch.float32 if out_f32 else None
     before = quantized_matmul.launches
     out = quantized_matmul(x, q, out_dtype=out_dtype)
@@ -112,6 +123,22 @@ def test_quantized_matmul_kernel_matches_plain(cuda_device, M, K, N, out_f32):
     assert out.dtype == ref.dtype and out.shape == (M, N)
     tol = dict(atol=1e-3, rtol=1e-3) if out_f32 else dict(atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_rejects_bad_input(cuda_device):
+    """B2 never re-arranges weights per call: a leaf in the JAX layout, a
+    card layout of another shape or an x that is not bf16 is refused."""
+    from omni_avsr_tpu_torch.ops.quant import arrange_int8_for_card, quantized_matmul
+
+    x, q = _quant_inputs(45, 256, 384, cuda_device, seed=1)
+    with pytest.raises(ValueError, match="card layout"):
+        quantized_matmul(x, q)
+    card = arrange_int8_for_card(q)
+    with pytest.raises(ValueError, match="does not hold"):
+        quantized_matmul(x[:, :128].contiguous(), card)
+    with pytest.raises(ValueError, match="dtype"):
+        quantized_matmul(x.float(), card)
 
 
 @pytest.mark.cuda
@@ -196,6 +223,8 @@ def test_beam_attention_kernel_one_beam(cuda_device, B, P, step):
     (1, 200, 200, 8, 8, 128, True, None, 0.0),          # D 128
     (2, 130, 150, 4, 2, 64, False, (150, 0), 0.25),     # ragged tiles, a row without keys
     (1, 96, 96, 4, 1, 64, True, (70,), 0.1),            # causal + lengths + dropout, G 4
+    (2, 200, 200, 16, 4, 128, False, (200, 77), 0.1),   # G 4, D 128, lengths, dropout
+    (3, 347, 347, 32, 8, 64, True, (347, 300, 12), 0.0),  # the LLM's shape with lengths
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, T, S, Hq, Hkv, D, causal,
                                                   lens, rate):
@@ -249,6 +278,11 @@ def test_flash_attention_bwd_rejects_bad_input(cuda_device):
         flash_attention_bwd(s, s, s, s, s, lse)
     with pytest.raises(ValueError, match="dropout_seed"):
         flash_attention_bwd(t, t, t, t, t, lse, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        k3 = torch.zeros(1, 64, 3, 64, dtype=torch.bfloat16, device=cuda_device)
+        flash_attention_bwd(t, k3, k3, t, t, lse)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bwd(t, t, t, t.transpose(1, 2).contiguous().transpose(1, 2), t, lse)
 
 
 # B5: chunk maxima and the row max are exact on both sides; the normaliser

@@ -92,7 +92,7 @@ def test_quantized_matmul_plain_matches_jax(m, k, n):
     from omni_avsr_tpu.ops.quant import quantize_per_channel as jqpc
     from omni_avsr_tpu.ops.quant import quantized_linear_xla, quantized_matmul as jqmm
     from omni_avsr_tpu_torch.ops.quant import (
-        align_int8_columns,
+        arrange_int8_for_card,
         quantize_per_channel,
         quantized_matmul,
     )
@@ -106,9 +106,9 @@ def test_quantized_matmul_plain_matches_jax(m, k, n):
     leaf = quantize_per_channel(torch.from_numpy(w))
     ours = quantized_matmul(torch.from_numpy(x), leaf)
     assert quantized_matmul.launches == before  # CPU tensors: the plain version
-    aligned = align_int8_columns(leaf)  # the serving layout: zero code columns to 16
-    assert aligned["w"].shape[-1] == -(-n // 16) * 16
-    torch.testing.assert_close(quantized_matmul(torch.from_numpy(x), aligned), ours,
+    card = arrange_int8_for_card(leaf)  # the serving layout
+    assert "w" not in card and card["wc"].shape == (-(-n // 128) * 2, -(-k // 64), 4096)
+    torch.testing.assert_close(quantized_matmul(torch.from_numpy(x), card), ours,
                                atol=0, rtol=0)
     assert ours.shape == (m, n) and ours.dtype == torch.float32
     np.testing.assert_allclose(ours.numpy(), ref, **QMM_TOL)
@@ -205,17 +205,149 @@ def test_int4_linear_and_lm_head():
 @pytest.mark.parametrize("vocab", [256, 261])
 def test_tied_lm_head_codes_are_contiguous(vocab):
     """The tied lm_head is quantised from the embedding's transpose; its
-    codes must be contiguous (B2 reads them row by row) also at a width
-    that `align_int8_columns` leaves unpadded, like Llama-3's 128256."""
+    codes must be contiguous (B2 streams them in long runs) also at a width
+    that needs no padding, like Llama-3's 128256, and in the card layout."""
     from omni_avsr_tpu_torch.ops.quant import (
-        align_int8_columns,
+        arrange_int8_for_card,
+        card_int8_codes,
         quantize_llm_params,
         quantize_per_channel,
     )
 
     embed = torch.randn(vocab, 32, generator=torch.Generator().manual_seed(vocab))
     llm = {"embed": {"w": embed}, "layers": {"attn": {}, "mlp": {}}}
-    head = align_int8_columns(quantize_llm_params(llm))["lm_head"]
+    head = quantize_llm_params(llm)["lm_head"]
+    want = quantize_per_channel(embed.t().contiguous())["w"]
     assert head["w"].is_contiguous() and head["s"].shape == (vocab,)
-    np.testing.assert_array_equal(head["w"][:, :vocab].numpy(),
-                                  quantize_per_channel(embed.t().contiguous())["w"].numpy())
+    np.testing.assert_array_equal(head["w"].numpy(), want.numpy())
+    card = arrange_int8_for_card({"lm_head": head})["lm_head"]
+    assert card["wc"].is_contiguous()
+    np.testing.assert_array_equal(card_int8_codes(card["wc"], 32, vocab).numpy(), want.numpy())
+
+
+# B2's card layout: the JAX codes, arranged in the order in which the
+# kernel's threads load them as tensor-core fragments, and back.
+@pytest.mark.parametrize("shape", [(16, 37), (64, 128), (48, 261), (2048, 128261 % 1024),
+                                   (3, 32, 200), (2, 80, 37)])
+def test_card_layout_round_trip(shape):
+    from omni_avsr_tpu_torch.models.common import layer_slice
+    from omni_avsr_tpu_torch.ops.quant import arrange_int8_for_card, card_int8_codes
+
+    g = torch.Generator().manual_seed(sum(shape))
+    w = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    *lead, k, n = shape
+    leaf = {"w": w, "s": torch.rand(*lead, n, generator=g), "b": torch.zeros(*lead, n)}
+    card = arrange_int8_for_card({"layers": {"fc": leaf}})["layers"]["fc"]
+    assert sorted(card) == ["b", "s", "wc"] and card["s"] is leaf["s"]
+    kp, np_ = -(-k // 64) * 64, -(-n // 128) * 128
+    assert card["wc"].shape == (*lead, np_ // 64, kp // 64, 4096)
+    assert card["wc"].dtype == torch.int8 and card["wc"].is_contiguous()
+    assert torch.equal(card_int8_codes(card["wc"], k, n), w)
+    # padding is zero codes: the arranged bytes hold each code once
+    assert int((card["wc"] != 0).sum()) == int((w != 0).sum())
+    if lead:  # a stacked leaf: layer i of the arranged tree arranges layer i
+        one = layer_slice({"fc": card}, 1)["fc"]
+        assert torch.equal(card_int8_codes(one["wc"], k, n), w[1])
+
+
+def test_card_layout_fragment_order():
+    """Byte b of lane l in the 512 bytes of a 16-column x 32-k tile is the
+    code that the lane's mma A fragment holds there: column g + 8 * (r & 1),
+    k 16 * (b // 8) + 2 * t + e + 8 * (r >> 1), with g = l // 4, t = l % 4,
+    r = (b % 8) // 2, e = b % 2 (`csrc/quant_matmul.cu`)."""
+    from omni_avsr_tpu_torch.ops.quant import card_int8_layout
+
+    k, n = 128, 256
+    w = torch.randint(-127, 128, (k, n), generator=torch.Generator().manual_seed(0),
+                      dtype=torch.int8)
+    flat = card_int8_layout(w).reshape(-1)
+    ks = k // 64
+    idx = torch.arange(flat.numel())
+    chunk, rem = idx // 4096, idx % 4096
+    tile, ks_i = chunk // ks, chunk % ks
+    wq, half, lane, byte = rem // 1024, (rem // 512) % 2, (rem // 16) % 32, rem % 16
+    g, t, r, e = lane // 4, lane % 4, (byte % 8) // 2, byte % 2
+    col = tile * 64 + wq * 16 + g + 8 * (r & 1)
+    row = ks_i * 64 + half * 32 + (byte // 8) * 16 + 2 * t + e + 8 * (r >> 1)
+    assert torch.equal(flat, w[row, col])
+
+
+@pytest.mark.parametrize("m", [1, 3, 45, 130])
+def test_card_layout_plain_matches_jax(m):
+    """The plain version on a card-layout leaf equals the JAX Pallas kernel
+    (interpret mode) at tiny sizes, in f32 and with bf16 x."""
+    from omni_avsr_tpu.ops.quant import quantize_per_channel as jqpc
+    from omni_avsr_tpu.ops.quant import quantized_matmul as jqmm
+    from omni_avsr_tpu_torch.ops.quant import (
+        arrange_int8_for_card,
+        quantize_per_channel,
+        quantized_matmul,
+    )
+
+    k, n = 96, 200
+    w, x = _quant_case(m, k, n, seed=m)
+    ref = np.asarray(jqmm(jnp.asarray(x), jqpc(jnp.asarray(w)), block_m=8, block_n=128,
+                          block_k=32, interpret=True))
+    card = arrange_int8_for_card(quantize_per_channel(torch.from_numpy(w)))
+    ours = quantized_matmul(torch.from_numpy(x), card)
+    assert ours.shape == (m, n)
+    np.testing.assert_allclose(ours.numpy(), ref, **QMM_TOL)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    ref_b = np.asarray(jqmm(jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16),
+                            jqpc(jnp.asarray(w)), block_m=8, block_n=128, block_k=32,
+                            interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(quantized_matmul(xb, card).float().numpy(), ref_b,
+                               atol=2e-2, rtol=2e-2)
+
+
+# B2's launch plans at every shape of the serving paths: the decode
+# matrices (M 45, and 3 for greedy decoding), the lm_head, the prefills of
+# the bucketed and 30 s windows and the towers' matrices.
+@pytest.mark.parametrize("M,K,N,plan", [
+    (45, 2048, 3072, (48, 2, 4, 6, 132)), (45, 2048, 2048, (48, 1, 8, 3, 132)),
+    (45, 2048, 16384, (48, 8, 2, 7, 132)), (45, 8192, 2048, (48, 1, 8, 3, 132)),
+    (45, 2048, 128261, (48, 8, 2, 7, 132)), (45, 2048, 128256, (48, 8, 2, 7, 132)),
+    (3, 2048, 3072, (16, 2, 4, 8, 132)), (3, 2048, 128261, (16, 8, 2, 8, 132)),
+    (1, 1024, 1024, (16, 1, 8, 8, 132)), (64, 4096, 1024, (64, 1, 8, 2, 132)),
+    (7, 48, 37, (16, 4, 1, 8, 132)), (1, 64, 16, (16, 4, 1, 8, 132)),
+    (528, 2048, 3072, (128, 8, 1, 8, 120)), (528, 2048, 2048, (128, 8, 1, 8, 80)),
+    (528, 2048, 16384, (128, 8, 1, 8, 640)), (528, 8192, 2048, (128, 8, 1, 8, 80)),
+    (1200, 2048, 3072, (256, 8, 1, 5, 120)), (480, 1024, 1024, (64, 4, 2, 8, 132)),
+    (480, 1024, 4096, (128, 8, 1, 8, 128)), (480, 4096, 1024, (64, 4, 4, 3, 132)),
+    (975, 1024, 1024, (64, 8, 2, 6, 132)), (975, 1024, 4096, (256, 8, 1, 5, 128)),
+    (975, 4096, 1024, (64, 8, 2, 6, 132)), (1152, 1024, 4096, (128, 8, 1, 8, 288)),
+    (4500, 1024, 4096, (256, 8, 1, 5, 576)), (4500, 4096, 1024, (256, 8, 1, 5, 144)),
+    (65, 1024, 4096, (64, 4, 2, 8, 132)),
+])
+def test_qmm8_plan(M, K, N, plan):
+    from omni_avsr_tpu_torch.ops.quant import qmm8_plan
+
+    assert qmm8_plan(M, N, K, 132) == plan
+    nt, cw, ks, stages, blocks = plan
+    if nt <= 64:
+        # a kernel instantiation of csrc/quant_matmul.cu, its split dividing K
+        assert nt == (-(-M // 16) * 16 if M <= 64 else 64)
+        assert (cw, ks) in {(1, 4), (1, 8), (2, 4), (2, 8), (4, 1), (4, 2), (4, 4), (8, 1), (8, 2)}
+        assert -(-K // 64) % ks == 0 and blocks == 132
+    else:
+        assert nt in (128, 256) and (cw, ks) == (8, 1)
+        assert blocks == -(-N // 128) * -(-M // nt)
+        assert stages * (nt * 128 + 8192) >= nt * 132 * 4  # the epilogue's tile fits the ring
+    # the ring and the k split's partial sums fit 227 KB of shared memory
+    assert 1024 + stages * ks * (nt * 128 + cw * 1024) + 16 * stages \
+        + (ks - 1) * cw * nt * 64 <= 232448
+
+
+def test_cuda_route_requires_card_layout():
+    """A leaf in the JAX layout is refused before any launch: the card
+    never re-arranges weights per call."""
+    from omni_avsr_tpu_torch.ops.quant import (
+        arrange_int8_for_card,
+        quantize_per_channel,
+        require_card_layout,
+    )
+
+    leaf = quantize_per_channel(torch.randn(32, 40))
+    with pytest.raises(ValueError, match="card layout"):
+        require_card_layout(leaf)
+    assert require_card_layout(arrange_int8_for_card(leaf)).shape == (2, 1, 4096)

@@ -240,7 +240,7 @@ def test_checkpoint_roundtrip_keep_and_average(tmp_path):
     paths = list_checkpoints(str(tmp_path))
     assert [p.rsplit("_", 1)[1] for p in paths] == ["00000002.pt", "00000003.pt", "00000004.pt"]
     assert latest_checkpoint(str(tmp_path)) == paths[-1]
-    back = restore_checkpoint(paths[-1])
+    back = restore_checkpoint(paths[-1], device="cpu")
     assert back.step == 4 and back.opt_state.count == 0
     for a, b in zip(tree_leaves(back.trainable), tree_leaves(trees[-1])):
         assert a.requires_grad and a.dtype == torch.float32
@@ -248,6 +248,16 @@ def test_checkpoint_roundtrip_keep_and_average(tmp_path):
     avg = average_last_n(str(tmp_path), 2)
     for a, b, c in zip(tree_leaves(avg), tree_leaves(trees[2]), tree_leaves(trees[3])):
         torch.testing.assert_close(a, ((b.double() + c.double()) / 2).float(), atol=0, rtol=0)
+
+
+def test_restore_checkpoint_defaults_to_the_card():
+    """An entry point of the port puts what it returns on the card unless
+    the caller asks for the CPU; read from the signature, no card needed."""
+    import inspect
+
+    from omni_avsr_tpu_torch.train.checkpoint import restore_checkpoint
+
+    assert inspect.signature(restore_checkpoint).parameters["device"].default == "cuda"
 
 
 def test_augmented_step_is_seeded_and_moves_the_masters(tiny):
