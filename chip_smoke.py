@@ -7,20 +7,25 @@ Phases, each printing lines with the elapsed seconds:
   1. the card: name and power limit, from nvidia-smi;
   2. the nvcc build of every kernel source in omni_avsr_tpu_torch/csrc/,
      one nvcc per source, all started together, and ptxas's registers,
-     shared memory and spills of the kernels this slice rebuilt (B2, B4);
+     shared memory and spills of the wgmma kernels (B3, B2/B6, B4);
   3. each kernel against its plain PyTorch version at the shapes the
      serving and training paths give it, with its time, the plain
      version's, a PyTorch library call's and the card's lower bound for
      the same work: B1 beam-decode attention (at the 6.4 s prefix and at
      the prefix of the 30 s-window requests below, with 15 beams and with
-     the one beam of greedy decoding), B3 flash attention (Whisper's 30 s
-     window, AV-HuBERT, and causal / key-length / GQA / D 128 / lse /
-     dropout cases), B4 flash backward (AV-HuBERT's training shape with
+     the one beam of greedy decoding), B3 flash attention (timed at
+     Whisper's 30 s window at B 1 and B 3, AV-HuBERT at T 384 with the
+     lengths of (a), the training LLM's causal GQA shape with lse and
+     AV-HuBERT's training shape with lengths, dropout and lse, each beside
+     SDPA and the kernels SDPA ran; and causal /
+     key-length / GQA / D 128 / lse / dropout cases), B4 flash backward
+     (AV-HuBERT's training shape with
      key lengths and dropout 0.1, the LLM's causal GQA shape; three calls
      under the profiler must run its two kernels and nothing else), B2 and
      B6 int8 and packed-int4 matmuls (every decode matrix, the lm_head with
-     f32 logits, a tower matrix; B2 in the card layout of
-     `arrange_int8_for_card`), B5 the beam-selection row statistics (45
+     f32 logits, a tower matrix; in the card layouts of
+     `arrange_for_card`), B5 the
+     beam-selection row statistics (45
      rows of Llama-3's 128256-token vocabulary, and 8 and 13 rows), B7 the
      fused ResNet conv (each of the trunk's conv geometries and epilogues
      at 480 frames, summed over the 19 convs of one trunk);
@@ -42,9 +47,10 @@ Phases, each printing lines with the elapsed seconds:
      measured batch, read just after, and held to the count the path must
      give;
   5. B2 at every distinct (M, K, N) that one measured batch of (a) and of
-     (b) launched it with (the wrapper counts launches by shape), each
-     against its plain version, timed beside cuBLAS's bf16 product and the
-     bound, and summed over the batch's tower, prefill and decode launches;
+     (b) launched it with, and B6 at every one of a (c) batch (the wrappers
+     count launches by shape), each against its plain version, timed beside
+     cuBLAS's bf16 product and the bound, and summed over the batch's
+     tower, prefill and decode launches;
      then reference checks at full width: the prefill and the first decode
      steps through the kernels and through the plain versions (int8 and
      int4), one Whisper layer at T = 1500 through B3 and through its
@@ -262,28 +268,47 @@ def check_b1(flush, P: int, batches=(1, B_SERVE, 4), K: int = K):
 # --------------------------------------------------------------------- B3
 
 
+def sdpa_backend(run) -> list:
+    """The device kernels that one call of `run` (an SDPA call) launches:
+    which backend PyTorch picked for it."""
+    names = []
+    for name, _ in device_activities(run):
+        short = re.sub(r"\(.*", "", name)[:90]
+        if short not in names:
+            names.append(short)
+    return names
+
+
 def check_b3(flush):
-    """B3 against its plain version; the Whisper 30 s shapes and the
-    AV-HuBERT shape of configuration (a) timed against SDPA and the bound.
-    Returns the timed row of Whisper at B 3."""
+    """B3 against its plain version: the timed shapes of the serving and
+    training paths (each against SDPA, with a boolean key mask where there
+    are lengths, and the bound from the (query, key) pairs the masks leave)
+    and more cases for correctness. Returns the Whisper B 3 row and the
+    timed rows."""
     import torch
     import torch.nn.functional as F
 
     from omni_avsr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
+    seed = 20261017
     cases = [  # name, B, T, S, Hq, Hkv, D, options, timed
         ("whisper pad30s B1", 1, 1500, 1500, 16, 16, 64, {}, True),
-        ("whisper pad30s B3", 3, 1500, 1500, 16, 16, 64, {}, True),
-        ("avhubert T 384 B3", 3, 384, 384, 16, 16, 64, {}, True),
+        ("whisper pad30s B3", B_SERVE, 1500, 1500, 16, 16, 64, {}, True),
+        ("avhubert T 384 B3 lengths (a)", B_SERVE, 384, 384, 16, 16, 64,
+         dict(kv_lengths=(300, 280, 260)), True),
+        (f"llm causal T {T_LLM_AV} B4 GQA 32/8 lse (train)", B_TRAIN, T_LLM_AV, T_LLM_AV, 32, 8,
+         64, dict(causal=True, return_lse=True), True),
+        (f"avhubert T {FRAMES_TRAIN} B4 lengths dropout 0.1 lse (train)", B_TRAIN, FRAMES_TRAIN,
+         FRAMES_TRAIN, 16, 16, 64, dict(kv_lengths=(320, 301, 280, 257), dropout_rate=0.1,
+                                        dropout_seed=seed, return_lse=True), True),
         ("causal", 2, 512, 512, 16, 16, 64, dict(causal=True), False),
         ("kv_lengths", 3, 384, 384, 16, 16, 64, dict(kv_lengths=(384, 300, 257)), False),
         ("GQA 32/8 D128 causal lse", 2, 300, 300, 32, 8, 128,
          dict(causal=True, return_lse=True), False),
         ("dropout 0.1 lse lengths", 2, 300, 300, 16, 16, 64,
-         dict(dropout_rate=0.1, dropout_seed=20261017, return_lse=True,
-              kv_lengths=(300, 201)), False),
+         dict(dropout_rate=0.1, dropout_seed=seed, return_lse=True, kv_lengths=(300, 201)), False),
     ]
-    max_err, main_row = 0.0, None
+    max_err, main_row, timed_rows = 0.0, None, []
     for name, B, T, S, Hq, Hkv, Dh, opts, timed in cases:
         g = torch.Generator(device=DEV).manual_seed(T + S + Hq + Dh)
 
@@ -291,9 +316,9 @@ def check_b3(flush):
             return torch.randn(*shape, generator=g, device=DEV).to(torch.bfloat16)
 
         q, k, v = rn(B, T, Hq, Dh), rn(B, S, Hkv, Dh), rn(B, S, Hkv, Dh)
-        if "kv_lengths" in opts:
-            opts = {**opts, "kv_lengths": torch.tensor(opts["kv_lengths"], dtype=torch.int32,
-                                                       device=DEV)}
+        lens = opts.get("kv_lengths")
+        if lens is not None:
+            opts = {**opts, "kv_lengths": torch.tensor(lens, dtype=torch.int32, device=DEV)}
         out = flash_attention(q, k, v, **opts)
         ref = flash_attention_plain(q, k, v, **opts)
         torch.cuda.synchronize()
@@ -305,20 +330,34 @@ def check_b3(flush):
         err = (out.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
         max_err = max(max_err, err)
-        row = dict(case=name, B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, D=Dh, max_abs_err=err)
+        row = dict(case=name, B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, D=Dh, causal=bool(opts.get("causal")),
+                   kv_lengths=list(lens) if lens else None, dropout=opts.get("dropout_rate", 0.0),
+                   lse=bool(opts.get("return_lse")), max_abs_err=err)
         if timed:
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, out, k, v in bf16
+            mask = None
+            if lens is not None:
+                mask = (torch.arange(S, device=DEV)[None, :] < opts["kv_lengths"][:, None])[
+                    :, None, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, attn_mask=mask, dropout_p=opts.get("dropout_rate", 0.0),
+                is_causal=row["causal"], enable_gqa=Hq != Hkv)
+            pairs = valid_pairs(T, S, row["causal"], lens or (S,) * B)
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + (4 * B * Hq * T if row["lse"]
+                                                                      else 0)
             row.update(
-                ms=time_ms(lambda: flash_attention(q, k, v), flush),
-                plain_ms=time_ms(lambda: flash_attention_plain(q, k, v), flush, iters=10),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), flush))
-            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4.0 * B * Hq * T * S * Dh)
+                ms=time_ms(lambda: flash_attention(q, k, v, **opts), flush),
+                plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **opts), flush, iters=10),
+                library_ms=time_ms(sdpa, flush), library_kernels=sdpa_backend(sdpa),
+                valid_pairs=pairs)
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4.0 * Dh * Hq * pairs)
+            row["tflop_per_s"] = 4.0 * Dh * Hq * pairs / (row["ms"] * 1e-3) / 1e12
             if name == "whisper pad30s B3":
                 main_row = row
+            timed_rows.append(row)
         log("B3", json.dumps(row))
     main_row["max_abs_err"] = max_err
-    return main_row
+    return main_row, timed_rows
 
 
 # --------------------------------------------------------------------- B4
@@ -434,9 +473,6 @@ def check_qmm(flush, int4: bool, vocab: int):
     import torch
 
     from omni_avsr_tpu_torch.ops.quant import (
-        arrange_int8_for_card,
-        pack_int4,
-        quantize_per_channel,
         quantized_matmul,
         quantized_matmul4,
         quantized_matmul4_plain,
@@ -455,9 +491,8 @@ def check_qmm(flush, int4: bool, vocab: int):
         g = torch.Generator(device=DEV).manual_seed(M + Kd + Nd)
         w = torch.randn(Kd, Nd, generator=g, device=DEV) * 0.02
         x = torch.randn(M, Kd, generator=g, device=DEV).to(torch.bfloat16)
-        q = quantize_per_channel(w, bits=4 if int4 else 8)
+        q, leaf = serving_leaf(w, 4 if int4 else 8)
         del w
-        leaf = pack_int4(q) if int4 else arrange_int8_for_card(q)  # the serving layout
         out_dtype = torch.float32 if name == "lm_head" else None
         out = kernel(x, leaf, out_dtype=out_dtype)
         ref = plain(x, leaf, out_dtype=out_dtype)
@@ -497,10 +532,20 @@ def check_qmm(flush, int4: bool, vocab: int):
     return step
 
 
+def serving_leaf(w, bits: int):
+    """The codes of a float weight and its leaf as the serving tree holds it
+    on the card: int8 in B2's card layout, packed int4 in B6's."""
+    from omni_avsr_tpu_torch.ops.quant import arrange_for_card, pack_int4, quantize_per_channel
+
+    q = quantize_per_channel(w, bits=bits)
+    return q, arrange_for_card(pack_int4(q) if bits == 4 else q)
+
+
 def b2_stage(M: int, Kd: int, Nd: int, vocab: int, llm_dims) -> str:
-    """Which stage of a served batch runs B2 at (M, K, N): the decode steps
-    (M = 3 requests x 15 beams, with their lm_head), the LLM prefill (the
-    LLM's widths, and the lm_head of the last prefix token) or the towers."""
+    """Which stage of a served batch runs B2 or B6 at (M, K, N): the decode
+    steps (M = 3 requests x 15 beams, with their lm_head), the LLM prefill
+    (the LLM's widths, and the lm_head of the last prefix token) or the
+    towers."""
     if M == B_SERVE * K:
         return "decode"
     if Nd == vocab or Kd in llm_dims:
@@ -508,19 +553,24 @@ def b2_stage(M: int, Kd: int, Nd: int, vocab: int, llm_dims) -> str:
     return "tower"
 
 
-def b2_per_batch(flush, label: str, shapes, vocab: int, llm_dims):
-    """B2 at every distinct (M, K, N) that one served batch launched it
-    with, each against its plain version, timed (cold L2) beside cuBLAS's
-    bf16 product on the dequantised weight and the bound; summed over the
-    batch's launches by stage. Returns {stage: sums} and the shape rows."""
+def qmm_per_batch(flush, label: str, shapes, vocab: int, llm_dims, bits: int = 8):
+    """B2 (bits 8) or B6 (bits 4) at every distinct (M, K, N) that one
+    served batch launched it with, each against its plain version, timed
+    (cold L2) beside cuBLAS's bf16 product on the weight dequantised
+    beforehand and the bound; summed over the batch's launches by stage.
+    Returns {stage: sums} and the shape rows."""
     import torch
 
     from omni_avsr_tpu_torch.ops.quant import (
-        arrange_int8_for_card,
-        quantize_per_channel,
         quantized_matmul,
+        quantized_matmul4,
+        quantized_matmul4_plain,
         quantized_matmul_plain,
     )
+
+    kernel = quantized_matmul4 if bits == 4 else quantized_matmul
+    plain = quantized_matmul4_plain if bits == 4 else quantized_matmul_plain
+    name = "B6" if bits == 4 else "B2"
 
     sums = {st: dict(launches=0, ms=0.0, library_ms=0.0, bound_ms=0.0, nbytes=0.0, flops=0.0)
             for st in ("tower", "prefill", "decode", "batch")}
@@ -529,27 +579,26 @@ def b2_per_batch(flush, label: str, shapes, vocab: int, llm_dims):
         g = torch.Generator(device=DEV).manual_seed(M + Kd + Nd)
         w = torch.randn(Kd, Nd, generator=g, device=DEV) * 0.02
         x = torch.randn(M, Kd, generator=g, device=DEV).to(torch.bfloat16)
-        q = quantize_per_channel(w)
+        q, leaf = serving_leaf(w, bits)
         del w
         w_bf16 = (q["w"].float() * q["s"]).to(torch.bfloat16)
-        leaf = arrange_int8_for_card(q)
         del q
         out_dtype = torch.float32 if Nd == vocab else None
-        out = quantized_matmul(x, leaf, out_dtype=out_dtype)
-        ref = quantized_matmul_plain(x, leaf, out_dtype=out_dtype)
+        out = kernel(x, leaf, out_dtype=out_dtype)
+        ref = plain(x, leaf, out_dtype=out_dtype)
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), ref.float(),
                                    **(F32_OUT_TOL if out_dtype else BF16_TOL))
-        nbytes = M * Kd * 2 + Kd * Nd + Nd * 4 + M * Nd * (4 if out_dtype else 2)
+        nbytes = M * Kd * 2 + Kd * Nd * bits // 8 + Nd * 4 + M * Nd * (4 if out_dtype else 2)
         flops = 2.0 * M * Kd * Nd
         stage = b2_stage(M, Kd, Nd, vocab, llm_dims)
         row = dict(stage=stage, M=M, K=Kd, N=Nd, launches=count,
                    max_abs_err=(out.float() - ref.float()).abs().max().item(),
-                   ms=time_ms(lambda: quantized_matmul(x, leaf, out_dtype=out_dtype), flush),
+                   ms=time_ms(lambda: kernel(x, leaf, out_dtype=out_dtype), flush),
                    library_ms=time_ms(lambda: x @ w_bf16, flush))
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
         rows.append(row)
-        log("B2", f"{label}: {json.dumps(row)}")
+        log(name, f"{label}: {json.dumps(row)}")
         for st in (stage, "batch"):
             for key in ("ms", "library_ms", "bound_ms"):
                 sums[st][key] += count * row[key]
@@ -560,7 +609,7 @@ def b2_per_batch(flush, label: str, shapes, vocab: int, llm_dims):
     torch.cuda.empty_cache()
     for st, v in sums.items():
         v["bound_by"] = bound_ms(v["nbytes"], v["flops"])[1] if v["launches"] else None
-        log("B2", f"{label}, one batch, {st}: {v['launches']} launches, kernel "
+        log(name, f"{label}, one batch, {st}: {v['launches']} launches, kernel "
             f"{v['ms']:.4f} ms, cuBLAS bf16 {v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
             f"({v['bound_by']})")
     return sums, rows
@@ -735,7 +784,7 @@ def counters():
 
 
 def reset_counts(fns) -> None:
-    """Every kernel counter to 0, and B2's count by (M, K, N)."""
+    """Every kernel counter to 0, and B2's and B6's counts by (M, K, N)."""
     for fn in fns.values():
         fn.launches = 0
         if hasattr(fn, "shapes"):
@@ -807,8 +856,9 @@ def serve(label: str, server, items, expected, repeats: int = SERVE_REPEATS, **k
                batch_s_each=times, s_per_request=dt / len(items), audio_s_per_s=audio_s / dt,
                decode_steps=steps, launches=launches,
                b2_shapes=sorted(fns["B2"].shapes.items()),
+               b6_shapes=sorted(fns["B6"].shapes.items()),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log("serve", json.dumps({k: v for k, v in row.items() if k != "b2_shapes"}))
+    log("serve", json.dumps({k: v for k, v in row.items() if k not in ("b2_shapes", "b6_shapes")}))
     for i, s in enumerate(texts):
         log("serve", f"{label} request {i}: {s[:120]}")
     return row
@@ -1236,7 +1286,7 @@ def main() -> int:
     kernels.build_all(sources)
     log("build", f"nvcc {sources} in {time.perf_counter() - t:.2f} s (one nvcc per source, "
         f"in parallel)")
-    for name in ("quant_matmul", "flash_attention_bwd"):  # the kernels this slice rebuilt
+    for name in ("flash_attention", "quant_matmul", "flash_attention_bwd"):  # the wgmma kernels
         for row in kernels.ptxas_report(name):
             log("ptxas", f"{name}: {json.dumps(row)}")
 
@@ -1255,7 +1305,7 @@ def main() -> int:
     b1 = check_b1(flush, P_BUCKET)
     check_b1(flush, P_a, batches=(B_SERVE,))  # the prefix configuration (a) serves
     b1_greedy = check_b1(flush, P_BUCKET, batches=(1, B_SERVE), K=1)  # greedy decoding
-    b3 = check_b3(flush)
+    b3, b3_rows = check_b3(flush)
     b4_rows = check_b4(flush)
     vocab = model_a.cfg.llm.vocab_size
     b2 = check_qmm(flush, int4=False, vocab=vocab)
@@ -1304,13 +1354,17 @@ def main() -> int:
     log("reference", f"one full-width Whisper layer at T 1500, B 3: B3 vs plain attention: "
         f"relative L2 difference {rel:.3g} (tol {REL_L2_TOL})")
 
-    # B2 at every shape of one (a) and one (b) batch, summed by stage
+    # B2 at every shape of one (a) and one (b) batch, B6 at every shape of
+    # one (c) batch, summed by stage
     llm_dims = (model_a.cfg.llm.hidden_size, model_a.cfg.llm.intermediate_size)
     b2_batches = {}
     for key in ("a", "b"):
-        sums, shape_rows = b2_per_batch(flush, rows[key]["config"], rows[key]["b2_shapes"],
-                                        vocab, llm_dims)
+        sums, shape_rows = qmm_per_batch(flush, rows[key]["config"], rows[key]["b2_shapes"],
+                                         vocab, llm_dims)
         b2_batches[key] = dict(config=rows[key]["config"], by_stage=sums, shapes=shape_rows)
+    sums, shape_rows = qmm_per_batch(flush, rows["c"]["config"], rows["c"]["b6_shapes"], vocab,
+                                     llm_dims, bits=4)
+    b6_batch = dict(config=rows["c"]["config"], by_stage=sums, shapes=shape_rows)
     del flush
 
     profile_batch("(a) pad30s int8", lambda: server_a.transcribe_many(items_a))
@@ -1370,9 +1424,11 @@ def main() -> int:
          "prefill_ms": b2_batches["b"]["by_stage"]["prefill"]["ms"],
          "per_batch": {k: v["by_stage"] for k, v in b2_batches.items()},
          "tower_fc1_m4500": b2["tower"]},
-        entry("B3", "flash_attention", "omni_avsr_tpu_torch/csrc/flash_attention.cu",
-              "omni_avsr_tpu/ops/flash_attention.py:58", b3, "a",
-              "per launch: Whisper 30 s window, B 3, 16 heads, T = S = 1500, D 64"),
+        {**entry("B3", "flash_attention", "omni_avsr_tpu_torch/csrc/flash_attention.cu",
+                 "omni_avsr_tpu/ops/flash_attention.py:58", b3, "a",
+                 "per launch: Whisper 30 s window, B 3, 16 heads, T = S = 1500, D 64; cases: "
+                 "every timed shape, library_kernels naming SDPA's backend"),
+         "cases": b3_rows},
         {**entry("B4", "flash_attention_bwd", "omni_avsr_tpu_torch/csrc/flash_attention_bwd.cu",
                  "omni_avsr_tpu/ops/flash_attention_bwd.py:44", b4_rows[1], "train",
                  f"per launch (dq + dk/dv kernels): LLM causal, B 4, Hq 32 / Hkv 8, "
@@ -1384,9 +1440,11 @@ def main() -> int:
                  f"per launch: {B_SERVE} x 15 beams = 45 rows, V {VOCAB_D}; library_ms is "
                  f"torch.logsumexp, which gives the normaliser only"),
          "timed": b5},
-        entry("B6", "quantized_matmul4", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
-              "omni_avsr_tpu/ops/quant.py:156", b6, "c",
-              "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head"),
+        {**entry("B6", "quantized_matmul4", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
+                 "omni_avsr_tpu/ops/quant.py:156", b6, "c",
+                 "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head; per_batch: one "
+                 "(c) batch's prefill and decode launches, summed"),
+         "per_batch": b6_batch["by_stage"], "per_batch_shapes": b6_batch["shapes"]},
         {**entry("B7", "conv2d_fused", "omni_avsr_tpu_torch/csrc/conv_block.cu",
                  "omni_avsr_tpu/ops/conv_block.py:70", b7, "d",
                  "one ResNet trunk of 480 frames (19 convs, summed); library_ms is cuDNN's "

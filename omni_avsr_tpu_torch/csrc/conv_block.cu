@@ -266,7 +266,7 @@ extern "C" int conv_block_launch(const void* x, const void* w, const void* scale
   if ((flags & 1) && (!scale || !bias)) return (int)cudaErrorInvalidValue;
   if ((flags & 2) && !prelu_a) return (int)cudaErrorInvalidValue;
   if ((flags & 4) && !residual) return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;  // the attribute is per kernel, per device context
+  static bool smem_set = false;  // set once, on the first launch's device: one device per process
   if (!smem_set) {
     const cudaError_t e =
         cudaFuncSetAttribute(conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);

@@ -1,20 +1,32 @@
-// Weight-only int8 matmul for Hopper (sm_90a): y = (x @ w) * s[col] with
-// x bf16 (M, K), w int8 codes, s f32 (N,), an f32 accumulator and a bf16 or
-// f32 result.
+// Weight-only int8 and packed-int4 matmul for Hopper (sm_90a): y = (x @ w)
+// * s[col] with x bf16 (M, K), w int8 or int4 codes, s f32 (N,), an f32
+// accumulator and a bf16 or f32 result. One design, templated on the code
+// width BITS (8 or 4).
 //
-// Replaces B2 `_qmm_kernel` (`quantized_matmul`) of
-// `omni_avsr_tpu/ops/quant.py`. The codes are the JAX package's, read in the
-// card layout of `omni_avsr_tpu_torch/ops/quant.py::arrange_int8_for_card`:
-// (Np/64, Kp/64, 4096) bytes, N padded to a multiple of 128 and K to one of
-// 64 with zero codes. Each 4096-byte chunk holds 64 weight columns x 64 k
-// as four 16-column tiles of 1024 bytes; in a tile, the 512 bytes of each
-// 32-deep half are one 16-byte word per lane: the lane's bf16 A fragments
-// of mma.sync m16n8k16 (and of wgmma, whose warps hold the same fragments)
-// for two 16-deep steps, in register order. So a warp's weights for one
-// 64-deep step are two conflict-free 16-byte shared-memory loads per lane,
-// converted in registers (exact: byte ^ 0x80 under the exponent of 2^23,
-// minus 2^23 + 128) straight into A fragments. Each weight byte crosses
-// shared memory once; nothing is converted back into shared memory.
+// Replaces B2 `_qmm_kernel` (`quantized_matmul`) and B6 `_qmm4_kernel`
+// (`quantized_matmul4`) of `omni_avsr_tpu/ops/quant.py`. The codes are the
+// JAX package's, read in the card layouts of
+// `omni_avsr_tpu_torch/ops/quant.py::arrange_int8_for_card` and
+// `::arrange_int4_for_card`: (Np/64, Kp/64, 64 * BITS * 8) bytes, N padded to
+// a multiple of 128 and K to one of 64 with zero codes. Each chunk holds 64
+// weight columns x 64 k as four 16-column tiles of 16 * BITS * 8 bytes, and
+// in a tile each lane's 16-byte words are its bf16 A fragments of
+// mma.sync m16n8k16 (and of wgmma, whose warps hold the same fragments), in
+// register order:
+//   - int8: the 512 bytes of each 32-deep half are one 16-byte word per
+//     lane, the fragments of two 16-deep steps, one byte per code,
+//     converted exactly as byte ^ 0x80 under the exponent of 2^23, minus
+//     2^23 + 128;
+//   - int4: one 16-byte word per lane holds the fragments of all four
+//     16-deep steps, one 32-bit word per step, the offset code (code + 8)
+//     of register j's lower k in bits 4j..4j+3 and of its upper k in bits
+//     16+4j..16+4j+3. One lop3 ((w >> 4j) & 0x000F000F | 0x43004300) makes
+//     the bf16 pair 128 + code + 8, and one bf16x2 subtraction of 136 the
+//     code: exact, three instructions per two codes.
+// So a warp's weights for one 64-deep step are two (int8) or one (int4)
+// conflict-free 16-byte shared-memory loads per lane, converted in
+// registers straight into A fragments. Each weight byte crosses shared
+// memory once; nothing is converted back into shared memory.
 //
 // The product is taken swapped, y^T = w^T x^T: the weight columns are the
 // tensor cores' row operand (A), the tokens (rows of x) their N. Both
@@ -25,24 +37,24 @@
 // release a stage through a second mbarrier.
 //
 //   - decode, M <= 64 (M 45 = 3 requests x 15 beams; bound by bytes: one
-//     step reads 1.24 GB of codes, 0.37 ms at 3.35 TB/s). The token tile is
-//     M rounded up to 16 (48 at M 45). A block owns a group of CW 16-column
-//     tiles and splits K KS ways among its warps: warp (k group kg, column
-//     warp cw) takes 16 columns and the kg-th 64-deep step of each
-//     KS*64-deep stage, with bf16 mma.sync (16 columns x 8 tokens, x
-//     fragments by ldmatrix from the swizzled x tile). The KS partial sums
-//     are added through shared memory in a fixed order: no workspace, no
-//     second launch, the same result on every run. What bounds these small
-//     products on the card is less the bytes than the issue rate of one SM
-//     (the conversion and the mma instructions of its warps) and each
-//     launch's fixed latency, so the plan spreads every matrix over all
-//     SMs: the narrow q|k|v, o and down in groups of 16 or 32 columns with
-//     K split 8 or 4 ways, the wide gate|up and lm_head in groups of 128
-//     (fewer x reads) with K split 2 ways, one block per SM walking its
-//     share of the groups while the ring streams on. (Splitting K across a
-//     cluster's blocks instead, with the sums added through distributed
-//     shared memory, measured slower on the card: each block pays the fixed
-//     latency again.)
+//     step reads 1.24 GB of int8 codes, 0.37 ms at 3.35 TB/s, or 0.62 GB of
+//     int4 codes, 0.19 ms). The token tile is M rounded up to 16 (48 at M
+//     45). A block owns a group of CW 16-column tiles and splits K KS ways
+//     among its warps: warp (k group kg, column warp cw) takes 16 columns
+//     and the kg-th 64-deep step of each KS*64-deep stage, with bf16
+//     mma.sync (16 columns x 8 tokens, x fragments by ldmatrix from the
+//     swizzled x tile). The KS partial sums are added through shared memory
+//     in a fixed order: no workspace, no second launch, the same result on
+//     every run. What bounds these small products on the card is less the
+//     bytes than the issue rate of one SM (the conversion and the mma
+//     instructions of its warps) and each launch's fixed latency, so the
+//     plan spreads every matrix over all SMs: the narrow q|k|v, o and down
+//     in groups of 16 or 32 columns with K split 8 or 4 ways, the wide
+//     gate|up and lm_head in groups of 128 (fewer x reads) with K split 2
+//     ways, one block per SM walking its share of the groups while the ring
+//     streams on. (Splitting K across a cluster's blocks instead, with the
+//     sums added through distributed shared memory, measured slower on the
+//     card: each block pays the fixed latency again.)
 //     The same kernel takes 64-token tiles (a grid of them) for the towers'
 //     and prefill's products whose wgmma tiles would fill less than a
 //     quarter of the SMs (the 1024-wide ones at the bucketed window).
@@ -68,8 +80,13 @@
 namespace {
 
 constexpr int BK = 64;            // k per step
-constexpr int W_TILE = 64 * BK;   // code bytes of 64 columns per step
 constexpr int MAX_SMEM = 232448;  // the H100's dynamic shared memory per block
+
+// Code bytes of a 16-column tile and of a 64-column chunk, per 64-deep step.
+template <int BITS>
+constexpr int TILE16 = 16 * BK * BITS / 8;
+template <int BITS>
+constexpr int W_TILE = 4 * TILE16<BITS>;
 
 // Four int8 codes -> two bf16 pairs (bytes 0,1 and 2,3), exactly.
 __device__ __forceinline__ void int8x4_to_bf16(uint32_t v, uint32_t& lo, uint32_t& hi) {
@@ -82,19 +99,40 @@ __device__ __forceinline__ void int8x4_to_bf16(uint32_t v, uint32_t& lo, uint32_
   hi = port::pack_bf16x2(f2, f3);
 }
 
+// The four A registers of one 16-deep step from an int4 word: register j
+// is nibbles j (lower k) and j + 4 (upper k), each code + 8, exactly.
+__device__ __forceinline__ void int4x8_to_bf16(uint32_t w, uint32_t* a) {
+  const uint32_t k136 = 0x43084308u;  // the bf16 pair (136, 136)
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t v = ((w >> (4 * j)) & 0x000F000Fu) | 0x43004300u;  // one lop3
+    const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                     *reinterpret_cast<const __nv_bfloat162*>(&k136));
+    a[j] = *reinterpret_cast<const uint32_t*>(&d);
+  }
+}
+
 // A warp's 16 columns x 64 k of one step (at `wt`, lane-offset): the A
 // fragments of four 16-deep steps, a[4 kk .. 4 kk + 3].
+template <int BITS>
 __device__ __forceinline__ void load_a(const unsigned char* wt, uint32_t (&a)[16]) {
   const uint4 v0 = *reinterpret_cast<const uint4*>(wt);
-  const uint4 v1 = *reinterpret_cast<const uint4*>(wt + 512);
-  int8x4_to_bf16(v0.x, a[0], a[1]);
-  int8x4_to_bf16(v0.y, a[2], a[3]);
-  int8x4_to_bf16(v0.z, a[4], a[5]);
-  int8x4_to_bf16(v0.w, a[6], a[7]);
-  int8x4_to_bf16(v1.x, a[8], a[9]);
-  int8x4_to_bf16(v1.y, a[10], a[11]);
-  int8x4_to_bf16(v1.z, a[12], a[13]);
-  int8x4_to_bf16(v1.w, a[14], a[15]);
+  if constexpr (BITS == 4) {
+    int4x8_to_bf16(v0.x, a);
+    int4x8_to_bf16(v0.y, a + 4);
+    int4x8_to_bf16(v0.z, a + 8);
+    int4x8_to_bf16(v0.w, a + 12);
+  } else {
+    const uint4 v1 = *reinterpret_cast<const uint4*>(wt + 512);
+    int8x4_to_bf16(v0.x, a[0], a[1]);
+    int8x4_to_bf16(v0.y, a[2], a[3]);
+    int8x4_to_bf16(v0.z, a[4], a[5]);
+    int8x4_to_bf16(v0.w, a[6], a[7]);
+    int8x4_to_bf16(v1.x, a[8], a[9]);
+    int8x4_to_bf16(v1.y, a[10], a[11]);
+    int8x4_to_bf16(v1.z, a[12], a[13]);
+    int8x4_to_bf16(v1.w, a[14], a[15]);
+  }
 }
 
 __device__ __forceinline__ void named_barrier(int id, int threads) {
@@ -104,11 +142,11 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // The ring: `stages` stages of KS x (an x tile of NT x 64 and the codes of
 // CW 16-column tiles x 64 k), x tiles first (1024-byte aligned, as the
 // 128-byte swizzle needs), then the codes, then the full and empty barriers.
-template <int NT, int KS, int CW>
+template <int BITS, int NT, int KS, int CW>
 struct Ring {
   static constexpr int X_TILE = NT * BK * 2;        // a multiple of 1024
   static constexpr int X_STAGE = KS * X_TILE;
-  static constexpr int W_STAGE = KS * CW * 1024;
+  static constexpr int W_STAGE = KS * CW * TILE16<BITS>;
   static size_t smem(int stages) {
     return 1024 + (size_t)stages * (X_STAGE + W_STAGE) + 2 * (size_t)stages * sizeof(uint64_t);
   }
@@ -128,20 +166,22 @@ struct Ring {
 // The offset in a stage of the codes of 16-column tile cw, step kg: with
 // whole 64-column chunks, (chunk, step, tile in the chunk), as the card
 // layout keeps a chunk's steps contiguous; else (step, tile).
-template <int KS, int CW>
+template <int BITS, int KS, int CW>
 __device__ __forceinline__ int w_offset(int cw, int kg) {
-  return CW >= 4 ? ((cw >> 2) * KS + kg) * W_TILE + (cw & 3) * 1024 : (kg * CW + cw) * 1024;
+  return CW >= 4 ? ((cw >> 2) * KS + kg) * W_TILE<BITS> + (cw & 3) * TILE16<BITS>
+                 : (kg * CW + cw) * TILE16<BITS>;
 }
 
 // The producer's loop (lane 0 of the producer warp) over one group of CW
 // 16-column tiles from tile t0: its stage i, the ring's stage it0 + i, holds
 // steps i*KS .. + KS - 1 of the x rows m0.. and of the group's codes. The
 // codes go first: they need no tensor map.
-template <int NT, int KS, int CW>
-__device__ __forceinline__ void produce(const Ring<NT, KS, CW>& r, const CUtensorMap* x_map,
-                                        const int8_t* wc, int t0, int m0, int ksteps,
-                                        int nstages, int stages, int it0) {
-  using R = Ring<NT, KS, CW>;
+template <int BITS, int NT, int KS, int CW>
+__device__ __forceinline__ void produce(const Ring<BITS, NT, KS, CW>& r,
+                                        const CUtensorMap* x_map, const int8_t* wc, int t0,
+                                        int m0, int ksteps, int nstages, int stages, int it0) {
+  using R = Ring<BITS, NT, KS, CW>;
+  constexpr int WT = W_TILE<BITS>, T16 = TILE16<BITS>;
   for (int i = 0; i < nstages; ++i) {
     const int it = it0 + i, st = it % stages;
     if (it >= stages) port::mbar_wait(&r.empty[st], ((it / stages) - 1) & 1);
@@ -150,16 +190,16 @@ __device__ __forceinline__ void produce(const Ring<NT, KS, CW>& r, const CUtenso
     if (CW >= 4) {  // whole chunks: all KS steps of a chunk in one copy
 #pragma unroll
       for (int g = 0; g < CW / 4; ++g)
-        port::bulk_load(w + w_offset<KS, CW>(4 * g, 0),
-                        wc + ((size_t)(t0 / 4 + g) * ksteps + (size_t)i * KS) * W_TILE,
-                        KS * W_TILE, &r.full[st]);
+        port::bulk_load(w + w_offset<BITS, KS, CW>(4 * g, 0),
+                        wc + ((size_t)(t0 / 4 + g) * ksteps + (size_t)i * KS) * WT, KS * WT,
+                        &r.full[st]);
     } else {  // CW tiles of one chunk, one copy per step
 #pragma unroll
       for (int kg = 0; kg < KS; ++kg)
-        port::bulk_load(w + w_offset<KS, CW>(0, kg),
-                        wc + ((size_t)(t0 / 4) * ksteps + (size_t)i * KS + kg) * W_TILE +
-                            (t0 % 4) * 1024,
-                        CW * 1024, &r.full[st]);
+        port::bulk_load(w + w_offset<BITS, KS, CW>(0, kg),
+                        wc + ((size_t)(t0 / 4) * ksteps + (size_t)i * KS + kg) * WT +
+                            (t0 % 4) * T16,
+                        CW * T16, &r.full[st]);
     }
 #pragma unroll
     for (int kg = 0; kg < KS; ++kg)
@@ -178,17 +218,17 @@ __device__ __forceinline__ void store_out(void* out, size_t off, float v, int ou
 
 // ----------------------------------------------------------------- decode
 
-template <int NT, int CW, int KS>
+template <int BITS, int NT, int CW, int KS>
 __global__ void __launch_bounds__(32 * CW * KS + 32, 1)
-    qmm8_decode_kernel(const __grid_constant__ CUtensorMap x_map,  // x (M, K) bf16
-                       const int8_t* __restrict__ wc,               // (Np/64, ksteps, 4096)
-                       const float* __restrict__ s,                 // (N,)
-                       void* __restrict__ out,                      // (M, N) bf16 or f32
-                       int M, int N, int ksteps, int stages, int groups, int out_f32) {
+    qmm_decode_kernel(const __grid_constant__ CUtensorMap x_map,  // x (M, K) bf16
+                      const int8_t* __restrict__ wc,  // (Np/64, ksteps, W_TILE)
+                      const float* __restrict__ s,    // (N,)
+                      void* __restrict__ out,         // (M, N) bf16 or f32
+                      int M, int N, int ksteps, int stages, int groups, int out_f32) {
   constexpr int NF = NT / 8;  // 8-token fragments
   constexpr int CONSUMERS = 32 * CW * KS;
   constexpr int PART = CW * NF * 4 * 32;  // floats of one k group's partial sums
-  using R = Ring<NT, KS, CW>;
+  using R = Ring<BITS, NT, KS, CW>;
   extern __shared__ unsigned char smem_raw[];
   const R r(smem_raw, stages);
   float* red = reinterpret_cast<float*>(r.empty + stages);  // KS - 1 partial sums
@@ -232,7 +272,8 @@ __global__ void __launch_bounds__(32 * CW * KS + 32, 1)
       const int st = i % stages;
       port::mbar_wait(&r.full[st], (i / stages) & 1);
       uint32_t a[16];
-      load_a(r.w + (size_t)st * R::W_STAGE + w_offset<KS, CW>(cw, kg) + lane * 16, a);
+      load_a<BITS>(r.w + (size_t)st * R::W_STAGE + w_offset<BITS, KS, CW>(cw, kg) + lane * 16,
+                   a);
       const unsigned char* xt = r.x + (size_t)st * R::X_STAGE + kg * R::X_TILE;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -289,14 +330,14 @@ __global__ void __launch_bounds__(32 * CW * KS + 32, 1)
 
 // ---------------------------------------------------------- towers, prefill
 
-template <int NT>
+template <int BITS, int NT>
 __global__ void __launch_bounds__(288, 1)
-    qmm8_tower_kernel(const __grid_constant__ CUtensorMap x_map,  // x (M, K) bf16
-                      const int8_t* __restrict__ wc,               // (Np/64, ksteps, 4096)
-                      const float* __restrict__ s,                 // (N,)
-                      void* __restrict__ out,                      // (M, N) bf16 or f32
-                      int M, int N, int ksteps, int stages, int out_f32) {
-  using R = Ring<NT, 1, 8>;
+    qmm_tower_kernel(const __grid_constant__ CUtensorMap x_map,  // x (M, K) bf16
+                     const int8_t* __restrict__ wc,               // (Np/64, ksteps, W_TILE)
+                     const float* __restrict__ s,                 // (N,)
+                     void* __restrict__ out,                      // (M, N) bf16 or f32
+                     int M, int N, int ksteps, int stages, int out_f32) {
+  using R = Ring<BITS, NT, 1, 8>;
   constexpr int ACC = NT / 2;  // f32 accumulators per thread
   extern __shared__ unsigned char smem_raw[];
   const R r(smem_raw, stages);
@@ -333,7 +374,7 @@ __global__ void __launch_bounds__(288, 1)
     const int st = i % stages;
     port::mbar_wait(&r.full[st], (i / stages) & 1);
     uint32_t a[16];
-    load_a(r.w + (size_t)st * R::W_STAGE + w_offset<1, 8>(warp, 0) + lane * 16, a);
+    load_a<BITS>(r.w + (size_t)st * R::W_STAGE + w_offset<BITS, 1, 8>(warp, 0) + lane * 16, a);
     port::wgmma_fence();
     const uint32_t xb = port::smem_u32(r.x + (size_t)st * R::X_STAGE);
 #pragma unroll
@@ -398,57 +439,87 @@ int set_smem(Kernel kernel, size_t smem, size_t& done) {
   return 0;
 }
 
-template <int NT, int CW, int KS>
+template <int BITS, int NT, int CW, int KS>
 int launch_decode(const void* x, const void* wc, const void* s, void* out, int M, int N, int K,
                   int Kp, int stages, int blocks, int out_f32, cudaStream_t stream) {
-  static size_t smem_set = 0;  // the attribute is per kernel, per device context
-  const size_t smem = Ring<NT, KS, CW>::smem(stages) + (size_t)(KS - 1) * CW * NT * 64;
-  int rc = set_smem(qmm8_decode_kernel<NT, CW, KS>, smem, smem_set);
+  static size_t smem_set = 0;  // set once, on the first launch's device: one device per process
+  const size_t smem = Ring<BITS, NT, KS, CW>::smem(stages) + (size_t)(KS - 1) * CW * NT * 64;
+  int rc = set_smem(qmm_decode_kernel<BITS, NT, CW, KS>, smem, smem_set);
   if (rc != 0) return rc;
   CUtensorMap map;
   rc = port::encode_bf16_sw128(&map, x, M, K, K, BK, NT);
   if (rc != 0) return rc;
   const int groups = (N + 16 * CW - 1) / (16 * CW);
   const dim3 grid(min(blocks, groups), (M + NT - 1) / NT);
-  qmm8_decode_kernel<NT, CW, KS><<<grid, 32 * CW * KS + 32, smem, stream>>>(
+  qmm_decode_kernel<BITS, NT, CW, KS><<<grid, 32 * CW * KS + 32, smem, stream>>>(
       map, static_cast<const int8_t*>(wc), static_cast<const float*>(s), out, M, N, Kp / BK,
       stages, groups, out_f32);
   return (int)cudaGetLastError();
 }
 
-template <int NT>
+template <int BITS, int NT>
 int launch_tower(const void* x, const void* wc, const void* s, void* out, int M, int N, int K,
                  int Kp, int stages, int out_f32, cudaStream_t stream) {
   static size_t smem_set = 0;
-  const size_t smem = Ring<NT, 1, 8>::smem(stages);
-  int rc = set_smem(qmm8_tower_kernel<NT>, smem, smem_set);
+  const size_t smem = Ring<BITS, NT, 1, 8>::smem(stages);
+  int rc = set_smem(qmm_tower_kernel<BITS, NT>, smem, smem_set);
   if (rc != 0) return rc;
   CUtensorMap map;
   rc = port::encode_bf16_sw128(&map, x, M, K, K, BK, NT);
   if (rc != 0) return rc;
   const dim3 grid((N + 127) / 128, (M + NT - 1) / NT);
-  qmm8_tower_kernel<NT><<<grid, 288, smem, stream>>>(map, static_cast<const int8_t*>(wc),
-                                                     static_cast<const float*>(s), out, M, N,
-                                                     Kp / BK, stages, out_f32);
+  qmm_tower_kernel<BITS, NT><<<grid, 288, smem, stream>>>(
+      map, static_cast<const int8_t*>(wc), static_cast<const float*>(s), out, M, N, Kp / BK,
+      stages, out_f32);
   return (int)cudaGetLastError();
+}
+
+template <int BITS>
+int dispatch(const void* x, const void* wc, const void* s, void* out, int M, int N, int K, int Kp,
+             int nt, int cw, int ks, int stages, int blocks, int out_f32, cudaStream_t st) {
+  if (nt == 128) return launch_tower<BITS, 128>(x, wc, s, out, M, N, K, Kp, stages, out_f32, st);
+  if (nt == 256) return launch_tower<BITS, 256>(x, wc, s, out, M, N, K, Kp, stages, out_f32, st);
+#define QMM_DECODE(NT_, CW_, KS_)                                                              \
+  if (nt == NT_ && cw == CW_ && ks == KS_)                                                     \
+    return launch_decode<BITS, NT_, CW_, KS_>(x, wc, s, out, M, N, K, Kp, stages, blocks,      \
+                                              out_f32, st);
+#define QMM_DECODE_NT(NT_) \
+  QMM_DECODE(NT_, 1, 4)    \
+  QMM_DECODE(NT_, 1, 8)    \
+  QMM_DECODE(NT_, 2, 4)    \
+  QMM_DECODE(NT_, 2, 8)    \
+  QMM_DECODE(NT_, 4, 1)    \
+  QMM_DECODE(NT_, 4, 2)    \
+  QMM_DECODE(NT_, 4, 4)    \
+  QMM_DECODE(NT_, 8, 1)    \
+  QMM_DECODE(NT_, 8, 2)
+  QMM_DECODE_NT(16)
+  QMM_DECODE_NT(32)
+  QMM_DECODE_NT(48)
+  QMM_DECODE_NT(64)
+#undef QMM_DECODE_NT
+#undef QMM_DECODE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x (M, K) bf16, wc the card layout (Np/64, Kp/64, 4096) int8, s (N,) f32 ->
-// out (M, N) bf16 or f32, by the plan (nt, cw, ks, stages, blocks) of
-// `ops/quant.py::qmm8_plan`: nt <= 64 takes the decode kernel, with token
-// tiles of nt = M rounded up to 16 (M <= 64) or of 64, cw column warps and
-// a k split ks among a block's warps (an instantiated pair below, ks
-// dividing Kp / 64) and at most `blocks` blocks per token tile walking the
-// column groups; nt 128 or 256 (M > 64) the tower kernel (cw 8, ks 1), one
-// block a tile. Anything else, or a
-// layout that does not fit M, N, K, is refused.
-extern "C" int qmm8_launch(const void* x, const void* wc, const void* s, void* out, int M,
-                           int N, int K, int Kp, int Np, int nt, int cw, int ks, int stages,
-                           int blocks, int out_f32, void* stream) {
-  const bool layout_ok = K > 0 && K % 16 == 0 && Kp % BK == 0 && Kp >= K && Kp - K < BK &&
-                         N > 0 && Np % 128 == 0 && Np >= N && Np - N < 128;
+// x (M, K) bf16, wc the card layout (Np/64, Kp/64, 64 * bits * 8) of int8
+// (bits 8) or int4 (bits 4) codes, s (N,) f32 -> out (M, N) bf16 or f32, by
+// the plan (nt, cw, ks, stages, blocks) of `ops/quant.py::qmm_plan`: nt <= 64
+// takes the decode kernel, with token tiles of nt = M rounded up to 16 (M <=
+// 64) or of 64, cw column warps and a k split ks among a block's warps (an
+// instantiated pair below, ks dividing Kp / 64) and at most `blocks` blocks
+// per token tile walking the column groups; nt 128 or 256 (M > 64) the
+// tower kernel (cw 8, ks 1), one block a tile. Anything else, or a layout
+// that does not fit M, N, K, is refused.
+extern "C" int qmm_launch(const void* x, const void* wc, const void* s, void* out, int M, int N,
+                          int K, int Kp, int Np, int nt, int cw, int ks, int stages, int blocks,
+                          int out_f32, int bits, void* stream) {
+  const int w_tile = bits == 4 ? W_TILE<4> : W_TILE<8>;
+  const bool layout_ok = (bits == 4 || bits == 8) && K > 0 && K % 16 == 0 && Kp % BK == 0 &&
+                         Kp >= K && Kp - K < BK && N > 0 && Np % 128 == 0 && Np >= N &&
+                         Np - N < 128;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(wc) % 16 == 0;
   const bool plan_ok =
@@ -458,30 +529,10 @@ extern "C" int qmm8_launch(const void* x, const void* wc, const void* s, void* o
                    (ks == 1 || ks == 2 || ks == 4 || ks == 8) && cw * ks <= 16 &&
                    (Kp / BK) % ks == 0)
                 : (M > 64 && (nt == 128 || nt == 256) && cw == 8 && ks == 1 &&
-                   stages * (nt * BK * 2 + 2 * W_TILE) >= nt * 132 * 4));  // the epilogue's tile
+                   stages * (nt * BK * 2 + 2 * w_tile) >= nt * 132 * 4));  // the epilogue's tile
   if (!layout_ok || !aligned || !plan_ok) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (nt == 128) return launch_tower<128>(x, wc, s, out, M, N, K, Kp, stages, out_f32, st);
-  if (nt == 256) return launch_tower<256>(x, wc, s, out, M, N, K, Kp, stages, out_f32, st);
-#define QMM8_DECODE(NT_, CW_, KS_)                                                         \
-  if (nt == NT_ && cw == CW_ && ks == KS_)                                                 \
-    return launch_decode<NT_, CW_, KS_>(x, wc, s, out, M, N, K, Kp, stages, blocks, out_f32, \
-                                        st);
-#define QMM8_DECODE_NT(NT_) \
-  QMM8_DECODE(NT_, 1, 4)    \
-  QMM8_DECODE(NT_, 1, 8)    \
-  QMM8_DECODE(NT_, 2, 4)    \
-  QMM8_DECODE(NT_, 2, 8)    \
-  QMM8_DECODE(NT_, 4, 1)    \
-  QMM8_DECODE(NT_, 4, 2)    \
-  QMM8_DECODE(NT_, 4, 4)    \
-  QMM8_DECODE(NT_, 8, 1)    \
-  QMM8_DECODE(NT_, 8, 2)
-  QMM8_DECODE_NT(16)
-  QMM8_DECODE_NT(32)
-  QMM8_DECODE_NT(48)
-  QMM8_DECODE_NT(64)
-#undef QMM8_DECODE_NT
-#undef QMM8_DECODE
-  return (int)cudaErrorInvalidValue;
+  if (bits == 4)
+    return dispatch<4>(x, wc, s, out, M, N, K, Kp, nt, cw, ks, stages, blocks, out_f32, st);
+  return dispatch<8>(x, wc, s, out, M, N, K, Kp, nt, cw, ks, stages, blocks, out_f32, st);
 }

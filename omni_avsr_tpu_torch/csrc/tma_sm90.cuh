@@ -1,5 +1,5 @@
 // Hopper asynchronous copies for the port's kernels (sm_90a): mbarriers,
-// TMA tile loads through a tensor map, bulk copies of contiguous bytes,
+// TMA tile loads through a tensor map (rank 2 and 4), bulk copies of contiguous bytes,
 // and the host-side tensor-map encoder reached through the runtime's
 // driver entry point (so a library links only the CUDA runtime).
 
@@ -67,6 +67,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A 4-D box of a tensor map (coordinates innermost first) into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
 // into shared memory, completing on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -119,6 +131,26 @@ inline int encode_bf16_sw128(CUtensorMap* map, const void* base, uint64_t rows, 
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// Tensor map of a contiguous (B, T, H, D) bf16 array as the rank-4 (D, H,
+// T, B), read in boxes of (64, 1, box_rows, 1): 64 columns (128 bytes) of
+// box_rows consecutive positions of one head of one batch entry, in the
+// 128-byte swizzle. Positions past T read as zero, never as the next
+// batch entry's. Returns 0 or an error code (1000 + the driver's CUresult).
+inline int encode_bthd_sw128(CUtensorMap* map, const void* base, uint64_t B, uint64_t T,
+                             uint64_t H, uint64_t D, uint32_t box_rows) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {D, H, T, B};
+  const cuuint64_t strides[3] = {D * 2, H * D * 2, T * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -103,13 +103,18 @@ def _kernel_name(mangled: str) -> str:
 def ptxas_report(name: str) -> List[dict]:
     """ptxas's report for each kernel of the built csrc/<name>.cu: the
     kernel (its template arguments), registers, static shared memory and
-    spill bytes. Dynamic shared memory is set per launch by the wrappers."""
+    spill bytes, and whether ptxas serialised its wgmma instructions.
+    Dynamic shared memory is set per launch by the wrappers."""
     path = library_path(name).with_suffix(".ptxas.txt")
     rows: List[dict] = []
-    for line in path.read_text().splitlines() if path.exists() else []:
+    lines = path.read_text().splitlines() if path.exists() else []
+    serialised = {m.group(1) for line in lines if "serialized" in line
+                  for m in [re.search(r"function '(\w+)'", line)] if m}
+    for line in lines:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            rows.append({"kernel": _kernel_name(entry.group(1))})
+            rows.append({"kernel": _kernel_name(entry.group(1)),
+                         "wgmma_serialized": entry.group(1) in serialised})
         elif rows and "spill" in line:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
             rows[-1].update(spill_stores=int(st), spill_loads=int(ld))

@@ -100,7 +100,7 @@ def lm_head(params: Params, cfg: LLMConfig, x: torch.Tensor) -> torch.Tensor:
         w = params["embed"]["w"].t().to(x.dtype)
         return torch.matmul(x.float(), w.float())
     xm = x.reshape(-1, x.shape[-1]).contiguous()
-    if "w4" in head:
+    if "w4" in head or "w4c" in head:
         logits = quantized_matmul4(xm, head, out_dtype=torch.float32)
     elif "wc" in head or head["w"].dtype == torch.int8:
         logits = quantized_matmul(xm, head, out_dtype=torch.float32)

@@ -9,8 +9,9 @@ forward and a later backward draw the same mask whatever their tiling.
 
 `flash_attention` is the wrapper the encoders call. A tensor on the CPU
 takes `flash_attention_plain`, the same function in torch; a CUDA tensor
-launches the hand-written kernel in `csrc/flash_attention.cu` (built with
-nvcc on first use) or raises.
+launches the hand-written kernel in `csrc/flash_attention.cu` (wgmma and
+TMA, built with nvcc on first use) or raises. The kernel gives 0 for a
+batch entry whose key length is 0, where the plain version averages v.
 """
 
 from __future__ import annotations
@@ -128,6 +129,9 @@ def _launch(q, k, v, scale, causal, kv_lengths, return_lse, dropout_rate, dropou
         raise ValueError(f"Hq {Hq} not a multiple of Hkv {Hkv}")
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
+    scale = D ** -0.5 if scale is None else float(scale)
+    if not scale > 0.0:
+        raise ValueError(f"scale {scale}: the kernel takes a positive scale")
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 needs a dropout_seed")
     bf16 = torch.bfloat16
@@ -150,7 +154,7 @@ def _launch(q, k, v, scale, causal, kv_lengths, return_lse, dropout_rate, dropou
         rc = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None, lens_ptr,
-            B, T, S, Hq, Hkv, D, float(D ** -0.5 if scale is None else scale), int(causal),
+            B, T, S, Hq, Hkv, D, scale, int(causal),
             int(dropout_rate > 0.0), seed, _threshold(dropout_rate) if dropout_rate > 0.0 else 0,
             float(1.0 / (1.0 - dropout_rate)),
             torch.cuda.current_stream(q.device).cuda_stream)

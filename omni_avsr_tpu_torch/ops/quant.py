@@ -1,6 +1,6 @@
 """Weight-only int8 and packed-int4 decode weights (port of
-`omni_avsr_tpu/ops/quant.py`): the host-side quantisers and packers, and
-the two matmul kernels' wrappers.
+`omni_avsr_tpu/ops/quant.py`): the host-side quantisers and packers, the
+card layouts, and the matmul kernels' wrappers.
 
 Leaf formats:
   - int8 {"w": int8 (in, out), "s": f32 (out,)}: symmetric per output
@@ -10,22 +10,23 @@ Leaf formats:
     codes per byte. Within each `block_n`-wide column chunk the first half
     of the columns sits in the low nibble as offset binary (code + 8) and
     the second half in the high nibble, signed. block_n = 2 * w4.shape[-1].
-  - int8 in the card layout {"wc": int8 (..., Np/64, Kp/64, 4096), "s"}:
-    the same codes arranged by `arrange_int8_for_card` in the order in
-    which B2's threads load them as tensor-core fragments (N padded to a
-    multiple of 128 and K to one of 64 with zero codes); `card_int8_codes`
-    gives the JAX codes back.
+  - the card layouts {"wc": int8 (..., Np/64, Kp/64, 4096), "s"} and
+    {"w4c": int8 (..., Np/64, Kp/64, 2048), "s"}: the same codes arranged
+    by `arrange_for_card` in the order in which the kernel's threads load
+    them as tensor-core fragments (N padded to a multiple of 128 and K to
+    one of 64 with zero codes);
+    `card_int8_codes` and `card_int4_codes` give the codes back.
 Stacked (L, in, out) weights quantise and pack per layer. Codes, nibble
 bytes and scales are bit-identical to the JAX package's; the JAX-layout
 leaf is the port's public format, and the serving tree arranges its int8
-leaves for the card once (`serve.py`).
+and int4 leaves for the card once (`serve.py`).
 
 `quantized_matmul` (B2, `_qmm_kernel`) and `quantized_matmul4` (B6,
 `_qmm4_kernel`) compute y = (x @ w) * s[col] with an f32 accumulator. A
 tensor on the CPU takes the plain version beside each, which reads either
-int8 layout; a CUDA tensor launches the hand-written kernel in
-`csrc/quant_matmul.cu` (int8, card layout only) or `csrc/quant_matmul4.cu`
-(packed int4), or raises.
+layout; a CUDA tensor launches the hand-written kernel in
+`csrc/quant_matmul.cu` (one design templated on the code width, card
+layout only), or raises.
 """
 
 from __future__ import annotations
@@ -70,12 +71,12 @@ def pack_int4(q: Leaf, block_n: int = 512) -> Leaf:
 
 
 def unpack_int4(w4: torch.Tensor, n: int) -> torch.Tensor:
-    """The int8 codes (K, n) of a packed (K, chunks, block_n/2) weight."""
+    """The int8 codes (..., K, n) of a packed (..., K, chunks, block_n/2)
+    weight."""
     p = w4.to(torch.int32) & 0xFF
     lo = (p & 0xF) - 8
     hi = ((p >> 4) ^ 8) - 8  # sign-extend the 4-bit high field
-    K = w4.shape[0]
-    return torch.stack([lo, hi], dim=-2).reshape(K, -1)[:, :n].to(torch.int8)
+    return torch.stack([lo, hi], dim=-2).reshape(*w4.shape[:-2], -1)[..., :n].to(torch.int8)
 
 
 def quantize_llm_params(params: Dict, bits: int = 8) -> Dict:
@@ -173,23 +174,35 @@ def quantize_for_decode(merged: Dict, mode: str) -> Dict:
 # ---------------------------------------------------------------------------
 
 
-# the card layout's tiles: 64 weight columns x 64 k per 4096-byte chunk; N
-# padded to 128 so that a block of two 64-column warpgroups stays in range
+# the card layouts' tiles: 64 weight columns x 64 k per chunk of 4096
+# (int8) or 2048 (int4) bytes; N padded to 128 so that a block of two
+# 64-column warpgroups stays in range
 CARD_PAD_N, CARD_PAD_K = 128, 64
-# (k-step, k half, k 16-step, k + 8, lane % 4, pair element, 64-column
+# int8: (k-step, k half, k 16-step, k + 8, lane % 4, pair element, 64-column
 # tile, 16-column tile, row + 8, lane / 4) -> (64-column tile, k-step,
 # 16-column tile, k half, lane / 4, lane % 4, k 16-step, k + 8, row + 8,
 # pair element): a lane's 16 bytes are its mma A fragments a0-a3 of two
 # 16-deep steps, bf16 pairs in register order
 _CARD_PERM = (6, 0, 7, 1, 9, 4, 2, 3, 8, 5)
 _CARD_INV = tuple(sorted(range(10), key=_CARD_PERM.__getitem__))
+# int4: (k-step, k 16-step, k + 8, lane % 4, pair element, 64-column tile,
+# 16-column tile, row + 8, lane / 4) -> (64-column tile, k-step, 16-column
+# tile, lane / 4, lane % 4, k 16-step, pair element, k + 8, row + 8): a
+# lane's 16 bytes are one 32-bit word per 16-deep step, whose nibble
+# 4 * element + j (j = 2 * (k + 8) + (row + 8)) is A register j's code
+_CARD4_PERM = (5, 0, 6, 8, 3, 1, 4, 2, 7)
+_CARD4_INV = tuple(sorted(range(9), key=_CARD4_PERM.__getitem__))
+
+
+def _pad_codes(w: torch.Tensor, value: int = 0):
+    *lead, K, N = w.shape
+    kp, np_ = -(-K // CARD_PAD_K) * CARD_PAD_K, -(-N // CARD_PAD_N) * CARD_PAD_N
+    return torch.nn.functional.pad(w, (0, np_ - N, 0, kp - K), value=value), lead, kp, np_
 
 
 def card_int8_layout(w: torch.Tensor) -> torch.Tensor:
     """int8 codes (..., K, N) -> the card layout (..., Np/64, Kp/64, 4096)."""
-    *lead, K, N = w.shape
-    kp, np_ = -(-K // CARD_PAD_K) * CARD_PAD_K, -(-N // CARD_PAD_N) * CARD_PAD_N
-    wp = torch.nn.functional.pad(w, (0, np_ - N, 0, kp - K))
+    wp, lead, kp, np_ = _pad_codes(w)
     nl = len(lead)
     g = wp.reshape(*lead, kp // 64, 2, 2, 2, 4, 2, np_ // 64, 4, 2, 8)
     g = g.permute(*range(nl), *(nl + d for d in _CARD_PERM))
@@ -205,19 +218,46 @@ def card_int8_codes(wc: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return g.reshape(*lead, ks * 64, n64 * 64)[..., :k, :n]
 
 
-def arrange_int8_for_card(tree: Dict) -> Dict:
+def card_int4_layout(w: torch.Tensor) -> torch.Tensor:
+    """int4 codes in [-8, 7] (..., K, N), one per int8 -> the card layout
+    (..., Np/64, Kp/64, 2048): two offset codes (code + 8) per byte, the
+    lower nibble first; padding is code 0."""
+    wp, lead, kp, np_ = _pad_codes(w.to(torch.int32) + 8, value=8)
+    nl = len(lead)
+    g = wp.reshape(*lead, kp // 64, 4, 2, 4, 2, np_ // 64, 4, 2, 8)
+    g = g.permute(*range(nl), *(nl + d for d in _CARD4_PERM))
+    g = g.reshape(*lead, np_ // 64, kp // 64, 2048, 2)
+    return (g[..., 0] | (g[..., 1] << 4)).to(torch.uint8).view(torch.int8).contiguous()
+
+
+def card_int4_codes(w4c: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """The inverse of `card_int4_layout`: the int4 codes (..., k, n) as int8."""
+    *lead, n64, ks, _ = w4c.shape
+    nl = len(lead)
+    p = w4c.to(torch.int32) & 0xFF
+    nib = torch.stack([p & 0xF, p >> 4], dim=-1)
+    g = nib.reshape(*lead, n64, ks, 4, 8, 4, 4, 2, 2, 2)
+    g = g.permute(*range(nl), *(nl + d for d in _CARD4_INV))
+    return (g.reshape(*lead, ks * 64, n64 * 64)[..., :k, :n] - 8).to(torch.int8)
+
+
+def arrange_for_card(tree: Dict) -> Dict:
     """Every int8 leaf {"w", "s"} of a tree -> {"wc", "s"} in the card
-    layout that B2 reads, other keys kept; packed-int4 leaves and float
-    weights stay as they are. Stacked (L, K, N) leaves keep their leading
-    axis, so `models/common.py::layer_slice` still takes one layer."""
+    layout that B2 reads, and every packed-int4 leaf {"w4", "s"} -> {"w4c",
+    "s"} in the one that B6 reads, other keys kept; float weights stay as
+    they are. Stacked (L, K, N) leaves keep their leading axis, so
+    `models/common.py::layer_slice` still takes one layer."""
 
     def walk(node):
         if not isinstance(node, dict):
             return node
         w = node.get("w")
         if isinstance(w, torch.Tensor) and w.dtype == torch.int8 and "s" in node:
-            rest = {k: v for k, v in node.items() if k != "w"}
-            return {**rest, "wc": card_int8_layout(w)}
+            return {**{k: v for k, v in node.items() if k != "w"}, "wc": card_int8_layout(w)}
+        if "w4" in node and "s" in node:
+            codes = unpack_int4(node["w4"], node["s"].shape[-1])
+            return {**{k: v for k, v in node.items() if k != "w4"},
+                    "w4c": card_int4_layout(codes)}
         return {k: walk(v) for k, v in node.items()}
 
     return walk(tree)
@@ -231,14 +271,24 @@ def int8_codes(q: Leaf, k: int) -> torch.Tensor:
     return q["w"]
 
 
-def require_card_layout(q: Leaf) -> torch.Tensor:
-    """The codes B2 reads, or a ValueError for a leaf in the JAX layout: the
-    kernel never re-arranges weights per call."""
-    if "wc" not in q:
-        raise ValueError("int8 leaf in the JAX (K, N) layout: B2 reads the card layout "
-                         "(ops/quant.py::arrange_int8_for_card, once, where the serving "
-                         "tree is laid out)")
-    return q["wc"]
+def int4_codes(q4: Leaf, k: int) -> torch.Tensor:
+    """The int4 codes (K, N) as int8 of a packed-int4 leaf in either
+    layout."""
+    n = q4["s"].shape[-1]
+    if "w4c" in q4:
+        return card_int4_codes(q4["w4c"], k, n)
+    return unpack_int4(q4["w4"], n)
+
+
+def require_card_layout(q: Leaf, bits: int = 8) -> torch.Tensor:
+    """The codes B2 (bits 8) or B6 (bits 4) reads, or a ValueError for a
+    leaf in the JAX layout: the kernel never re-arranges weights per call."""
+    key = "wc" if bits == 8 else "w4c"
+    if key not in q:
+        raise ValueError(f"int{bits} leaf in the JAX layout: the kernel reads the card layout "
+                         f"(ops/quant.py::arrange_for_card, once, where the serving tree is "
+                         f"laid out)")
+    return q[key]
 
 
 def quantized_matmul_plain(x: torch.Tensor, q: Leaf,
@@ -253,34 +303,29 @@ def quantized_matmul_plain(x: torch.Tensor, q: Leaf,
 
 def quantized_matmul4_plain(x: torch.Tensor, q4: Leaf,
                             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The packed-int4 product through the unpacked int8 codes."""
-    n = q4["s"].shape[-1]
-    return quantized_matmul_plain(x, {"w": unpack_int4(q4["w4"], n), "s": q4["s"]}, out_dtype)
+    """The packed-int4 product through the int8 codes, from either int4
+    layout (`int4_codes`)."""
+    w = int4_codes(q4, x.shape[-1])
+    return quantized_matmul_plain(x, {"w": w, "s": q4["s"]}, out_dtype)
 
 
-_ARGTYPES4 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_ARGTYPES8 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
 
-@functools.lru_cache(maxsize=2)
-def _launcher(int4: bool):
-    """The C entry point for int8 (card layout) or packed-int4 weights,
-    built and typed once per process."""
-    if int4:
-        fn = load("quant_matmul4").qmm4_launch
-        fn.argtypes = _ARGTYPES4
-    else:
-        fn = load("quant_matmul").qmm8_launch
-        fn.argtypes = _ARGTYPES8
+@functools.lru_cache(maxsize=1)
+def _launcher():
+    """The C entry point of both widths, built and typed once per process."""
+    fn = load("quant_matmul").qmm_launch
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def qmm8_plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int, int, int, int]:
-    """B2's launch plan (token tile, column warps, k split among a block's
-    warps, ring stages, blocks) for an (M, K) x (K, N) product on a card
-    with `sms` SMs; the C entry point refuses any other
-    (`csrc/quant_matmul.cu`).
+def qmm_plan(M: int, N: int, K: int, sms: int, bits: int = 8) -> Tuple[int, int, int, int, int]:
+    """The launch plan (token tile, column warps, k split among a block's
+    warps, ring stages, blocks) of B2 (bits 8) or B6 (bits 4) for an (M, K)
+    x (K, N) product on a card with `sms` SMs; the C entry point refuses
+    any other (`csrc/quant_matmul.cu`).
 
     M <= 64 (decode): one token tile, M rounded up to 16 (48 at M 45).
     Wide matrices (gate|up, the lm_head) take column groups of 128 (8
@@ -300,7 +345,8 @@ def qmm8_plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int, int, int, int
     64-token tiles, 64 or 128 columns a group, K split 2 or 4 ways.
 
     As many ring stages as fit in shared memory beside the k split's
-    partial sums, at most 8."""
+    partial sums, at most 8: an int4 step carries half the code bytes of an
+    int8 one, so its ring can be deeper."""
     steps = -(-K // 64)
     if M <= 64:
         nt, blocks = -(-M // 16) * 16, sms
@@ -323,89 +369,43 @@ def qmm8_plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int, int, int, int
             ks = next(k for k in ((4, 2, 1) if cw == 4 and K >= 4096 else (2, 1))
                       if steps % k == 0)
             blocks = sms
-    stage = ks * (nt * 128 + cw * 1024)
+    stage = ks * (nt * 128 + cw * 16 * bits * 8)
     room = 232448 - 1024 - 128 - (ks - 1) * cw * nt * 64
     return nt, cw, ks, max(2, min(8, room // stage)), blocks
 
 
-def _split_plan(M: int, ncols: int, K: int, device: torch.device) -> int:
-    """B6: slices of K per output tile, enough blocks for about two per SM
-    when the tiles alone are fewer than the SMs, each slice at least 4
-    k-steps deep. The tiles (BM, BN, BK) are those of
-    `csrc/quant_matmul4.cu`: (64, 64, 64) for M <= 64, else (128, 128, 32)."""
-    bm, bn, bk = (64, 64, 64) if M <= 64 else (128, 128, 32)
-    tiles = -(-M // bm) * -(-ncols // bn)
-    ktiles = -(-K // bk)
-    sms = sm_count(device)
-    if tiles >= sms:
-        return 1
-    splits = max(1, min(-(-2 * sms // tiles), ktiles // 4, 16))
-    per = -(-ktiles // splits)
-    return -(-ktiles // per)
-
-
-def _out_dtype(x: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.dtype:
+def _launch(x: torch.Tensor, q: Leaf, out_dtype: Optional[torch.dtype],
+            bits: int) -> torch.Tensor:
+    wc, s = require_card_layout(q, bits), q["s"]
+    M, K = x.shape
+    n = s.shape[-1]
     out_dtype = out_dtype or x.dtype
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: the kernel stores bf16 or f32")
-    if x.shape[-1] % 16:
-        raise ValueError(f"K {x.shape[-1]}: the kernel takes multiples of 16")
-    return out_dtype
-
-
-def _launch8(x: torch.Tensor, q: Leaf, out_dtype: Optional[torch.dtype]) -> torch.Tensor:
-    wc, s = require_card_layout(q), q["s"]
-    M, K = x.shape
-    n = s.shape[-1]
-    out_dtype = _out_dtype(x, out_dtype)
+    if K % 16:
+        raise ValueError(f"K {K}: the kernel takes multiples of 16")
     check("x", x, (M, K), torch.bfloat16)
     check("s", s, (n,), torch.float32)
-    if wc.ndim != 3 or wc.shape[2] != 4096:
-        raise ValueError(f"wc shape {tuple(wc.shape)}: expected (Np/64, Kp/64, 4096)")
+    chunk = 512 * bits
+    if wc.ndim != 3 or wc.shape[2] != chunk:
+        raise ValueError(f"card layout shape {tuple(wc.shape)}: expected (Np/64, Kp/64, {chunk})")
     Np, Kp = wc.shape[0] * 64, wc.shape[1] * 64
     if not (0 <= Np - n < CARD_PAD_N and Np % CARD_PAD_N == 0 and 0 <= Kp - K < CARD_PAD_K):
-        raise ValueError(f"wc {tuple(wc.shape)} does not hold a ({K}, {n}) weight")
-    check("wc", wc, tuple(wc.shape), torch.int8)
+        raise ValueError(f"card layout {tuple(wc.shape)} does not hold a ({K}, {n}) weight")
+    check("codes", wc, tuple(wc.shape), torch.int8)
     if len({x.device, wc.device, s.device}) != 1:
         raise ValueError("inputs on several devices")
     out = torch.empty((M, n), dtype=out_dtype, device=x.device)
     if M == 0:
         return out
-    plan = qmm8_plan(M, n, K, sm_count(x.device))
+    plan = qmm_plan(M, n, K, sm_count(x.device), bits)
     with torch.cuda.device(x.device):
-        rc = _launcher(False)(
+        rc = _launcher()(
             x.data_ptr(), wc.data_ptr(), s.data_ptr(), out.data_ptr(), M, n, K, Kp, Np, *plan,
-            int(out_dtype == torch.float32),
+            int(out_dtype == torch.float32), bits,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error {rc}")
-    return out
-
-
-def _launch4(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, n: int, bn2: int,
-             out_dtype: Optional[torch.dtype]) -> torch.Tensor:
-    M, K = x.shape
-    out_dtype = _out_dtype(x, out_dtype)
-    check("x", x, (M, K), torch.bfloat16)
-    check("s", s, (n,), torch.float32)
-    if bn2 % 64:
-        raise ValueError(f"block_n/2 {bn2}: the kernel takes multiples of 64")
-    check("w4", w, (K, -(-n // (2 * bn2)), bn2), torch.int8)
-    if len({x.device, w.device, s.device}) != 1:
-        raise ValueError("inputs on several devices")
-    out = torch.empty((M, n), dtype=out_dtype, device=x.device)
-    if M == 0:
-        return out
-    splits = _split_plan(M, w.shape[1] * 2 * bn2, K, x.device)
-    ws = torch.empty((splits * M * n if splits > 1 else 1,), dtype=torch.float32,
-                     device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _launcher(True)(
-            x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            M, n, K, bn2, splits, int(out_dtype == torch.float32),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"quant_matmul4 kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"quant_matmul kernel launch failed (int{bits}): CUDA error {rc}")
     return out
 
 
@@ -414,12 +414,12 @@ def quantized_matmul(x: torch.Tensor, q: Leaf,
     """y = (x @ w_int8) * s[col], (M, K) x (K, N) -> (M, N) in `out_dtype`
     (x's dtype by default; f32 for the logits). CPU tensors take the plain
     version (either layout); CUDA tensors (x bf16, the card layout of
-    `arrange_int8_for_card`, s f32, contiguous) launch B2 and count the
+    `arrange_for_card`, s f32, contiguous) launch B2 and count the
     launch in `quantized_matmul.launches` and, by (M, K, N), in
     `quantized_matmul.shapes`."""
     if x.device.type == "cpu":
         return quantized_matmul_plain(x, q, out_dtype)
-    out = _launch8(x, q, out_dtype)
+    out = _launch(x, q, out_dtype, 8)
     quantized_matmul.launches += 1
     quantized_matmul.shapes[(x.shape[0], x.shape[1], q["s"].shape[-1])] += 1
     return out
@@ -427,17 +427,19 @@ def quantized_matmul(x: torch.Tensor, q: Leaf,
 
 def quantized_matmul4(x: torch.Tensor, q4: Leaf,
                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The packed-int4 product (B6): as `quantized_matmul`, with the
-    weights two codes per byte; launches counted in
-    `quantized_matmul4.launches`."""
+    """The packed-int4 product (B6): as `quantized_matmul`, with the codes
+    in the card layout of `arrange_for_card` on a CUDA tensor (either
+    int4 layout on the CPU); launches counted in `quantized_matmul4.launches`
+    and, by (M, K, N), in `quantized_matmul4.shapes`."""
     if x.device.type == "cpu":
         return quantized_matmul4_plain(x, q4, out_dtype)
-    w4 = q4["w4"]
-    out = _launch4(x, w4, q4["s"], q4["s"].shape[-1], w4.shape[-1], out_dtype)
+    out = _launch(x, q4, out_dtype, 4)
     quantized_matmul4.launches += 1
+    quantized_matmul4.shapes[(x.shape[0], x.shape[1], q4["s"].shape[-1])] += 1
     return out
 
 
 quantized_matmul.launches = 0
 quantized_matmul.shapes = collections.Counter()
 quantized_matmul4.launches = 0
+quantized_matmul4.shapes = collections.Counter()

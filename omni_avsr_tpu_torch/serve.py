@@ -119,9 +119,9 @@ class Transcriber:
         self.params = merged_params(params, model.dtype, self.device,
                                     model.trainable_predicate())
         if quantize:
-            from .ops.quant import arrange_int8_for_card, quantize_for_decode
+            from .ops.quant import arrange_for_card, quantize_for_decode
 
-            self.params = arrange_int8_for_card(quantize_for_decode(self.params, quantize))
+            self.params = arrange_for_card(quantize_for_decode(self.params, quantize))
         self.num_beams = num_beams if num_beams is not None else model.cfg.num_beams
         self.max_new = max_new_tokens if max_new_tokens is not None else model.cfg.max_dec_tokens
         self.last_decode_steps = 0  # decode steps of the last batch

@@ -107,13 +107,13 @@ def _quant_inputs(M, K, N, device, seed, bits=8):
 ])
 def test_quantized_matmul_kernel_matches_plain(cuda_device, M, K, N, out_f32):
     from omni_avsr_tpu_torch.ops.quant import (
-        arrange_int8_for_card,
+        arrange_for_card,
         quantized_matmul,
         quantized_matmul_plain,
     )
 
     x, q = _quant_inputs(M, K, N, cuda_device, seed=M + N)
-    q = arrange_int8_for_card(q)
+    q = arrange_for_card(q)
     out_dtype = torch.float32 if out_f32 else None
     before = quantized_matmul.launches
     out = quantized_matmul(x, q, out_dtype=out_dtype)
@@ -129,12 +129,12 @@ def test_quantized_matmul_kernel_matches_plain(cuda_device, M, K, N, out_f32):
 def test_quantized_matmul_rejects_bad_input(cuda_device):
     """B2 never re-arranges weights per call: a leaf in the JAX layout, a
     card layout of another shape or an x that is not bf16 is refused."""
-    from omni_avsr_tpu_torch.ops.quant import arrange_int8_for_card, quantized_matmul
+    from omni_avsr_tpu_torch.ops.quant import arrange_for_card, quantized_matmul
 
     x, q = _quant_inputs(45, 256, 384, cuda_device, seed=1)
     with pytest.raises(ValueError, match="card layout"):
         quantized_matmul(x, q)
-    card = arrange_int8_for_card(q)
+    card = arrange_for_card(q)
     with pytest.raises(ValueError, match="does not hold"):
         quantized_matmul(x[:, :128].contiguous(), card)
     with pytest.raises(ValueError, match="dtype"):
@@ -145,26 +145,56 @@ def test_quantized_matmul_rejects_bad_input(cuda_device):
 @pytest.mark.parametrize("M,K,N,out_f32", [
     (45, 2048, 3072, False),
     (45, 2048, 1101, True),    # odd N, not a multiple of block_n: padded last chunk
-    (528, 2048, 16384, False),
+    (45, 2048, 128261, True),  # the lm_head: odd N, f32 logits
+    (45, 8192, 2048, False),   # decode down: K split 8 ways
+    (528, 2048, 16384, False),  # prefill (3 x 176): wgmma, 128-token tiles
     (3, 128, 512, False),
+    (1, 2048, 3072, True),     # one token
+    (64, 2048, 2048, False),   # the largest decode tile
+    (65, 2048, 2048, True),    # one row past it: two 64-token tiles
+    (4500, 1024, 4096, False),  # 256-token tiles
+    (4500, 4096, 1024, True),
 ])
 def test_quantized_matmul4_kernel_matches_plain(cuda_device, M, K, N, out_f32):
     from omni_avsr_tpu_torch.ops.quant import (
+        arrange_for_card,
         pack_int4,
         quantized_matmul4,
         quantized_matmul4_plain,
     )
 
     x, q = _quant_inputs(M, K, N, cuda_device, seed=M + K, bits=4)
-    q4 = pack_int4(q)
+    q4 = arrange_for_card(pack_int4(q))  # the serving layout
     out_dtype = torch.float32 if out_f32 else None
     before = quantized_matmul4.launches
     out = quantized_matmul4(x, q4, out_dtype=out_dtype)
     assert quantized_matmul4.launches == before + 1
+    assert quantized_matmul4.shapes[(M, K, N)] >= 1
     ref = quantized_matmul4_plain(x, q4, out_dtype=out_dtype)
     torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == (M, N)
     tol = dict(atol=1e-3, rtol=1e-3) if out_f32 else dict(atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_quantized_matmul4_rejects_jax_layout(cuda_device):
+    """B6 never re-arranges weights per call: a packed leaf in the JAX
+    layout is refused, the card layout of an int8 leaf too."""
+    from omni_avsr_tpu_torch.ops.quant import (
+        arrange_for_card,
+        pack_int4,
+        quantized_matmul4,
+    )
+
+    x, q = _quant_inputs(45, 256, 384, cuda_device, seed=2, bits=4)
+    with pytest.raises(ValueError, match="card layout"):
+        quantized_matmul4(x, pack_int4(q))
+    with pytest.raises(ValueError, match="card layout"):
+        quantized_matmul4(x, arrange_for_card(q))
+    card = arrange_for_card(pack_int4(q))
+    with pytest.raises(ValueError, match="does not hold"):
+        quantized_matmul4(x[:, :128].contiguous(), card)
 
 
 # B3: bf16 in and out; the kernel keeps the running sums in f32 and rounds
@@ -172,9 +202,20 @@ def test_quantized_matmul4_kernel_matches_plain(cuda_device, M, K, N, out_f32):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,S,Hq,Hkv,D,causal,lens,lse,rate", [
     (1, 1500, 1500, 16, 16, 64, False, None, False, 0.0),   # Whisper pad30s
+    (3, 1500, 1500, 16, 16, 64, False, None, True, 0.0),    # Whisper pad30s, B 3, lse
+    (3, 384, 384, 16, 16, 64, False, (300, 280, 260), False, 0.0),  # AV-HuBERT in (a)
     (2, 300, 300, 16, 16, 64, False, (300, 177), False, 0.0),  # AV-HuBERT, lengths
+    (2, 512, 512, 16, 16, 64, True, None, False, 0.0),      # causal
     (2, 200, 200, 32, 8, 128, True, None, True, 0.0),       # causal, GQA, D 128, lse
+    (2, 300, 300, 32, 8, 128, True, None, True, 0.0),       # the same at check_b3's T
+    (4, 347, 347, 32, 8, 64, True, None, True, 0.0),        # the training LLM, GQA 32/8
+    (4, 320, 320, 16, 16, 64, False, (320, 301, 280, 257), True, 0.1),  # AV-HuBERT training
+    (2, 300, 300, 16, 16, 64, False, (300, 201), True, 0.1),  # dropout, lengths, lse
     (1, 130, 150, 4, 2, 64, True, (111,), True, 0.1),       # dropout, ragged tiles
+    (2, 1000, 1000, 8, 8, 64, False, None, False, 0.0),     # T that no tile size divides
+    (2, 37, 45, 8, 2, 64, True, None, True, 0.0),           # T < 64
+    (3, 200, 260, 8, 8, 64, False, (260, 0, 5), True, 0.0),  # a zero length
+    (2, 333, 333, 8, 8, 128, False, (333, 0), False, 0.2),   # D 128, zero length, dropout
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, B, T, S, Hq, Hkv, D, causal, lens,
                                               lse, rate):
@@ -197,7 +238,13 @@ def test_flash_attention_kernel_matches_plain(cuda_device, B, T, S, Hq, Hkv, D, 
     if lse:
         (out, out_lse), (ref, ref_lse) = out, ref
         torch.testing.assert_close(out_lse, ref_lse, atol=1e-3, rtol=1e-3)
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    # a batch entry without keys: the kernel gives 0 where the plain version
+    # averages v over the masked keys (the TPU kernel's value there depends
+    # on its tiling); every other entry is held to the plain version
+    keyed = [i for i in range(B) if lens is None or lens[i] > 0]
+    for i in set(range(B)) - set(keyed):
+        assert not bool(out[i].any())
+    torch.testing.assert_close(out[keyed].float(), ref[keyed].float(), atol=2e-2, rtol=2e-2)
 
 
 # B1 with one beam: greedy decoding's launch (K * G rows = 4 at GQA 32/8)

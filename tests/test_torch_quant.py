@@ -92,7 +92,7 @@ def test_quantized_matmul_plain_matches_jax(m, k, n):
     from omni_avsr_tpu.ops.quant import quantize_per_channel as jqpc
     from omni_avsr_tpu.ops.quant import quantized_linear_xla, quantized_matmul as jqmm
     from omni_avsr_tpu_torch.ops.quant import (
-        arrange_int8_for_card,
+        arrange_for_card,
         quantize_per_channel,
         quantized_matmul,
     )
@@ -106,7 +106,7 @@ def test_quantized_matmul_plain_matches_jax(m, k, n):
     leaf = quantize_per_channel(torch.from_numpy(w))
     ours = quantized_matmul(torch.from_numpy(x), leaf)
     assert quantized_matmul.launches == before  # CPU tensors: the plain version
-    card = arrange_int8_for_card(leaf)  # the serving layout
+    card = arrange_for_card(leaf)  # the serving layout
     assert "w" not in card and card["wc"].shape == (-(-n // 128) * 2, -(-k // 64), 4096)
     torch.testing.assert_close(quantized_matmul(torch.from_numpy(x), card), ours,
                                atol=0, rtol=0)
@@ -208,7 +208,7 @@ def test_tied_lm_head_codes_are_contiguous(vocab):
     codes must be contiguous (B2 streams them in long runs) also at a width
     that needs no padding, like Llama-3's 128256, and in the card layout."""
     from omni_avsr_tpu_torch.ops.quant import (
-        arrange_int8_for_card,
+        arrange_for_card,
         card_int8_codes,
         quantize_llm_params,
         quantize_per_channel,
@@ -220,7 +220,7 @@ def test_tied_lm_head_codes_are_contiguous(vocab):
     want = quantize_per_channel(embed.t().contiguous())["w"]
     assert head["w"].is_contiguous() and head["s"].shape == (vocab,)
     np.testing.assert_array_equal(head["w"].numpy(), want.numpy())
-    card = arrange_int8_for_card({"lm_head": head})["lm_head"]
+    card = arrange_for_card({"lm_head": head})["lm_head"]
     assert card["wc"].is_contiguous()
     np.testing.assert_array_equal(card_int8_codes(card["wc"], 32, vocab).numpy(), want.numpy())
 
@@ -231,13 +231,13 @@ def test_tied_lm_head_codes_are_contiguous(vocab):
                                    (3, 32, 200), (2, 80, 37)])
 def test_card_layout_round_trip(shape):
     from omni_avsr_tpu_torch.models.common import layer_slice
-    from omni_avsr_tpu_torch.ops.quant import arrange_int8_for_card, card_int8_codes
+    from omni_avsr_tpu_torch.ops.quant import arrange_for_card, card_int8_codes
 
     g = torch.Generator().manual_seed(sum(shape))
     w = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
     *lead, k, n = shape
     leaf = {"w": w, "s": torch.rand(*lead, n, generator=g), "b": torch.zeros(*lead, n)}
-    card = arrange_int8_for_card({"layers": {"fc": leaf}})["layers"]["fc"]
+    card = arrange_for_card({"layers": {"fc": leaf}})["layers"]["fc"]
     assert sorted(card) == ["b", "s", "wc"] and card["s"] is leaf["s"]
     kp, np_ = -(-k // 64) * 64, -(-n // 128) * 128
     assert card["wc"].shape == (*lead, np_ // 64, kp // 64, 4096)
@@ -279,7 +279,7 @@ def test_card_layout_plain_matches_jax(m):
     from omni_avsr_tpu.ops.quant import quantize_per_channel as jqpc
     from omni_avsr_tpu.ops.quant import quantized_matmul as jqmm
     from omni_avsr_tpu_torch.ops.quant import (
-        arrange_int8_for_card,
+        arrange_for_card,
         quantize_per_channel,
         quantized_matmul,
     )
@@ -288,7 +288,7 @@ def test_card_layout_plain_matches_jax(m):
     w, x = _quant_case(m, k, n, seed=m)
     ref = np.asarray(jqmm(jnp.asarray(x), jqpc(jnp.asarray(w)), block_m=8, block_n=128,
                           block_k=32, interpret=True))
-    card = arrange_int8_for_card(quantize_per_channel(torch.from_numpy(w)))
+    card = arrange_for_card(quantize_per_channel(torch.from_numpy(w)))
     ours = quantized_matmul(torch.from_numpy(x), card)
     assert ours.shape == (m, n)
     np.testing.assert_allclose(ours.numpy(), ref, **QMM_TOL)
@@ -320,9 +320,9 @@ def test_card_layout_plain_matches_jax(m):
     (65, 1024, 4096, (64, 4, 2, 8, 132)),
 ])
 def test_qmm8_plan(M, K, N, plan):
-    from omni_avsr_tpu_torch.ops.quant import qmm8_plan
+    from omni_avsr_tpu_torch.ops.quant import qmm_plan
 
-    assert qmm8_plan(M, N, K, 132) == plan
+    assert qmm_plan(M, N, K, 132, 8) == plan
     nt, cw, ks, stages, blocks = plan
     if nt <= 64:
         # a kernel instantiation of csrc/quant_matmul.cu, its split dividing K
@@ -342,7 +342,7 @@ def test_cuda_route_requires_card_layout():
     """A leaf in the JAX layout is refused before any launch: the card
     never re-arranges weights per call."""
     from omni_avsr_tpu_torch.ops.quant import (
-        arrange_int8_for_card,
+        arrange_for_card,
         quantize_per_channel,
         require_card_layout,
     )
@@ -350,4 +350,174 @@ def test_cuda_route_requires_card_layout():
     leaf = quantize_per_channel(torch.randn(32, 40))
     with pytest.raises(ValueError, match="card layout"):
         require_card_layout(leaf)
-    assert require_card_layout(arrange_int8_for_card(leaf)).shape == (2, 1, 4096)
+    assert require_card_layout(arrange_for_card(leaf)).shape == (2, 1, 4096)
+
+
+def test_cuda_route_requires_int4_card_layout():
+    """B6 refuses a packed leaf in the JAX layout (and an int8 card leaf)
+    before any launch; the int4 card layout is what it reads."""
+    from omni_avsr_tpu_torch.ops.quant import (
+        arrange_for_card,
+        pack_int4,
+        quantize_per_channel,
+        require_card_layout,
+    )
+
+    q = quantize_per_channel(torch.randn(32, 40), bits=4)
+    with pytest.raises(ValueError, match="card layout"):
+        require_card_layout(pack_int4(q), bits=4)
+    with pytest.raises(ValueError, match="card layout"):
+        require_card_layout(arrange_for_card(q), bits=4)
+    assert require_card_layout(arrange_for_card(pack_int4(q)), bits=4).shape == (2, 1, 2048)
+
+
+# B6's card layout: the packed codes, arranged in the order in which the
+# kernel's threads load them as tensor-core fragments, and back.
+@pytest.mark.parametrize("shape", [(16, 37), (64, 128), (48, 261), (64, 128261), (96, 1100),
+                                   (3, 32, 200), (2, 80, 37)])
+def test_int4_card_layout_round_trip(shape):
+    from omni_avsr_tpu_torch.models.common import layer_slice
+    from omni_avsr_tpu_torch.ops.quant import (
+        arrange_for_card,
+        card_int4_codes,
+        pack_int4,
+        unpack_int4,
+    )
+
+    g = torch.Generator().manual_seed(sum(shape))
+    w = torch.randint(-8, 8, shape, generator=g, dtype=torch.int8)
+    *lead, k, n = shape
+    q4 = pack_int4({"w": w, "s": torch.rand(*lead, n, generator=g)})
+    leaf = {**q4, "b": torch.zeros(*lead, n)}
+    card = arrange_for_card({"layers": {"fc": leaf}})["layers"]["fc"]
+    assert sorted(card) == ["b", "s", "w4c"] and card["s"] is leaf["s"]
+    kp, np_ = -(-k // 64) * 64, -(-n // 128) * 128
+    assert card["w4c"].shape == (*lead, np_ // 64, kp // 64, 2048)
+    assert card["w4c"].dtype == torch.int8 and card["w4c"].is_contiguous()
+    assert torch.equal(card_int4_codes(card["w4c"], k, n), unpack_int4(q4["w4"], n))
+    assert torch.equal(card_int4_codes(card["w4c"], k, n), w)
+    # padding is code 0 (nibble 8): the arranged nibbles hold each code once
+    nib = card["w4c"].to(torch.int32) & 0xFF
+    nonzero = int(((nib & 0xF) != 8).sum() + ((nib >> 4) != 8).sum())
+    assert nonzero == int((w != 0).sum())
+    if lead:  # a stacked leaf: layer i of the arranged tree arranges layer i
+        one = layer_slice({"fc": card}, 1)["fc"]
+        assert torch.equal(card_int4_codes(one["w4c"], k, n), w[1])
+
+
+def test_int4_card_layout_fragment_order():
+    """Word kk of lane l in the 512 bytes of a 16-column x 64-k tile holds
+    the four A registers j of the lane's 16-deep step kk: nibble j (bits
+    4j..4j+3) the code of column g + 8 * (j & 1), k 16 kk + 8 (j >> 1) +
+    2 t, nibble j + 4 the code at k + 1, each as code + 8, with g = l // 4,
+    t = l % 4 (`csrc/quant_matmul.cu::int4x8_to_bf16`)."""
+    from omni_avsr_tpu_torch.ops.quant import card_int4_layout
+
+    k, n = 128, 256
+    w = torch.randint(-8, 8, (k, n), generator=torch.Generator().manual_seed(0),
+                      dtype=torch.int8)
+    flat = card_int4_layout(w).reshape(-1).to(torch.int64) & 0xFF
+    # nibble i of the flat layout: the low nibble of byte i // 2 first
+    nib = torch.stack([flat & 0xF, flat >> 4], dim=-1).reshape(-1) - 8
+    ks = k // 64
+    idx = torch.arange(nib.numel())
+    chunk, rem = idx // 4096, idx % 4096
+    tile, ks_i = chunk // ks, chunk % ks
+    wq, lane, kk, pos = rem // 1024, (rem // 32) % 32, (rem // 8) % 4, rem % 8
+    g, t, j, e = lane // 4, lane % 4, pos % 4, pos // 4
+    col = tile * 64 + wq * 16 + g + 8 * (j & 1)
+    row = ks_i * 64 + 16 * kk + 8 * (j >> 1) + 2 * t + e
+    assert torch.equal(nib, w[row, col].to(torch.int64))
+
+
+@pytest.mark.parametrize("m,k,n,out_f32", [(1, 128, 256, False), (5, 96, 612, True),
+                                           (45, 256, 300, True), (130, 64, 130, False)])
+def test_int4_card_layout_plain_matches_jax(m, k, n, out_f32):
+    """The plain version on an int4 card-layout leaf equals the JAX Pallas
+    kernel (interpret mode) at tiny sizes, in f32."""
+    from omni_avsr_tpu.ops.quant import pack_int4 as jpack, quantize_per_channel as jqpc
+    from omni_avsr_tpu.ops.quant import quantized_matmul4 as jqmm4
+    from omni_avsr_tpu_torch.ops.quant import (
+        arrange_for_card,
+        pack_int4,
+        quantize_per_channel,
+        quantized_matmul4,
+    )
+
+    w, x = _quant_case(m, k, n, seed=k + n + 1)
+    out_dtype = jnp.float32 if out_f32 else None
+    ref = np.asarray(jqmm4(jnp.asarray(x), jpack(jqpc(jnp.asarray(w), bits=4), block_n=256),
+                           block_m=8, block_k=64, interpret=True, out_dtype=out_dtype))
+    card = arrange_for_card(pack_int4(quantize_per_channel(torch.from_numpy(w), bits=4)))
+    ours = quantized_matmul4(torch.from_numpy(x), card,
+                             out_dtype=torch.float32 if out_f32 else None)
+    assert ours.shape == (m, n)
+    np.testing.assert_allclose(ours.numpy(), ref, **QMM_TOL)
+
+
+# B6's launch plans at every shape of configuration (c): the decode
+# matrices at M 45, the prefill's at M 528 (3 x 176) and its lm_head at M 3
+@pytest.mark.parametrize("M,K,N,plan", [
+    (45, 2048, 3072, (48, 2, 4, 7, 132)), (45, 2048, 2048, (48, 1, 8, 3, 132)),
+    (45, 2048, 16384, (48, 8, 2, 8, 132)), (45, 8192, 2048, (48, 1, 8, 3, 132)),
+    (45, 2048, 128261, (48, 8, 2, 8, 132)),
+    (528, 2048, 3072, (128, 8, 1, 8, 120)), (528, 2048, 2048, (128, 8, 1, 8, 80)),
+    (528, 2048, 16384, (128, 8, 1, 8, 640)), (528, 8192, 2048, (128, 8, 1, 8, 80)),
+    (3, 2048, 128261, (16, 8, 2, 8, 132)),
+])
+def test_qmm_plan_int4(M, K, N, plan):
+    from omni_avsr_tpu_torch.ops.quant import qmm_plan
+
+    assert qmm_plan(M, N, K, 132, 4) == plan
+    nt, cw, ks, stages, blocks = plan
+    # an int4 step carries half the code bytes: a ring at least as deep as int8's
+    assert stages >= qmm_plan(M, N, K, 132, 8)[3]
+    if nt <= 64:
+        assert nt == -(-M // 16) * 16 and -(-K // 64) % ks == 0 and blocks == 132
+        assert (cw, ks) in {(1, 4), (1, 8), (2, 4), (2, 8), (4, 1), (4, 2), (4, 4), (8, 1), (8, 2)}
+    else:
+        assert nt in (128, 256) and (cw, ks) == (8, 1)
+        assert blocks == -(-N // 128) * -(-M // nt)
+        assert stages * (nt * 128 + 4096) >= nt * 132 * 4  # the epilogue's tile fits the ring
+    assert 1024 + stages * ks * (nt * 128 + cw * 512) + 16 * stages \
+        + (ks - 1) * cw * nt * 64 <= 232448
+
+
+def test_arrange_for_card_on_an_int4_serving_tree():
+    """The serving tree of configuration (c) laid out for the card: the
+    LLM's packed leaves become B6's card layout, the towers' int8 leaves
+    B2's, and every other leaf (norms, biases, LoRA, convs, embeddings,
+    scales) is the same tensor as before."""
+    from omni_avsr_tpu_torch.ops.quant import (
+        arrange_for_card,
+        card_int4_codes,
+        card_int8_codes,
+        quantize_for_decode,
+        unpack_int4,
+    )
+
+    model = flagship(tiny=True, dtype=torch.float32)
+    tree = quantize_for_decode(init_params(model.cfg, torch.Generator().manual_seed(6), "cpu",
+                                           frozen_dtype=torch.float32), "int4")
+    card = arrange_for_card(tree)
+    before, after = dict(_flat(tree)), dict(_flat(card))
+    w4 = sorted(p[:-3] for p in before if p.endswith(".w4"))
+    w8 = sorted(p[:-2] for p, v in before.items() if p.endswith(".w") and v.dtype == torch.int8)
+    assert w4 == ["llm.layers.attn.o", "llm.layers.attn.qkv", "llm.layers.mlp.down",
+                  "llm.layers.mlp.gateup", "llm.lm_head"]
+    assert len(w8) == 12 and all(p.split(".")[0] in ("whisper", "avhubert") for p in w8)
+    assert sorted(p[:-4] for p in after if p.endswith(".w4c")) == w4
+    assert sorted(p[:-3] for p in after if p.endswith(".wc")) == w8
+    assert not any(p.endswith((".w4",)) for p in after)
+    changed = {f"{p}.w4" for p in w4} | {f"{p}.w" for p in w8}
+    assert set(before) - changed == set(after) - {f"{p}.w4c" for p in w4} - {f"{p}.wc" for p in w8}
+    for path in set(before) - changed:
+        assert after[path] is before[path], path
+    for p in w4:
+        k = before[f"{p}.w4"].shape[-3]
+        n = before[f"{p}.s"].shape[-1]
+        assert torch.equal(card_int4_codes(after[f"{p}.w4c"], k, n),
+                           unpack_int4(before[f"{p}.w4"], n)), p
+    for p in w8:
+        k, n = before[f"{p}.w"].shape[-2:]
+        assert torch.equal(card_int8_codes(after[f"{p}.wc"], k, n), before[f"{p}.w"]), p

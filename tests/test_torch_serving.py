@@ -78,7 +78,8 @@ def test_transcriber_matches_jax(monkeypatch, mode, quantize, lengths):
     pt = Transcriber(pm, params_from_numpy(params, "cpu"), num_beams=15, quantize=quantize,
                      device="cpu")
     if quantize == "int4":
-        assert "w4" in pt.params["llm"]["lm_head"]
+        head = pt.params["llm"]["lm_head"]  # packed int4, in B6's card layout
+        assert "w4" not in head and head["w4c"].dtype == torch.int8
         fc1 = pt.params["whisper"]["layers"]["fc1"]  # int8 towers, in B2's card layout
         assert "w" not in fc1 and fc1["wc"].dtype == torch.int8
     ids = pt.decode_ids(batch, "audiovisual", 4, 2, trim, 15).numpy()

@@ -140,3 +140,41 @@ def test_no_jax_imports(target):
         for name in _imports(f):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "omni_avsr_tpu", "__graft_entry__"), (f, name)
+
+
+def _kernels_line_entries():
+    """(key, wrapper name, source, replaces) of each `entry(...)` call that
+    builds chip_smoke.py's `kernels` line, read from its source."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    found = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "entry":
+            key, name, source, replaces = (a.value for a in node.args[:4])
+            found[key] = (name, source, replaces)
+    return found
+
+
+@pytest.mark.parametrize("key", ["B1", "B2", "B3", "B4", "B5", "B6", "B7"])
+def test_kernels_line_names_the_kernel_source(key):
+    """Each kernel of chip_smoke.py's `kernels` line names the csrc file
+    that its wrapper builds and loads, that file defines the wrapper's C
+    entry point, and `replaces` points at the TPU kernel's `def`."""
+    import re
+
+    entries = _kernels_line_entries()
+    assert sorted(entries) == ["B1", "B2", "B3", "B4", "B5", "B6", "B7"]
+    name, source, replaces = entries[key]
+    # the ops module that defines the wrapper, and what it loads
+    modules = [p for p in sorted((ROOT / "omni_avsr_tpu_torch" / "ops").glob("*.py"))
+               if re.search(rf"^def {name}\(", p.read_text(), re.M)]
+    assert len(modules) == 1, (name, modules)
+    loads = re.findall(r'load\("(\w+)"\)\.(\w+)', modules[0].read_text())
+    assert len(loads) == 1, loads
+    stem, symbol = loads[0]
+    assert source == f"omni_avsr_tpu_torch/csrc/{stem}.cu"
+    cu = ROOT / source
+    assert cu.exists(), source
+    assert re.search(rf'extern "C" int {symbol}\(', cu.read_text()), (source, symbol)
+    path, line = replaces.split(":")
+    text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert re.match(r"def _\w*kernel\(", text), (replaces, text)
