@@ -7,13 +7,15 @@ Phases, each printing lines with the elapsed seconds:
   1. the card: name and power limit, from nvidia-smi;
   2. the nvcc build of every kernel source in omni_avsr_tpu_torch/csrc/,
      one nvcc per source, all started together, and ptxas's registers,
-     shared memory and spills of the wgmma kernels (B3, B2/B6, B4);
+     shared memory, spills and wgmma serialisation of the kernels on
+     tensor cores (B3, B2/B6, B4, B1, B7);
   3. each kernel against its plain PyTorch version at the shapes the
      serving and training paths give it, with its time, the plain
      version's, a PyTorch library call's and the card's lower bound for
      the same work: B1 beam-decode attention (at the 6.4 s prefix and at
      the prefix of the 30 s-window requests below, with 15 beams and with
-     the one beam of greedy decoding), B3 flash attention (timed at
+     the one beam of greedy decoding; each timed case with its host time
+     per call and the key splits `plan_splits` gave it), B3 flash attention (timed at
      Whisper's 30 s window at B 1 and B 3, AV-HuBERT at T 384 with the
      lengths of (a), the training LLM's causal GQA shape with lse and
      AV-HuBERT's training shape with lengths, dropout and lse, each beside
@@ -28,7 +30,8 @@ Phases, each printing lines with the elapsed seconds:
      beam-selection row statistics (45
      rows of Llama-3's 128256-token vocabulary, and 8 and 13 rows), B7 the
      fused ResNet conv (each of the trunk's conv geometries and epilogues
-     at 480 frames, summed over the 19 convs of one trunk);
+     at 480 frames with its TFLOP/s and the kernel and tile `conv_plan`
+     chose, summed over the 19 convs of one trunk);
   4. the full-width flagship (Whisper-medium, ResNet3D + AV-HuBERT-Large,
      Llama-3.2-1B with task-specific Omni-LoRA), random weights made on the
      card from a seed, served through `Transcriber.transcribe_many` with
@@ -134,18 +137,22 @@ def time_ms(fn, flush, iters: int = 50) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def host_ms(fn, iters: int = 50) -> float:
+def host_ms(fn, iters: int = 50, repeats: int = 1) -> float:
     """Wall time per call of back-to-back calls, host launch overhead
-    included (what a host-bound decode loop pays)."""
+    included (what a host-bound decode loop pays); the median of `repeats`
+    runs of `iters` calls (the host clock of a shared machine spreads)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e3 / iters
+    runs = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t) * 1e3 / iters)
+    return sorted(runs)[len(runs) // 2]
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -233,14 +240,16 @@ def check_b1(flush, P: int, batches=(1, B_SERVE, 4), K: int = K):
     prefix P with K beams; returns the timed row at B 3, step 17."""
     import torch
 
+    from omni_avsr_tpu_torch import kernels
     from omni_avsr_tpu_torch.ops.beam_attention import (
         beam_decode_attention,
         beam_decode_attention_plain,
+        plan_splits,
     )
 
     max_err, timed = 0.0, None
     for B in batches:
-        for step in (0, 17, 31):
+        for step in (0, 17, 31, N):
             inp = b1_inputs(B, P, step, seed=100 * B + step + P + K, K=K)
             out = beam_decode_attention(**inp, step=step, num_beams=K)
             ref = beam_decode_attention_plain(**inp, step=step, num_beams=K)
@@ -253,14 +262,17 @@ def check_b1(flush, P: int, batches=(1, B_SERVE, 4), K: int = K):
             if B != B_SERVE or step != 17:
                 continue
             kernel = lambda: beam_decode_attention(**inp, step=step, num_beams=K)  # noqa: E731
-            timed = dict(P=P, B=B, step=step, ms=time_ms(kernel, flush), host_ms=host_ms(kernel),
+            timed = dict(P=P, B=B, step=step, ms=time_ms(kernel, flush),
+                         host_ms=host_ms(kernel, iters=200, repeats=5),
                          plain_ms=time_ms(lambda: beam_decode_attention_plain(
                              **inp, step=step, num_beams=K), flush),
                          library_ms=time_ms(sdpa_on_reordered_cache(inp, step), flush),
-                         bound_ms=b1_bound_ms(inp, step), bound_by="bytes")
+                         bound_ms=b1_bound_ms(inp, step), bound_by="bytes",
+                         splits=plan_splits(B, HKV, K * (HQ // HKV), P, K, step,
+                                            kernels.sm_count(torch.device(DEV))))
     timed["max_abs_err"] = max_err
     timed["K"] = K
-    log("B1", f"kernel vs plain at P {P}, K {K}, B {list(batches)} x step 0/17/31: max_abs_err "
+    log("B1", f"kernel vs plain at P {P}, K {K}, B {list(batches)} x step 0/17/31/{N}: max_abs_err "
         f"{max_err:.3g} (tol atol/rtol 2e-2); timed at B 3 step 17: {json.dumps(timed)}")
     return timed
 
@@ -699,7 +711,8 @@ def check_b7(flush, frames: int = 3 * 160):
     import torch
     import torch.nn.functional as F
 
-    from omni_avsr_tpu_torch.ops.conv_block import conv2d_fused, conv2d_fused_plain
+    from omni_avsr_tpu_torch import kernels
+    from omni_avsr_tpu_torch.ops.conv_block import conv2d_fused, conv2d_fused_plain, conv_plan
 
     trunk = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, nbytes=0.0, flops=0.0)
     max_err, rows = 0.0, []
@@ -725,8 +738,10 @@ def check_b7(flush, frames: int = 3 * 160):
         torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
         err = (out.float() - ref.float()).abs().max().item()
         max_err = max(max_err, err)
+        plan = conv_plan(Fr, Ho, Ho, Cin, Cout, stride, kernels.sm_count(torch.device(DEV)))
         row = dict(conv=label, F=Fr, H=H, Cin=Cin, Cout=Cout, k=k, stride=stride, pad=pad,
-                   affine=affine, act=act, residual=res, per_trunk=count, max_abs_err=err)
+                   affine=affine, act=act, residual=res, per_trunk=count, max_abs_err=err,
+                   kernel=plan.kernel, tile=plan[1:] if plan.kernel == "wgmma" else plan[1:3])
         if count:
             x_cl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
             w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -749,6 +764,7 @@ def check_b7(flush, frames: int = 3 * 160):
                        plain_ms=time_ms(lambda: conv2d_fused_plain(*args), flush, iters=10),
                        library_ms=time_ms(library, flush))
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+            row["tflop_per_s"] = flops / (row["ms"] * 1e-3) / 1e12
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 trunk[key] += count * row[key]
             trunk["nbytes"] += count * nbytes
@@ -1286,7 +1302,9 @@ def main() -> int:
     kernels.build_all(sources)
     log("build", f"nvcc {sources} in {time.perf_counter() - t:.2f} s (one nvcc per source, "
         f"in parallel)")
-    for name in ("flash_attention", "quant_matmul", "flash_attention_bwd"):  # the wgmma kernels
+    # the kernels on tensor cores: wgmma (B3, B2/B6, B4, B7) and mma.sync (B1, B7)
+    for name in ("flash_attention", "quant_matmul", "flash_attention_bwd", "beam_attention",
+                 "conv_block"):
         for row in kernels.ptxas_report(name):
             log("ptxas", f"{name}: {json.dumps(row)}")
 
@@ -1303,7 +1321,7 @@ def main() -> int:
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     b1 = check_b1(flush, P_BUCKET)
-    check_b1(flush, P_a, batches=(B_SERVE,))  # the prefix configuration (a) serves
+    b1_a = check_b1(flush, P_a, batches=(B_SERVE,))  # the prefix configuration (a) serves
     b1_greedy = check_b1(flush, P_BUCKET, batches=(1, B_SERVE), K=1)  # greedy decoding
     b3, b3_rows = check_b3(flush)
     b4_rows = check_b4(flush)
@@ -1414,8 +1432,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {**entry("B1", "beam_decode_attention", "omni_avsr_tpu_torch/csrc/beam_attention.cu",
                  "omni_avsr_tpu/ops/beam_attention.py:51", b1, "b",
-                 "per launch: B 3 x 15 beams, P 176, step 17"),
-         "one_beam": b1_greedy},
+                 "per launch: B 3 x 15 beams, P 176, step 17; cases: the three timed shapes"),
+         "cases": [b1, b1_a, b1_greedy]},
         {**entry("B2", "quantized_matmul", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
                  "omni_avsr_tpu/ops/quant.py:54", b2, "b",
                  "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head; tower_ms and "

@@ -157,4 +157,28 @@ inline int encode_bthd_sw128(CUtensorMap* map, const void* base, uint64_t B, uin
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
+// Tensor map of a contiguous (F, H, W, C) bf16 activation as the rank-4
+// (C, W, H, F), read in the boxes of an implicit-GEMM conv's tap: 64
+// channels (128 bytes, 128-byte swizzle) of `cols` pixels of `rows` rows
+// of `frames` frames, every `stride`-th column and row (the box spans
+// stride * cols columns and stride * rows rows of the input); pixels
+// outside x (the padding, negative coordinates included) read as zero.
+// The box lands as frames x rows x cols rows of 128 bytes. Returns 0 or an
+// error code (1000 + cuTensorMapEncodeTiled's CUresult).
+inline int encode_conv_taps_sw128(CUtensorMap* map, const void* base, uint64_t F, uint64_t H,
+                                  uint64_t W, uint64_t C, uint32_t stride, uint32_t cols,
+                                  uint32_t rows, uint32_t frames) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {C, W, H, F};
+  const cuuint64_t strides[3] = {C * 2, W * C * 2, H * W * C * 2};
+  const cuuint32_t box[4] = {64, stride * cols, stride * rows, frames};
+  const cuuint32_t elem[4] = {1, stride, stride, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
 }  // namespace port

@@ -11,21 +11,41 @@ would have produced, without the per-step gather.
 `beam_decode_attention` is the wrapper the decoder calls. A tensor on the
 CPU takes `beam_decode_attention_plain`, the same masked joint softmax in
 torch; a CUDA tensor launches the hand-written kernel in
-`csrc/beam_attention.cu` (built with nvcc on first use) or raises.
+`csrc/beam_attention.cu` (built with nvcc on first use) or raises. The
+kernel splits the key list [prefix | generated | current] over the blocks
+of a cluster, `plan_splits` of them, and merges their partial softmaxes;
+`beam_decode_attention_split` is that schedule in torch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from ..kernels import check, load
+from ..kernels import check, load, sm_count
 
 NEG_INF = -1e30  # the TPU kernel's mask value for generated/current lanes
+KEY_TILE = 64  # keys per tile of the kernel
+ROW_CHUNK = 64  # query rows (K * G of one kv head) per block
+MAX_SPLITS = 8  # blocks of one cluster
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
+                                                          ctypes.c_void_p]
+
+
+def plan_splits(B: int, Hkv: int, rows: int, P: int, K: int, step: int, sms: int) -> int:
+    """The number of blocks (one cluster) that share the key list of one
+    (batch item, kv head, chunk of 64 query rows): each takes a contiguous
+    run of 64-key tiles of [prefix P | generated K * step | current K]. As
+    many as there are tiles, so each block walks as few as possible, up to
+    the cluster's 8; fewer once B * Hkv * chunks alone gives two blocks per
+    SM, where more splits would only add merging."""
+    tiles = -(-(P + K * step + K) // KEY_TILE)  # integer ceilings: the wrapper's host cost
+    units = B * Hkv * -(-rows // ROW_CHUNK)
+    return max(1, min(MAX_SPLITS, tiles, -(-2 * sms // units)))
 
 
 def beam_decode_attention_plain(
@@ -79,6 +99,62 @@ def beam_decode_attention_plain(
     return out.reshape(BK, 1, Hq, D)
 
 
+_splits = functools.lru_cache(maxsize=1024)(plan_splits)  # the wrapper's: once per shape
+
+
+def beam_decode_attention_split(q, pk, pv, gk, gv, k_cur, v_cur, prefix_bias, anc, step: int,
+                                num_beams: int, splits: int) -> torch.Tensor:
+    """The kernel's schedule in torch, for the tests: the key list
+    [prefix | generated rows r < K at slots n < step, r-major | current
+    tokens] of each (batch item, kv head), masked per query row as the
+    kernel masks it, cut into 64-key tiles, the tiles split into `splits`
+    contiguous runs (run s: tiles s * n / splits to (s + 1) * n / splits);
+    each run's partial (max, sum, unnormalised acc) with its max starting at
+    the mask value, then the merge. Equal to the plain version up to the
+    order of the sums."""
+    BK, _, Hq, D = q.shape
+    K = num_beams
+    B = BK // K
+    Hkv, P = pk.shape[1], pk.shape[2]
+    G = Hq // Hkv
+    R, dev = K * G, q.device
+    qg = q.reshape(B, K, Hkv, G, D).permute(0, 2, 1, 3, 4).reshape(B, Hkv, R, D).float()
+
+    def key_list(prefix, gen, cur):
+        chain = gen[:, :, :, :step].reshape(B, Hkv, K * step, D)
+        return torch.cat([prefix, chain, cur.reshape(B, K, Hkv, D).transpose(1, 2)], dim=2)
+
+    keys, vals = key_list(pk, gk, k_cur), key_list(pv, gv, v_cur)
+    T = P + K * step + K
+    beam = torch.arange(R, device=dev) // G
+    j = torch.arange(K * step, device=dev)
+    live_gen = anc[:, beam][:, :, j % step] == (j // step)  # (B, R, K * step)
+    live_cur = (torch.arange(K, device=dev)[None] == beam[:, None]).expand(B, R, K)
+    live = torch.cat([torch.ones(B, R, P, dtype=torch.bool, device=dev), live_gen, live_cur], -1)
+    bias = torch.cat([prefix_bias.float(), torch.zeros(B, T - P, device=dev)], dim=-1)
+    logits = torch.einsum("bhrd,bhtd->bhrt", qg, keys.float()) * D ** -0.5
+    logits = torch.where(live[:, None], logits + bias[:, None, None], torch.full((), NEG_INF,
+                                                                                 device=dev))
+    n = math.ceil(T / KEY_TILE)
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        lo, hi = min(T, s * n // splits * KEY_TILE), min(T, (s + 1) * n // splits * KEY_TILE)
+        part = logits[..., lo:hi]
+        m = torch.clamp(part.amax(dim=-1), min=NEG_INF) if hi > lo else torch.full(
+            logits.shape[:-1], NEG_INF, device=dev)
+        e = torch.exp(part - m[..., None])
+        ms.append(m)
+        ls.append(e.sum(dim=-1))
+        accs.append(torch.einsum("bhrt,bhtd->bhrd", e.to(pv.dtype).float(),
+                                 vals[:, :, lo:hi].float()))
+    m_all = torch.stack(ms).amax(dim=0)
+    w = [torch.exp(m - m_all) for m in ms]
+    denom = sum(wi * li for wi, li in zip(w, ls))
+    out = sum(wi[..., None] * ai for wi, ai in zip(w, accs)) / denom[..., None]
+    out = out.reshape(B, Hkv, K, G, D).permute(0, 2, 1, 3, 4).to(q.dtype)
+    return out.reshape(BK, 1, Hq, D)
+
+
 @functools.lru_cache(maxsize=1)
 def _launcher():
     """The kernel's C entry point, built and typed once per process."""
@@ -103,6 +179,8 @@ def _launch(q, pk, pv, gk, gv, k_cur, v_cur, prefix_bias, anc, step, num_beams):
         raise ValueError(f"head_dim {D}: the kernel takes 64 or 128")
     if not 1 <= G <= 32:
         raise ValueError(f"GQA group {G}: the kernel takes 1..32 q-heads per kv head")
+    if K > 64:
+        raise ValueError(f"num_beams {K}: the kernel takes at most 64 (one 64-bit beam mask a key)")
     if not 0 <= step <= N:
         raise ValueError(f"step {step} outside [0, {N}]")
     bf16 = torch.bfloat16
@@ -118,14 +196,16 @@ def _launch(q, pk, pv, gk, gv, k_cur, v_cur, prefix_bias, anc, step, num_beams):
     devices = {t.device for t in (q, pk, pv, gk, gv, k_cur, v_cur, prefix_bias, anc)}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
+    dev = q.device
 
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):  # the launch goes to the current device
+    splits = _splits(B, Hkv, K * G, P, K, step, sm_count(dev))
+    with torch.cuda.device(dev):  # the launch goes to the current device
         rc = _launcher()(
             q.data_ptr(), pk.data_ptr(), pv.data_ptr(), gk.data_ptr(), gv.data_ptr(),
             k_cur.data_ptr(), v_cur.data_ptr(), prefix_bias.data_ptr(), anc.data_ptr(),
-            out.data_ptr(), B, K, G, Hkv, P, N, D, int(step), float(D ** -0.5),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), B, K, G, Hkv, P, N, D, int(step), float(D ** -0.5), splits,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"beam_attention kernel launch failed: CUDA error {rc}")
     beam_decode_attention.launches += 1

@@ -8,8 +8,9 @@ chooses them (here an argument, `use_kernel`, off by default):
   - `conv2d_fused` (B7): operands rounded to bf16, an f32 accumulator and
     the epilogue in f32 before one store in x's dtype, with no rounding of
     the conv result in between. A CPU tensor takes the plain version
-    `conv2d_fused_plain`; a CUDA tensor launches the hand-written kernel
-    in `csrc/conv_block.cu` or raises. `FusedConv` is its autograd
+    `conv2d_fused_plain`; a CUDA tensor launches one of the two
+    hand-written kernels in `csrc/conv_block.cu`, the one `conv_plan`
+    picks from the shape, or raises. `FusedConv` is its autograd
     function: the backward recomputes through `reference_conv`, as the
     JAX `custom_vjp` does (the TPU kernel has no backward either).
 """
@@ -18,12 +19,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels import check, load
+from ..kernels import check, load, sm_count
 
 
 def bn_fold(p: Dict[str, torch.Tensor], eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -94,7 +96,51 @@ def conv2d_fused_plain(
     return _epilogue(y, scale, bias, prelu_a, residual).to(x.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+class ConvPlan(NamedTuple):
+    """The kernel of `csrc/conv_block.cu` that a shape takes, and its tile."""
+
+    kernel: str  # "wgmma" (conv_wgmma_kernel) or "mma" (conv_kernel)
+    bm: int  # accumulator rows (output pixels) per tile
+    bn: int  # output channels per tile
+    tf: int = 0  # wgmma: frames per tile
+    th: int = 0  # wgmma: output rows per tile (all Ho when tf > 1)
+
+
+def conv_plan(frames: int, Ho: int, Wo: int, Cin: int, Cout: int, stride: int,
+              sms: int) -> ConvPlan:
+    """The kernel and tile for a conv of `frames` frames of Ho x Wo
+    outputs, Cin -> Cout channels, on a card of `sms` SMs.
+
+    The wgmma kernel takes one tap x 64 channels per K step, so it needs
+    Cin % 64 == 0, Cout in whole tiles of 64 or 128 columns, and a tile of
+    whole output rows (TMA loads a tap's box of tf frames x th rows x Wo
+    columns): Wo <= 192 and at most 256 input columns or rows a box. Every
+    other shape (Cin 16 or 24, Cout 40) takes the mma.sync kernel. A tile
+    holds whole frames where a frame fits its rows, else whole rows of one
+    frame. Of 128 and 192 rows (two or three consumer warpgroups), the one
+    that leaves an SM fewer tile rows over the rounds of the persistent
+    schedule, 192 on a tie (three warpgroups share each weight tile)."""
+    if Cin % 64 or Cout % 64:
+        return ConvPlan("mma", 128, 64)
+    bn = 128 if Cout % 128 == 0 else 64
+    best = None
+    for bm in (192, 128):
+        if Wo > bm or stride * Wo > 256:
+            continue
+        if Ho * Wo <= bm:
+            tf, th = min(frames, bm // (Ho * Wo)), Ho
+        else:
+            tf, th = 1, min(Ho, bm // Wo)
+        if stride * th > 256 or tf > 256:
+            continue
+        tiles = math.ceil(frames / tf) * math.ceil(Ho / th) * (Cout // bn)
+        cost = math.ceil(tiles / sms) * bm
+        if best is None or cost < best[0]:
+            best = (cost, ConvPlan("wgmma", bm, bn, tf, th))
+    return best[1] if best else ConvPlan("mma", 128, 64)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 _AFFINE, _ACT, _RESIDUAL, _RESIDUAL_F32, _OUT_F32 = 1, 2, 4, 8, 16
 
 
@@ -149,12 +195,14 @@ def _launch(x, w, stride, pad, scale, bias, prelu_a, residual) -> torch.Tensor:
     out = torch.empty((Fr, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
     if x.dtype == torch.float32:
         flags |= _OUT_F32
+    plan = conv_plan(Fr, Ho, Wo, Cin, Cout, stride, sm_count(x.device))
+    tile = plan[1:] if plan.kernel == "wgmma" else (0, 0, 0, 0)
     with torch.cuda.device(x.device):
         rc = _launcher()(xb.data_ptr(), wb.data_ptr(), *ptrs, res_ptr, out.data_ptr(),
-                         Fr, H, W, Cin, Cout, kh, kw, stride, pad, flags,
+                         Fr, H, W, Cin, Cout, kh, kw, stride, pad, flags, *tile,
                          torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"conv_block kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"conv_block kernel ({plan.kernel}) launch failed: CUDA error {rc}")
     return out
 
 

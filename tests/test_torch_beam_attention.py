@@ -112,3 +112,68 @@ def test_bf16_plain_follows_the_kernel_casts():
     out = beam_decode_attention_plain(**tb, step=17, num_beams=15)
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=5e-2, rtol=5e-2)
+
+
+# The kernel's schedule: the key list [prefix | generated | current] in
+# 64-key tiles, split into contiguous runs whose partial softmaxes are
+# merged (`beam_decode_attention_split`), held to the plain version in f32
+# at 1e-5 (only the order of the sums differs). Cases: (B, K, G, Hkv, D, P,
+# N, step, masked prefix range): serving-like K 15 at a middle step; K 1
+# at step 0 (the current token is the only generated key); step N; and a
+# prefix whose keys 64..127 are all masked, so that with 3 splits the
+# middle run holds only masked keys.
+SPLIT_CASES = [
+    (2, 15, 4, 2, 16, 176, 32, 17, None),
+    (1, 1, 4, 2, 16, 130, 8, 0, None),
+    (1, 5, 2, 2, 16, 40, 8, 8, None),
+    (1, 3, 2, 2, 16, 128, 8, 0, (64, 128)),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("splits", [1, 2, 3, "planned"])
+def test_split_schedule_matches_plain(case, splits):
+    from omni_avsr_tpu_torch.ops.beam_attention import beam_decode_attention_split, plan_splits
+
+    B, K, G, Hkv, D, P, N, step, masked = case
+    c, _ = _case(B, K, G * Hkv, Hkv, D, P, N, seed=7 + step)
+    if masked is not None:
+        c["prefix_bias"][:, masked[0]:masked[1]] = NEG_INF
+    t = {k: torch.from_numpy(v) for k, v in c.items()}
+    if splits == "planned":
+        splits = plan_splits(B, Hkv, K * G, P, K, step, sms=132)
+    ref = beam_decode_attention_plain(**t, step=step, num_beams=K)
+    out = beam_decode_attention_split(**t, step=step, num_beams=K, splits=splits)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_split_schedule_masked_run_is_all_masked():
+    """The masked case above really gives one run nothing but masked keys:
+    with 3 splits of 3 tiles, run 1 is keys 64..127, the masked prefix."""
+    from omni_avsr_tpu_torch.ops.beam_attention import KEY_TILE
+
+    B, K, G, Hkv, D, P, N, step, masked = SPLIT_CASES[3]
+    T = P + K * step + K
+    n = -(-T // KEY_TILE)
+    assert n == 3 and (1 * n // 3 * KEY_TILE, 2 * n // 3 * KEY_TILE) == masked
+
+
+# The split counts at the shapes chip_smoke.py times and checks (B, K, P,
+# step at Hq 32 / Hkv 8, 132 SMs): as many splits as 64-key tiles, up to 8,
+# fewer once B * Hkv * chunks alone puts two blocks on every SM.
+@pytest.mark.parametrize("B,K,P,step,splits", [
+    (3, 15, 176, 17, 7),   # serving, timed: 176 + 255 + 15 keys = 7 tiles
+    (3, 15, 400, 17, 8),   # (a)'s prefix, timed: 11 tiles, capped at 8
+    (3, 1, 176, 17, 4),    # greedy, timed: 194 keys = 4 tiles
+    (1, 15, 176, 0, 3),    # step 0: 191 keys
+    (4, 15, 176, 31, 8),   # step 31: 656 keys
+    (1, 1, 176, 31, 4),    # B 1, K 1: 8 blocks alone, the widest split of its tiles
+    (40, 15, 176, 17, 1),  # 320 units of 64 rows already fill the card twice
+])
+def test_plan_splits(B, K, P, step, splits):
+    from omni_avsr_tpu_torch.ops.beam_attention import KEY_TILE, MAX_SPLITS, plan_splits
+
+    got = plan_splits(B, 8, K * 4, P, K, step, sms=132)
+    assert got == splits
+    tiles = -(-(P + K * step + K) // KEY_TILE)
+    assert 1 <= got <= min(MAX_SPLITS, tiles)  # every block of a cluster has a tile

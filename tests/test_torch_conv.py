@@ -172,3 +172,66 @@ def test_resnet3d_conv_kernel_matches_jax(monkeypatch, train_mode):
     assert ours.shape == ref.shape == (2, 4, 512)
     assert np.isfinite(ours).all()
     assert np.linalg.norm(ours - ref) <= 1e-2 * np.linalg.norm(ref)
+
+
+# B7's plan: which kernel of csrc/conv_block.cu, and which tile, each shape
+# takes (132 SMs). The trunk's 13 geometries at 480 frames (22x22x64 after
+# the stem): every one on the wgmma kernel, on tiles of whole output rows
+# (layer1: 8 of its 22 rows, 176 of 192 tile rows) or whole frames (layer2:
+# one 11x11 frame in 128 rows; layer3: five 6x6 frames in 192; layer4: 21
+# 3x3 frames in 192), 64 columns at Cout 64.
+TRUNK_PLANS = [
+    # label, H, Cin, Cout, k, stride, pad, (kernel, bm, bn, tf, th)
+    ("layer1 conv1/conv2", 22, 64, 64, 3, 1, 1, ("wgmma", 192, 64, 1, 8)),
+    ("layer2 b0 conv1 s2", 22, 64, 128, 3, 2, 1, ("wgmma", 128, 128, 1, 11)),
+    ("layer2 downsample", 22, 64, 128, 1, 2, 0, ("wgmma", 128, 128, 1, 11)),
+    ("layer2 conv2/b1 conv1", 11, 128, 128, 3, 1, 1, ("wgmma", 128, 128, 1, 11)),
+    ("layer3 b0 conv1 s2", 11, 128, 256, 3, 2, 1, ("wgmma", 192, 128, 5, 6)),
+    ("layer3 downsample", 11, 128, 256, 1, 2, 0, ("wgmma", 192, 128, 5, 6)),
+    ("layer3 conv2/b1 conv1", 6, 256, 256, 3, 1, 1, ("wgmma", 192, 128, 5, 6)),
+    ("layer4 b0 conv1 s2", 6, 256, 512, 3, 2, 1, ("wgmma", 192, 128, 21, 3)),
+    ("layer4 downsample", 6, 256, 512, 1, 2, 0, ("wgmma", 192, 128, 21, 3)),
+    ("layer4 conv2/b1 conv1", 3, 512, 512, 3, 1, 1, ("wgmma", 192, 128, 21, 3)),
+]
+
+
+def _takes(plan, F, Ho, Wo, Cin, Cout, stride):
+    """What the C launcher accepts for the plan (conv_block_launch)."""
+    if plan.kernel == "mma":
+        return Cin % 8 == 0 and Cout % 8 == 0
+    return (Cin % 64 == 0 and Cout % plan.bn == 0 and plan.bm in (128, 192)
+            and plan.bn in (64, 128) and plan.tf >= 1 and plan.th >= 1
+            and plan.tf * plan.th * Wo <= plan.bm and (plan.tf == 1 or plan.th == Ho)
+            and stride * Wo <= 256 and stride * plan.th <= 256 and plan.tf <= min(F, 256))
+
+
+@pytest.mark.parametrize("case", TRUNK_PLANS, ids=[c[0] for c in TRUNK_PLANS])
+def test_conv_plan_trunk(case):
+    from omni_avsr_tpu_torch.ops.conv_block import conv_plan
+
+    _, H, Cin, Cout, k, stride, pad, want = case
+    Ho = (H + 2 * pad - k) // stride + 1
+    plan = conv_plan(480, Ho, Ho, Cin, Cout, stride, sms=132)
+    assert tuple(plan) == want
+    assert _takes(plan, 480, Ho, Ho, Cin, Cout, stride)
+
+
+# The card tests' shapes (tests/test_torch_cuda.py): Cin 16 / 24 or Cout 40
+# take the mma.sync kernel; a ragged M (37 frames) and the f32-x cases with
+# Cin 64 the wgmma kernel (x is rounded to bf16 before either kernel); an
+# output row wider than 192 pixels the mma.sync kernel.
+@pytest.mark.parametrize("F,H,W,Cin,Cout,k,stride,pad,kernel", [
+    (5, 7, 7, 24, 40, 3, 2, 1, "mma"),        # f32 x, Cin 24, Cout 40
+    (3, 6, 6, 16, 32, 1, 1, 0, "mma"),        # f32 x and residual, Cin 16
+    (37, 11, 11, 128, 128, 3, 1, 1, "wgmma"),  # raw train conv, ragged M
+    (7, 5, 5, 64, 128, 3, 1, 1, "wgmma"),     # f32 x and residual, Cin 64
+    (2, 5, 5, 64, 40, 3, 1, 1, "mma"),        # Cout not a multiple of 64
+    (2, 4, 200, 64, 64, 3, 1, 1, "mma"),      # Wo 200 > 192
+])
+def test_conv_plan_card_shapes(F, H, W, Cin, Cout, k, stride, pad, kernel):
+    from omni_avsr_tpu_torch.ops.conv_block import conv_plan
+
+    Ho, Wo = (H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1
+    plan = conv_plan(F, Ho, Wo, Cin, Cout, stride, sms=132)
+    assert plan.kernel == kernel
+    assert _takes(plan, F, Ho, Wo, Cin, Cout, stride)

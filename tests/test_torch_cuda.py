@@ -48,6 +48,12 @@ def _beam_case(B, K, Hq, Hkv, D, P, N, device, seed):
     (4, 15, 32, 8, 64, 176, 32, 31),   # last slot
     (2, 1, 8, 4, 128, 40, 8, 5),       # K 1, head dim 128, P not a multiple of 32
     (1, 5, 8, 8, 64, 16, 16, 16),      # MHA, step == N
+    (3, 15, 32, 8, 64, 400, 32, 17),   # the 30 s window's prefix: 8 key splits
+    (2, 15, 32, 8, 64, 130, 32, 9),    # P not a multiple of the 64-key tile
+    (1, 1, 32, 8, 64, 176, 32, 31),    # B 1, K 1: 8 blocks, the widest split of 4 tiles
+    (1, 15, 8, 8, 64, 176, 32, 0),     # G 1, step 0: only the current token generated
+    (2, 4, 64, 8, 128, 96, 16, 16),    # G 8, head dim 128, step == N
+    (1, 4, 256, 8, 64, 64, 8, 5),      # G 32: 128 query rows, two chunks of 64
 ])
 def test_beam_attention_kernel_matches_plain(cuda_device, B, K, Hq, Hkv, D, P, N, step):
     """bf16 in and out; the kernel keeps the probabilities in f32 where the
@@ -253,7 +259,9 @@ def test_flash_attention_kernel_matches_plain(cuda_device, B, T, S, Hq, Hkv, D, 
 def test_beam_attention_kernel_one_beam(cuda_device, B, P, step):
     inp = _beam_case(B, 1, 32, 8, 64, P, 32, cuda_device, seed=P + step)
     inp["anc"].zero_()  # greedy: row 0 at every slot
+    before = beam_decode_attention.launches
     out = beam_decode_attention(**inp, step=step, num_beams=1)
+    assert beam_decode_attention.launches == before + 1
     ref = beam_decode_attention_plain(**inp, step=step, num_beams=1)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
@@ -372,10 +380,27 @@ def test_row_stats_rejects_bad_input(cuda_device):
     (37, 11, 128, 128, 3, 1, 1, False, False, False, False),  # raw train conv, ragged M
     (5, 7, 24, 40, 3, 2, 1, True, True, False, True),       # f32 x, Cin 24, Cout 40
     (3, 6, 16, 32, 1, 1, 0, True, False, True, True),       # f32 x and residual
+    # the rest of the trunk's 13 geometries at 480 frames
+    (480, 22, 64, 64, 3, 1, 1, True, True, False, False),   # layer1 conv1
+    (480, 11, 128, 128, 3, 1, 1, True, True, True, False),  # layer2 conv2
+    (480, 11, 128, 128, 3, 1, 1, True, True, False, False),  # layer2 b1 conv1
+    (480, 11, 128, 256, 3, 2, 1, True, True, False, False),  # layer3 b0 conv1 s2
+    (480, 11, 128, 256, 1, 2, 0, True, False, False, False),  # layer3 downsample
+    (480, 6, 256, 256, 3, 1, 1, True, True, True, False),   # layer3 conv2
+    (480, 6, 256, 256, 3, 1, 1, True, True, False, False),  # layer3 b1 conv1
+    (480, 6, 256, 512, 3, 2, 1, True, True, False, False),  # layer4 b0 conv1 s2
+    (480, 6, 256, 512, 1, 2, 0, True, False, False, False),  # layer4 downsample
+    (480, 3, 512, 512, 3, 1, 1, True, True, False, False),  # layer4 b1 conv1
+    (7, 5, 64, 128, 3, 1, 1, True, True, True, True),       # wgmma with f32 x and residual
 ])
 def test_conv_block_kernel_matches_plain(cuda_device, F, H, Cin, Cout, k, stride, pad, affine,
                                          act, res, x_f32):
-    from omni_avsr_tpu_torch.ops.conv_block import FusedConv, conv2d_fused, conv2d_fused_plain
+    from omni_avsr_tpu_torch.ops.conv_block import (
+        FusedConv,
+        conv2d_fused,
+        conv2d_fused_plain,
+        conv_plan,
+    )
 
     g = torch.Generator(device=cuda_device).manual_seed(F + H + Cin + Cout + k)
     dt = torch.float32 if x_f32 else torch.bfloat16
@@ -387,6 +412,11 @@ def test_conv_block_kernel_matches_plain(cuda_device, F, H, Cin, Cout, k, stride
     bias = torch.randn(Cout, generator=g, device=cuda_device) * 0.1 if affine else None
     a = torch.rand(Cout, generator=g, device=cuda_device) * 0.25 if act else None
     r = torch.randn(F, Ho, Ho, Cout, generator=g, device=cuda_device).to(dt) if res else None
+    # Cin % 64 == 0 (and Cout % 64 == 0) takes the wgmma kernel, the rest
+    # the mma.sync one
+    plan = conv_plan(F, Ho, Ho, Cin, Cout, stride,
+                     torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.kernel == ("wgmma" if Cin % 64 == 0 and Cout % 64 == 0 else "mma")
     before = conv2d_fused.launches
     out = conv2d_fused(x, w, stride, pad, scale, bias, a, r)
     assert conv2d_fused.launches == before + 1
