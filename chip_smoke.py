@@ -13,14 +13,15 @@ Phases, each printing lines with the elapsed seconds:
      serving and training paths give it, with its time, the plain
      version's, a PyTorch library call's and the card's lower bound for
      the same work: B1 beam-decode attention (at the 6.4 s prefix and at
-     the prefix of the 30 s-window requests below, with 15 beams and with
-     the one beam of greedy decoding; each timed case with its host time
+     the prefix of the 30 s-window requests below, with 15 beams, with
+     the one beam of greedy decoding, and with 65 and 128 beams, more than
+     one 64-bit live-beam mask word; each timed case with its host time
      per call and the key splits `plan_splits` gave it), B3 flash attention (timed at
      Whisper's 30 s window at B 1 and B 3, AV-HuBERT at T 384 with the
      lengths of (a), the training LLM's causal GQA shape with lse and
      AV-HuBERT's training shape with lengths, dropout and lse, each beside
-     SDPA and the kernels SDPA ran; and causal /
-     key-length / GQA / D 128 / lse / dropout cases), B4 flash backward
+     SDPA and the kernels SDPA ran; and causal / key-length / GQA /
+     D 128 / lse / dropout / scale 0 and -0.125 cases), B4 flash backward
      (AV-HuBERT's training shape with
      key lengths and dropout 0.1, the LLM's causal GQA shape; three calls
      under the profiler must run its two kernels and nothing else), B2 and
@@ -28,7 +29,8 @@ Phases, each printing lines with the elapsed seconds:
      f32 logits, a tower matrix; in the card layouts of
      `arrange_for_card`), B5 the
      beam-selection row statistics (45
-     rows of Llama-3's 128256-token vocabulary, and 8 and 13 rows), B7 the
+     rows of Llama-3's 128256-token vocabulary, and 8, 13 and 480 rows;
+     one launch each, with the grid `row_plan` gave it), B7 the
      fused ResNet conv (each of the trunk's conv geometries and epilogues
      at 480 frames with its TFLOP/s and the kernel and tile `conv_plan`
      chose, summed over the 19 convs of one trunk);
@@ -40,7 +42,9 @@ Phases, each printing lines with the elapsed seconds:
            and 10.4 s (300, 280, 260 frames);
        (b) the bucketed window, int8: 3 requests of 6.4 s (160 frames);
        (c) the bucketed window, packed int4 LLM and int8 towers: as (b);
-     and (b) once more with greedy decoding (`num_beams=1`, B1 at K = 1);
+     and (b) once more with greedy decoding (`num_beams=1`, B1 at K = 1),
+     and (b)'s first two requests at 65 beams (one warm and one measured
+     batch);
      then, with the earlier trees freed,
        (d) (b) with the LLM at Llama-3's base vocabulary of 128256 and both
            opt-in kernel routes on (`select_kernel=True`: B5 once per beam
@@ -319,6 +323,10 @@ def check_b3(flush):
          dict(causal=True, return_lse=True), False),
         ("dropout 0.1 lse lengths", 2, 300, 300, 16, 16, 64,
          dict(dropout_rate=0.1, dropout_seed=seed, return_lse=True, kv_lengths=(300, 201)), False),
+        ("scale 0 lse lengths", 2, 300, 300, 16, 16, 64,
+         dict(scale=0.0, return_lse=True, kv_lengths=(300, 201)), False),
+        ("scale -0.125 causal lse lengths", 2, 300, 300, 16, 16, 64,
+         dict(scale=-0.125, causal=True, return_lse=True, kv_lengths=(300, 201)), False),
     ]
     max_err, main_row, timed_rows = 0.0, None, []
     for name, B, T, S, Hq, Hkv, Dh, opts, timed in cases:
@@ -344,7 +352,7 @@ def check_b3(flush):
         max_err = max(max_err, err)
         row = dict(case=name, B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, D=Dh, causal=bool(opts.get("causal")),
                    kv_lengths=list(lens) if lens else None, dropout=opts.get("dropout_rate", 0.0),
-                   lse=bool(opts.get("return_lse")), max_abs_err=err)
+                   lse=bool(opts.get("return_lse")), scale=opts.get("scale"), max_abs_err=err)
         if timed:
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             mask = None
@@ -456,7 +464,7 @@ def check_b4(flush):
         # the wrapper allocates and launches its two kernels, and runs no other
         # op: three warm calls under the profiler show those two names alone
         acts = device_activities(lambda: [flash_attention_bwd(q, k, v, o, do, lse, **kw)
-                                          for _ in range(3)])
+                                          for _ in range(3)], least=6)
         by_name: dict = {}
         for n, us in acts:
             by_name.setdefault((re.search(r"(\w+)<", n) or re.search(r"(\w+)\(", n)).group(1),
@@ -631,7 +639,9 @@ def qmm_per_batch(flush, label: str, shapes, vocab: int, llm_dims, bits: int = 8
 
 VOCAB_D = 128256  # Llama-3's base vocabulary: configuration (d)
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
-B5_ROWS = (B_SERVE * K, 8, 13)  # (d)'s 3 x 15 beams first (timed), 8 rows, a row count not a multiple of 8
+# (d)'s 3 x 15 beams first (timed), 8 rows, a row count not a multiple of 8,
+# and 32 x 15 beams, the shape of the JAX package's selection benchmark
+B5_ROWS = (B_SERVE * K, 8, 13, 480)
 
 
 def b5_agreement(x):
@@ -658,7 +668,12 @@ def check_b5(flush):
     the statistics written once."""
     import torch
 
-    from omni_avsr_tpu_torch.ops.select_topk import row_stats_chunkmax, row_stats_chunkmax_plain
+    from omni_avsr_tpu_torch import kernels
+    from omni_avsr_tpu_torch.ops.select_topk import (
+        row_plan,
+        row_stats_chunkmax,
+        row_stats_chunkmax_plain,
+    )
 
     max_err, timed = 0.0, None
     for R in B5_ROWS:
@@ -677,7 +692,8 @@ def check_b5(flush):
                      library_ms=time_ms(lambda: torch.logsumexp(x, dim=-1), flush),
                      library_call="torch.logsumexp (the normaliser only)",
                      bound_ms=max(t_bytes, t_ops) * 1e3,
-                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     parts_per=row_plan(R, C, kernels.sm_count(torch.device(DEV))))
     timed["max_abs_err"] = max_err
     log("B5", f"kernel vs plain at R {list(B5_ROWS)} x V {VOCAB_D}: maxima bit-equal, normaliser "
         f"within rtol 1e-5, max_abs_err {max_err:.3g}; timed: {json.dumps(timed)}")
@@ -1232,18 +1248,28 @@ def train_phase():
     return row, agree, conv_row
 
 
-def device_activities(run):
+def device_activities(run, least: int = 1, attempts: int = 3):
     """(name, device us) of each device activity that one call of `run`
-    starts, from torch.profiler."""
+    starts, from torch.profiler. The profiler at times drops a capture's
+    device records on the H100 machine (none, or one kernel of two, while
+    the wrappers' counters show the launches), so a capture of fewer than
+    `least` activities is taken again, with a new call, up to `attempts`
+    times; the last capture is returned whatever it holds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        acts = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(acts) >= least:
+            break
+        log("profile", f"the profiler recorded {len(acts)} device activities of at least "
+            f"{least}: captured again")
+    return acts
 
 
 def profile_batch(label: str, run) -> None:
@@ -1323,6 +1349,8 @@ def main() -> int:
     b1 = check_b1(flush, P_BUCKET)
     b1_a = check_b1(flush, P_a, batches=(B_SERVE,))  # the prefix configuration (a) serves
     b1_greedy = check_b1(flush, P_BUCKET, batches=(1, B_SERVE), K=1)  # greedy decoding
+    b1_k65 = check_b1(flush, P_BUCKET, batches=(1, B_SERVE), K=65)  # past one 64-bit mask word
+    b1_k128 = check_b1(flush, P_BUCKET, batches=(1, B_SERVE), K=128)
     b3, b3_rows = check_b3(flush)
     b4_rows = check_b4(flush)
     vocab = model_a.cfg.llm.vocab_size
@@ -1359,6 +1387,10 @@ def main() -> int:
         "greedy": serve("(b) bucket int8 greedy", server_b, items_b, lambda s: counts(
             B1=layers_llm * s, B2=tower_b2 + llm_mats * (1 + s)), repeats=3, num_beams=1),
     }
+
+    # more beams than one 64-bit live-beam mask word of B1: two requests
+    rows["b65"] = serve("(b) bucket int8 65 beams", server_b, items_b[:2], lambda s: counts(
+        B1=layers_llm * s, B2=tower_b2 + llm_mats * (1 + s)), repeats=1, num_beams=65)
 
     for label, server in (("int8 (B1, B2)", server_b), ("int4 (B1, B6)", server_c)):
         rel = decode_agreement(server, items_b[0])
@@ -1432,8 +1464,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {**entry("B1", "beam_decode_attention", "omni_avsr_tpu_torch/csrc/beam_attention.cu",
                  "omni_avsr_tpu/ops/beam_attention.py:51", b1, "b",
-                 "per launch: B 3 x 15 beams, P 176, step 17; cases: the three timed shapes"),
-         "cases": [b1, b1_a, b1_greedy]},
+                 "per launch: B 3 x 15 beams, P 176, step 17; cases: the timed shapes (K 15 "
+                 "at P 176 and 400, K 1, K 65, K 128)"),
+         "cases": [b1, b1_a, b1_greedy, b1_k65, b1_k128]},
         {**entry("B2", "quantized_matmul", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
                  "omni_avsr_tpu/ops/quant.py:54", b2, "b",
                  "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head; tower_ms and "

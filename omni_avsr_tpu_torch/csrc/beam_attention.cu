@@ -31,7 +31,10 @@
 // so that B * Hkv * S blocks fill the card also at K 1 and B 1. Each block
 // stages its tiles in shared memory with cp.async (double-buffered; a tile
 // of the prefix is read once for all K * G rows; the tile's keys carry a
-// 64-bit mask of the beams they are live for, so a mask costs one shift),
+// 64-bit mask of the beams they are live for, so a mask costs one shift:
+// 64 consecutive query rows belong to at most 64 beams, so bit k of a
+// block's masks stands for beam `beam_lo + k`, the chunk's first beam plus
+// k, and one word serves any K),
 // keeps an online softmax per row, and leaves its partial (max, sum, acc)
 // in shared memory; after a cluster barrier each block merges a 1/S share
 // of the rows, reading the S partials through distributed shared memory in
@@ -56,11 +59,14 @@ constexpr int kRows = 64;     // query rows per block: 4 warps of 16
 constexpr int kKeys = 64;     // keys per tile
 constexpr int kThreads = 128;
 constexpr int kMaxSplits = 8;  // the portable cluster size
-// Key codes: the prefix (live, with its bias), a generated entry (n << 8 |
-// r: live iff anc[b, beam, n] == r), a current token (-2 - beam: live for
-// that beam only), past the key list (never live).
+// Key codes: the prefix (live, with its bias), a generated entry (r << 16 |
+// n, r < 2^15 and n < 2^16: live iff anc[b, beam, n] == r), a current token
+// (-2 - beam: live for that beam only), past the key list (never live).
 constexpr int kPrefix = -1;
 constexpr int kNone = INT32_MIN;
+constexpr int kMaxBeams = 1 << 15;
+constexpr int kMaxSlots = 1 << 16;
+constexpr size_t kMaxSmem = 232448;  // the opt-in limit of a block on sm_90
 
 template <int D>
 struct Cfg {
@@ -134,7 +140,7 @@ __device__ __forceinline__ void load_tile(const Args& a, int b, int h, int tile,
       const size_t off = ((bh * a.K + r) * a.N + n) * D;
       krow = a.gk + off;
       vrow = a.gv + off;
-      kcode = (n << 8) | r;
+      kcode = (r << 16) | n;
     } else if (j < T) {
       const int beam = j - gen_end;
       const size_t off = (((size_t)b * a.K + beam) * a.Hkv + h) * D;
@@ -188,19 +194,24 @@ __global__ void __launch_bounds__(kThreads) beam_attention_kernel(const Args a) 
     cp_async4(anc_s + k * (a.N + 1) + i - k * a.N, a.anc + (size_t)b * a.K * a.N + i);
   }
   port::cp_async_commit();
+  // the chunk's beams, once the copies are out (its two divisions ahead of
+  // them delayed every tile)
+  const int beam_lo = row_base / a.G;                   // bit k of a mask: beam beam_lo + k
+  const int n_beams = (row_base + rows - 1) / a.G - beam_lo + 1;  // at most kRows
 
   // This thread's two query rows (warp's 16: g8 and g8 + 8): q as mma A
-  // fragments for the whole launch, their beams for the masks.
+  // fragments for the whole launch, their beams' bits for the masks.
   const bool warp_live = warp * 16 < rows;
   uint32_t qa[D / 16][4];
-  int beam[2];
+  int bit[2];
   size_t q_off[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = row_base + warp * 16 + g8 + 8 * r;
     const bool ok = i < R;
-    beam[r] = ok ? i / a.G : 0;
-    q_off[r] = ok ? (((size_t)b * a.K + beam[r]) * Hq + (size_t)h * a.G + i % a.G) * D : 0;
+    const int bm = ok ? i / a.G : beam_lo;
+    bit[r] = bm - beam_lo;
+    q_off[r] = ok ? (((size_t)b * a.K + bm) * Hq + (size_t)h * a.G + i % a.G) * D : 0;
   }
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -232,18 +243,21 @@ __global__ void __launch_bounds__(kThreads) beam_attention_kernel(const Args a) 
       port::cp_async_wait<0>();
     }
     __syncthreads();  // tile t and its codes are in shared memory
-    // each key's beams: bit k set iff the key is live for query beam k
+    // each key's beams: bit k set iff the key is live for query beam
+    // beam_lo + k
     if (tid < kKeys) {
       const int c = codes[st * kKeys + tid];
       uint64_t bits = 0;
       if (c == kPrefix) {
         bits = ~0ull;
       } else if (c >= 0) {
-        const int n = c >> 8, r = c & 255;
+        const int n = c & (kMaxSlots - 1), r = c >> 16;
 #pragma unroll 4
-        for (int k = 0; k < a.K; ++k) bits |= (uint64_t)(anc_s[k * (a.N + 1) + n] == r) << k;
+        for (int k = 0; k < n_beams; ++k)
+          bits |= (uint64_t)(anc_s[(beam_lo + k) * (a.N + 1) + n] == r) << k;
       } else if (c != kNone) {
-        bits = 1ull << (-2 - c);
+        const unsigned k = (unsigned)(-2 - c - beam_lo);
+        bits = k < 64u ? 1ull << k : 0ull;
       }
       beams[tid] = bits;
     }
@@ -278,7 +292,7 @@ __global__ void __launch_bounds__(kThreads) beam_attention_kernel(const Args a) 
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = nt * 8 + 2 * t4 + (e & 1);
-          const bool live = (beams[key] >> beam[e >> 1]) & 1;
+          const bool live = (beams[key] >> bit[e >> 1]) & 1;
           s[nt][e] = live ? fmaf(s[nt][e], a.scale, bias[key]) * kLog2e : kMasked;
           mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
         }
@@ -392,7 +406,7 @@ template <int D>
 int launch(const Args& a, int B, int splits, cudaStream_t stream) {
   using C = Cfg<D>;
   const size_t smem = C::smem(a.K, a.N);
-  if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   // the shared-memory limit is raised once on each device of the process
   constexpr int kMaxDevices = 64;
   static size_t smem_set[kMaxDevices] = {};
@@ -407,6 +421,7 @@ int launch(const Args& a, int B, int splits, cudaStream_t stream) {
     smem_set[dev] = smem;
   }
   const int chunks = (a.K * a.G + kRows - 1) / kRows;
+  if ((long long)a.Hkv * chunks > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, a.Hkv * chunks, B);
   cfg.blockDim = dim3(kThreads);
@@ -429,15 +444,16 @@ int launch(const Args& a, int B, int splits, cudaStream_t stream) {
 // q (B*K, Hq, D), pk and pv (B, Hkv, P, D), gk and gv (B, Hkv, K, N, D),
 // k_cur and v_cur (B*K, Hkv, D) bf16 contiguous and 16-byte aligned,
 // prefix_bias (B, P) f32, anc (B, K, N) int32 -> out like q. The key list
-// is split over `splits` (1..8) blocks of a cluster. K is at most 64 (a
-// key's live beams are one 64-bit mask).
+// is split over `splits` (1..8) blocks of a cluster. K < 2^15 and N < 2^16
+// (a generated key's code), and the ancestor table, K x (N + 1) ints, fits
+// the block's shared memory beside the stages (`Cfg::smem`).
 extern "C" int beam_attention_launch(
     const void* q, const void* pk, const void* pv, const void* gk,
     const void* gv, const void* kc, const void* vc, const void* prefix_bias,
     const void* anc, void* out, int B, int K, int G, int Hkv, int P, int N,
     int D, int step, float scale, int splits, void* stream) {
-  if (B <= 0 || K <= 0 || K > 64 || G <= 0 || Hkv <= 0 || P < 0 || N <= 0 || step < 0 ||
-      step > N || splits < 1 || splits > kMaxSplits) {
+  if (B <= 0 || K <= 0 || K >= kMaxBeams || G <= 0 || Hkv <= 0 || P < 0 || N <= 0 ||
+      N >= kMaxSlots || step < 0 || step > N || splits < 1 || splits > kMaxSplits) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(pk),

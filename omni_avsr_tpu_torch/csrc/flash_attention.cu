@@ -48,7 +48,9 @@
 // The key loop ends at the key length and, when causal, at the tile's last
 // query, so fully masked tiles are skipped; the mask is applied only on
 // tiles that cross the key length or the diagonal, without branches per
-// element. The max is taken on the raw logits, so the scale must be > 0.
+// element. Any finite scale: a scale of 0 or below runs a second
+// instantiation (`kAnyScale`) whose softmax scales the logits before the
+// max and the mask (`softmax_tile`).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -140,7 +142,7 @@ struct Rows {
   int t4;        // lane % 4
   int kv_limit;  // keys at or past it are masked
   int causal, dropout, S;
-  float sl2;     // scale * log2(e) > 0: logits in log2 units
+  float sl2;     // scale * log2(e): logits in log2 units
   uint32_t h_mix, seed;
   int32_t thresh;
   float keep_scale;
@@ -149,22 +151,27 @@ struct Rows {
 // Mask, online softmax and dropout of the key tile from key j0, in place
 // on s (raw logits in, P out); m and l are the rows' running max (scaled
 // logits, log2 units) and this thread's share of their sums; corr the
-// factor of the running sums. The max is taken on the raw logits (scale >
-// 0), and each element costs one FFMA and one ex2 beside the max and the
-// sum; the mask runs only on tiles that cross the key length or the
-// diagonal, without branches.
-template <int BKV>
+// factor of the running sums. For a positive scale the max is taken on
+// the raw logits and scaled after, and each element costs one FFMA and one
+// ex2 beside the max and the sum; the mask runs only on tiles that cross
+// the key length or the diagonal, without branches. kAnyScale (a scale of
+// 0 or below, a kernel of its own so that the positive path stays as it
+// is) scales every tile first and masks after: the max of raw logits is
+// the wrong one below 0, and a scale of 0 would turn a masked -inf into
+// NaN. The running max starts at -1e30, below every live scaled logit.
+template <int BKV, bool kAnyScale>
 __device__ __forceinline__ void softmax_tile(float (&s)[BKV / 2], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], int j0, const Rows& a) {
-  if (j0 + BKV > a.kv_limit || (a.causal && j0 + BKV - 1 > a.wg_row0)) {
+  if (kAnyScale || j0 + BKV > a.kv_limit || (a.causal && j0 + BKV - 1 > a.wg_row0)) {
 #pragma unroll
     for (int i = 0; i < BKV / 2; ++i) {  // s[i]: row row0 + 8 ((i >> 1) & 1), key below
       const int key = j0 + 8 * (i >> 2) + 2 * a.t4 + (i & 1);
       const int row = a.row0 + 8 * ((i >> 1) & 1);
       const bool masked = (key >= a.kv_limit) | (a.causal & (key > row));
-      s[i] = masked ? -INFINITY : s[i];
+      s[i] = masked ? -INFINITY : (kAnyScale ? s[i] * a.sl2 : s[i]);
     }
   }
+  const float mul = kAnyScale ? 1.f : a.sl2;  // the factor from s to log2 units
   // four independent chains per row for the max and the sum
   float mc[2][4];
 #pragma unroll
@@ -180,7 +187,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BKV / 2], float (&m)[2],
     mx[r] = fmaxf(fmaxf(mc[r][0], mc[r][1]), fmaxf(mc[r][2], mc[r][3]));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m[r], mx[r] * a.sl2);  // masked logits: -1e30 at most
+    const float m_new = fmaxf(m[r], mx[r] * mul);  // masked logits: -inf, m[r] stays
     corr[r] = ex2(m[r] - m_new);
     m[r] = m_new;
     neg_m[r] = -m_new;
@@ -191,7 +198,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BKV / 2], float (&m)[2],
 #pragma unroll
     for (int i = 0; i < BKV / 2; ++i) {
       const int r = (i >> 1) & 1;
-      const float p = ex2(fmaf(s[i], a.sl2, neg_m[r]));
+      const float p = ex2(fmaf(s[i], mul, neg_m[r]));
       lc[r][(i >> 2) & 3] += p;
       const int key = j0 + 8 * (i >> 2) + 2 * a.t4 + (i & 1);
       s[i] = port::keep_elem((uint32_t)(a.row0 + 8 * r), (uint32_t)key, (uint32_t)a.S, a.h_mix,
@@ -202,7 +209,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BKV / 2], float (&m)[2],
   } else {
 #pragma unroll
     for (int i = 0; i < BKV / 2; ++i) {
-      s[i] = ex2(fmaf(s[i], a.sl2, neg_m[(i >> 1) & 1]));
+      s[i] = ex2(fmaf(s[i], mul, neg_m[(i >> 1) & 1]));
       lc[(i >> 1) & 1][(i >> 2) & 3] += s[i];
     }
   }
@@ -244,7 +251,7 @@ __device__ __forceinline__ Work work_tile(int w, int n_qt, int BH, int T, int S,
   return t;
 }
 
-template <int D>
+template <int D, bool kAnyScale>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap q_map,  // q (B, T, Hq, D) as (D, Hq, T, B)
     const __grid_constant__ CUtensorMap k_map,  // k (B, S, Hkv, D) as (D, Hkv, S, B)
@@ -358,7 +365,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_fwd_kernel(
       port::wgmma_commit();
       port::wgmma_wait<0>();
       fence_regs(s);
-      softmax_tile<BKV>(s, m_r, l_r, corr, 0, rows);
+      softmax_tile<BKV, kAnyScale>(s, m_r, l_r, corr, 0, rows);
       p_to_a<BKV>(s, pa);
       for (int j = 1; j < t.n_tiles; ++j) {
         const int cur = (it + j) % STAGES, prev = (it + j - 1) % STAGES;
@@ -372,7 +379,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_fwd_kernel(
         port::wgmma_commit();
         port::wgmma_wait<1>();  // S of tile j landed; P v of tile j - 1 runs on
         fence_regs(s);
-        softmax_tile<BKV>(s, m_r, l_r, corr, j * BKV, rows);
+        softmax_tile<BKV, kAnyScale>(s, m_r, l_r, corr, j * BKV, rows);
         port::wgmma_wait<0>();
         fence_regs(o);
         fence_regs(pa);
@@ -437,8 +444,12 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   int& sms = sms_of[dev];
   if (sms == 0) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(flash_fwd_kernel<D, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    }
     if (e != cudaSuccess) return (int)e;
     const cudaError_t e2 = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e2 != cudaSuccess) return (int)e2;
@@ -449,7 +460,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   if (rc == 0) rc = port::encode_bthd_sw128(&v_map, v, B, S, Hkv, D, C::BKV);
   if (rc != 0) return rc;
   const int n_work = (T + BQ - 1) / BQ * B * Hq;  // one block per SM walks the work tiles
-  flash_fwd_kernel<D><<<min(n_work, sms), C::THREADS, C::SMEM, stream>>>(
+  const auto kernel = scale > 0.f ? flash_fwd_kernel<D, false> : flash_fwd_kernel<D, true>;
+  kernel<<<min(n_work, sms), C::THREADS, C::SMEM, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
       static_cast<const int32_t*>(kv_lens), B, T, S, Hq, Hkv, scale, causal, dropout,
       (uint32_t)seed, (int32_t)thresh, keep_scale);

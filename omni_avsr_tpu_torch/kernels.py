@@ -84,9 +84,9 @@ def build_all(names: Iterable[str]) -> List[Path]:
 
 
 def _kernel_name(mangled: str) -> str:
-    """`name<int template arguments>` of a mangled kernel symbol: the
-    length-prefixed identifier that ends in "_kernel", and the integers
-    (Li<n>E) after it."""
+    """`name<int and bool template arguments>` of a mangled kernel symbol:
+    the length-prefixed identifier that ends in "_kernel", and the integers
+    and bools (Li<n>E, Lb<n>E) after it."""
     found = []  # (length, end): the shortest one is the kernel's own name
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group(0))):
@@ -96,7 +96,7 @@ def _kernel_name(mangled: str) -> str:
     if not found:
         return mangled
     n, start = min(found)
-    args = ",".join(re.findall(r"Li(\d+)E", mangled[start + n:].split("EEv")[0]))
+    args = ",".join(re.findall(r"L[ib](\d+)E", mangled[start + n:].split("EEv")[0]))
     return mangled[start: start + n] + (f"<{args}>" if args else "")
 
 

@@ -31,9 +31,26 @@ NEG_INF = -1e30  # the TPU kernel's mask value for generated/current lanes
 KEY_TILE = 64  # keys per tile of the kernel
 ROW_CHUNK = 64  # query rows (K * G of one kv head) per block
 MAX_SPLITS = 8  # blocks of one cluster
+SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to on sm_90
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                                           ctypes.c_void_p]
+
+
+def smem_bytes(K: int, N: int, D: int) -> int:
+    """The kernel's shared memory (`csrc/beam_attention.cu::Cfg::smem`):
+    two stages of a 64-key K and V tile (rows padded by 8 bf16), each key's
+    code and bias, the rows' partial max and sum, the tile's beam masks,
+    and the ancestor table, K rows of N + 1 ints."""
+    stages = 2 * 2 * KEY_TILE * (D + 8) * 2
+    meta = 2 * KEY_TILE * (4 + 4) + 2 * ROW_CHUNK * 4 + KEY_TILE * 8
+    return stages + meta + K * (N + 1) * 4
+
+
+def max_beams(N: int, D: int) -> int:
+    """The most beams the kernel takes at N generated slots and head dim
+    D: the ancestor table is what grows with K."""
+    return (SMEM_LIMIT - smem_bytes(0, N, D)) // ((N + 1) * 4)
 
 
 def plan_splits(B: int, Hkv: int, rows: int, P: int, K: int, step: int, sms: int) -> int:
@@ -177,10 +194,10 @@ def _launch(q, pk, pv, gk, gv, k_cur, v_cur, prefix_bias, anc, step, num_beams):
     G = Hq // Hkv
     if D not in (64, 128):
         raise ValueError(f"head_dim {D}: the kernel takes 64 or 128")
-    if not 1 <= G <= 32:
-        raise ValueError(f"GQA group {G}: the kernel takes 1..32 q-heads per kv head")
-    if K > 64:
-        raise ValueError(f"num_beams {K}: the kernel takes at most 64 (one 64-bit beam mask a key)")
+    if smem_bytes(K, N, D) > SMEM_LIMIT:
+        raise ValueError(f"num_beams {K} at {N} generated slots: the ancestor table, {K} x "
+                         f"{N + 1} ints, does not fit the kernel's shared memory of "
+                         f"{SMEM_LIMIT} bytes (at most {max_beams(N, D)} beams)")
     if not 0 <= step <= N:
         raise ValueError(f"step {step} outside [0, {N}]")
     bf16 = torch.bfloat16

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Union
 
 import torch
@@ -130,8 +131,8 @@ def _launch(q, k, v, scale, causal, kv_lengths, return_lse, dropout_rate, dropou
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
     scale = D ** -0.5 if scale is None else float(scale)
-    if not scale > 0.0:
-        raise ValueError(f"scale {scale}: the kernel takes a positive scale")
+    if not math.isfinite(scale):
+        raise ValueError(f"scale {scale}: the kernel takes a finite scale")
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 needs a dropout_seed")
     bf16 = torch.bfloat16

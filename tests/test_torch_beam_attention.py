@@ -72,8 +72,10 @@ def _jax_kernel(K):
 
 
 # (B, K, G, Hkv, D, P, N) x step in {0, mid, N-1}: K from 1 (greedy) to 15
-# (serving), GQA groups 1-4, batch 1-3, head dims 16 and 64
-SHAPES = [(1, 15, 4, 2, 16, 48, 32), (2, 3, 2, 4, 64, 16, 8), (3, 1, 1, 4, 16, 24, 8)]
+# (serving) and past 64 (65, 80: more beams than one 64-bit mask word),
+# GQA groups 1-4 and 40, batch 1-3, head dims 16 and 64
+SHAPES = [(1, 15, 4, 2, 16, 48, 32), (2, 3, 2, 4, 64, 16, 8), (3, 1, 1, 4, 16, 24, 8),
+          (1, 65, 1, 2, 16, 24, 8), (2, 80, 2, 1, 16, 16, 6), (1, 3, 40, 2, 16, 20, 8)]
 CASES = [(*s, step) for s in SHAPES for step in (0, s[-1] // 2 + 1, s[-1] - 1)]
 
 
@@ -124,6 +126,7 @@ def test_bf16_plain_follows_the_kernel_casts():
 # middle run holds only masked keys.
 SPLIT_CASES = [
     (2, 15, 4, 2, 16, 176, 32, 17, None),
+    (1, 65, 1, 2, 16, 40, 8, 5, None),
     (1, 1, 4, 2, 16, 130, 8, 0, None),
     (1, 5, 2, 2, 16, 40, 8, 8, None),
     (1, 3, 2, 2, 16, 128, 8, 0, (64, 128)),
@@ -152,7 +155,7 @@ def test_split_schedule_masked_run_is_all_masked():
     with 3 splits of 3 tiles, run 1 is keys 64..127, the masked prefix."""
     from omni_avsr_tpu_torch.ops.beam_attention import KEY_TILE
 
-    B, K, G, Hkv, D, P, N, step, masked = SPLIT_CASES[3]
+    B, K, G, Hkv, D, P, N, step, masked = SPLIT_CASES[-1]
     T = P + K * step + K
     n = -(-T // KEY_TILE)
     assert n == 3 and (1 * n // 3 * KEY_TILE, 2 * n // 3 * KEY_TILE) == masked
@@ -169,6 +172,7 @@ def test_split_schedule_masked_run_is_all_masked():
     (4, 15, 176, 31, 8),   # step 31: 656 keys
     (1, 1, 176, 31, 4),    # B 1, K 1: 8 blocks alone, the widest split of its tiles
     (40, 15, 176, 17, 1),  # 320 units of 64 rows already fill the card twice
+    (1, 65, 176, 17, 7),   # 65 beams: 260 rows, 5 chunks of 64 per kv head
 ])
 def test_plan_splits(B, K, P, step, splits):
     from omni_avsr_tpu_torch.ops.beam_attention import KEY_TILE, MAX_SPLITS, plan_splits
@@ -177,3 +181,16 @@ def test_plan_splits(B, K, P, step, splits):
     assert got == splits
     tiles = -(-(P + K * step + K) // KEY_TILE)
     assert 1 <= got <= min(MAX_SPLITS, tiles)  # every block of a cluster has a tile
+
+
+@pytest.mark.parametrize("N,D", [(32, 64), (32, 128), (8, 64), (512, 128)])
+def test_max_beams_is_the_shared_memory_limit(N, D):
+    """The wrapper's bound on K: the largest ancestor table that fits the
+    kernel's shared memory beside its stages, past 256 beams at the 32
+    new tokens of serving."""
+    from omni_avsr_tpu_torch.ops.beam_attention import SMEM_LIMIT, max_beams, smem_bytes
+
+    k = max_beams(N, D)
+    assert smem_bytes(k, N, D) <= SMEM_LIMIT < smem_bytes(k + 1, N, D)
+    assert k > 256 or N > 32
+    assert smem_bytes(15, 32, 64) == 40892  # serving: the size the kernel has always had

@@ -54,6 +54,10 @@ def _beam_case(B, K, Hq, Hkv, D, P, N, device, seed):
     (1, 15, 8, 8, 64, 176, 32, 0),     # G 1, step 0: only the current token generated
     (2, 4, 64, 8, 128, 96, 16, 16),    # G 8, head dim 128, step == N
     (1, 4, 256, 8, 64, 64, 8, 5),      # G 32: 128 query rows, two chunks of 64
+    (1, 3, 80, 2, 64, 64, 8, 5),       # G 40: a chunk of 64 rows starts inside beam 1
+    (2, 65, 32, 8, 64, 176, 32, 17),   # 65 beams: past one 64-bit mask word
+    (1, 80, 8, 4, 128, 96, 16, 9),     # 80 beams, G 2, head dim 128
+    (1, 128, 32, 8, 64, 176, 32, 31),  # 128 beams, the last slot
 ])
 def test_beam_attention_kernel_matches_plain(cuda_device, B, K, Hq, Hkv, D, P, N, step):
     """bf16 in and out; the kernel keeps the probabilities in f32 where the
@@ -77,6 +81,53 @@ def test_beam_attention_wrapper_rejects_bad_input(cuda_device):
                               step=1, num_beams=3)
     with pytest.raises(ValueError, match="step"):
         beam_decode_attention(**inp, step=9, num_beams=3)
+
+
+@pytest.mark.cuda
+def test_beam_attention_largest_beam_count(cuda_device):
+    """At 32 generated slots the wrapper takes every K up to the shared
+    memory's limit, `max_beams(32, 64)`, and refuses one more beam."""
+    from omni_avsr_tpu_torch.ops.beam_attention import max_beams
+
+    K = max_beams(32, 64)
+    assert K > 256
+    inp = _beam_case(1, K, 1, 1, 64, 16, 32, cuda_device, seed=K)
+    out = beam_decode_attention(**inp, step=3, num_beams=K)
+    ref = beam_decode_attention_plain(**inp, step=3, num_beams=K)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    past = _beam_case(1, K + 1, 1, 1, 64, 16, 32, cuda_device, seed=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        beam_decode_attention(**past, step=3, num_beams=K + 1)
+
+
+@pytest.mark.cuda
+def test_transcriber_decodes_65_beams(cuda_device):
+    """A served batch at 65 beams on the card: the tiny flagship with the
+    LLM's heads at B1's head dim (64), int8, 8 new tokens; every decode
+    step launches B1 once per layer."""
+    import dataclasses
+
+    import numpy as np
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.models.omni import OmniAVSR, flagship
+    from omni_avsr_tpu_torch.serve import Transcriber
+
+    tiny = flagship(tiny=True, whisper_input_mode="bucket")
+    llm = dataclasses.replace(tiny.cfg.llm, num_heads=2, num_kv_heads=1, head_dim=64)
+    model = OmniAVSR(dataclasses.replace(tiny.cfg, llm=llm), tiny.tok, dtype=tiny.dtype)
+    params = init_params(model.cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    t = Transcriber(model, params, quantize="int8", device="cuda", max_new_tokens=8)
+    rng = np.random.RandomState(0)
+    items = [{"audio": (rng.randn(n * 640) * 0.1).astype("float32"),
+              "video": rng.randint(0, 255, (n, 96, 96, 3)).astype("uint8")} for n in (40, 33)]
+    before = beam_decode_attention.launches
+    texts = t.transcribe_many(items, num_beams=65)
+    torch.cuda.synchronize()
+    assert len(texts) == 2 and all(isinstance(x, str) for x in texts)
+    assert 1 <= t.last_decode_steps <= 8
+    assert beam_decode_attention.launches - before == llm.num_layers * t.last_decode_steps
 
 
 # B2 and B6: bf16 x, an f32 accumulator on both sides; the kernel sums in
@@ -253,6 +304,32 @@ def test_flash_attention_kernel_matches_plain(cuda_device, B, T, S, Hq, Hkv, D, 
     torch.testing.assert_close(out[keyed].float(), ref[keyed].float(), atol=2e-2, rtol=2e-2)
 
 
+# B3 at a scale of 0 (uniform over the live keys) and below 0: masked keys
+# (key lengths, the diagonal, a ragged last tile) stay out, lse included
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.0, -0.125, -1.0])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,causal,lens", [
+    (2, 300, 300, 16, 16, 64, False, (300, 177)),
+    (2, 200, 200, 32, 8, 128, True, None),
+])
+def test_flash_attention_kernel_any_scale(cuda_device, scale, B, T, S, Hq, Hkv, D, causal, lens):
+    from omni_avsr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(T + S)
+    q, k, v = (torch.randn(B, n, h, D, generator=g, device=cuda_device).to(torch.bfloat16)
+               for n, h in ((T, Hq), (S, Hkv), (S, Hkv)))
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda_device) if lens else None
+    out, lse = flash_attention(q, k, v, scale=scale, causal=causal, kv_lengths=kv,
+                               return_lse=True)
+    ref, ref_lse = flash_attention_plain(q, k, v, scale=scale, causal=causal, kv_lengths=kv,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="finite"):
+        flash_attention(q, k, v, scale=float("inf"))
+
+
 # B1 with one beam: greedy decoding's launch (K * G rows = 4 at GQA 32/8)
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,P,step", [(3, 176, 0), (3, 176, 17), (1, 400, 31)])
@@ -343,7 +420,8 @@ def test_flash_attention_bwd_rejects_bad_input(cuda_device):
 # B5: chunk maxima and the row max are exact on both sides; the normaliser
 # is summed in another order (per block, online against a running max).
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,V", [(45, 128256), (8, 128256), (13, 16384), (1, 128), (3, 1280)])
+@pytest.mark.parametrize("R,V", [(45, 128256), (8, 128256), (13, 16384), (1, 128), (3, 1280),
+                                 (480, 128256)])
 def test_row_stats_kernel_matches_plain(cuda_device, R, V):
     from omni_avsr_tpu_torch.ops.select_topk import row_stats_chunkmax, row_stats_chunkmax_plain
 
@@ -356,6 +434,23 @@ def test_row_stats_kernel_matches_plain(cuda_device, R, V):
     torch.cuda.synchronize()
     assert torch.equal(cm, rcm) and torch.equal(mx, rmx)
     torch.testing.assert_close(se, rse, atol=0.0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_row_stats_allocates_only_its_outputs(cuda_device):
+    """One launch and no scratch tensor per call: after the first call
+    (which makes the device's ticket buffer) a call allocates its three
+    outputs and nothing else."""
+    from omni_avsr_tpu_torch.ops.select_topk import row_stats_chunkmax
+
+    x = torch.randn(45, 128256, device=cuda_device)
+    row_stats_chunkmax(x)
+    torch.cuda.synchronize()
+    stats0, bytes0 = torch.cuda.memory_stats(), torch.cuda.memory_allocated()
+    out = row_stats_chunkmax(x)
+    stats1, bytes1 = torch.cuda.memory_stats(), torch.cuda.memory_allocated()
+    assert stats1["allocation.all.allocated"] - stats0["allocation.all.allocated"] == 3
+    assert bytes1 - bytes0 == sum(-(-t.numel() * 4 // 512) * 512 for t in out)
 
 
 @pytest.mark.cuda

@@ -59,6 +59,24 @@ def test_plain_matches_jax_kernel(case):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("scale", [0.0, -0.125, -1.0])
+def test_plain_matches_jax_kernel_at_scale_zero_and_below(scale):
+    """Any finite scale, as the JAX kernel takes it: at 0 the softmax is
+    uniform over the live keys, below 0 it favours the smallest logits;
+    masked keys (causal, key lengths) stay out of both, lse included."""
+    B, T, S, H, D = 2, 48, 56, 2, 64
+    q, k, v = _qkv(B, T, S, H, H, D, seed=5)
+    lens = np.asarray([56, 21], np.int32)
+    ref, ref_lse = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale,
+                             causal=True, kv_lengths=jnp.asarray(lens), interpret=True,
+                             return_lse=True)
+    ours, ours_lse = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), scale=scale, causal=True,
+                                     kv_lengths=torch.from_numpy(lens), return_lse=True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(ours_lse.numpy(), np.asarray(ref_lse), **TOL)
+
+
 @pytest.mark.parametrize("seed,h,q_start,k_start,rate", [
     (1234, 0, 0, 0, 0.1),
     (-7, 5, 128, 256, 0.3),

@@ -21,9 +21,13 @@ from omni_avsr_tpu.ops.select_topk import row_stats_chunkmax as jax_row_stats
 from omni_avsr_tpu.ops.select_topk import select_stats_supported as jax_supported
 from omni_avsr_tpu_torch.decode.decoding import beam_loop, beam_search, topk_chunked
 from omni_avsr_tpu_torch.ops.select_topk import (
+    BLOCKS_PER_SM,
+    MIN_CHUNKS,
+    row_plan,
     row_stats_chunkmax,
+    row_stats_chunkmax_plain,
+    row_stats_chunkmax_split,
     select_stats_supported,
-    split_plan,
 )
 
 
@@ -49,13 +53,45 @@ def test_select_stats_supported_matches_jax(V):
     assert select_stats_supported(V) == jax_supported(V)
 
 
-@pytest.mark.parametrize("R,C,sms", [(45, 1002, 132), (8, 1002, 132), (1, 128, 132),
-                                     (45, 8, 132), (3, 7, 132), (200, 1002, 132)])
-def test_split_plan_gives_every_part_a_chunk(R, C, sms):
-    """The kernel's launch check: ceil(C / ceil(C / parts)) == parts."""
-    parts = split_plan(R, C, sms)
-    per = -(-C // parts)
-    assert parts >= 1 and -(-C // per) == parts and (per >= 8 or parts == 1)
+@pytest.mark.parametrize("C", [1, 7, 128, 1002])
+@pytest.mark.parametrize("R", [1, 8, 13, 45, 480])
+def test_row_plan_covers_every_chunk_once(R, C):
+    """The one launch's grid: the parts' chunk ranges [p * per, p * per +
+    per) cut [0, C) with none empty (the kernel's launch check), at least
+    MIN_CHUNKS chunks a part where there is more than one, and no more
+    blocks than fit the card at once while rows are split (the tickets'
+    and pairs' scratch holds that many)."""
+    sms = 132
+    parts, per = row_plan(R, C, sms)
+    ranges = [(p * per, min(C, (p + 1) * per)) for p in range(parts)]
+    assert all(lo < hi for lo, hi in ranges)
+    assert [c for lo, hi in ranges for c in range(lo, hi)] == list(range(C))
+    assert -(-C // per) == parts
+    if parts > 1:
+        assert per >= MIN_CHUNKS and R * parts <= BLOCKS_PER_SM * sms
+
+
+@pytest.mark.parametrize("R", [8, 13, 45, 480])
+def test_row_plan_fills_the_card(R):
+    """At (d)'s vocabulary (1002 chunks) every row count that the beam
+    loop or the JAX package's selection benchmark gives puts a block on
+    every one of the 132 SMs."""
+    parts, per = row_plan(R, 1002, 132)
+    assert R * parts >= 132
+
+
+@pytest.mark.parametrize("R,V", [(45, 128 * 1002), (8, 128 * 130), (13, 128 * 7), (3, 128)])
+def test_row_stats_split_matches_plain(R, V):
+    """The kernel's partition and merge order (row_plan's, and two more
+    splits) against the plain version: maxima exact, the normaliser at
+    rtol 1e-6."""
+    x = torch.from_numpy((np.random.RandomState(R + V).randn(R, V) * 4).astype(np.float32))
+    C = V // 128
+    cm, mx, se = row_stats_chunkmax_plain(x)
+    for parts, per in {row_plan(R, C, 132), (1, C), (-(-C // max(1, C // 3)), max(1, C // 3))}:
+        scm, smx, sse = row_stats_chunkmax_split(x, parts, per)
+        assert torch.equal(scm, cm) and torch.equal(smx, mx)
+        np.testing.assert_allclose(sse.numpy(), se.numpy(), rtol=1e-6)
 
 
 @pytest.mark.parametrize("shape,k", [((2, 15, 128256), 30), ((3, 4, 16384), 8), ((1, 2, 1280), 8)])

@@ -86,3 +86,29 @@ def test_transcriber_matches_jax(monkeypatch, mode, quantize, lengths):
     np.testing.assert_array_equal(ids, jax_ids)
     assert 1 <= pt.last_decode_steps <= 32
     assert (ids != pm.tok.pad_id).any()
+
+
+def test_beam_search_past_64_beams_matches_jax(monkeypatch):
+    """65 beams, more than one 64-bit live-beam mask word of B1: the port's
+    ancestor route (B1's plain version here) gives the JAX package's tokens,
+    whose CPU default is the XLA reorder route (no `OMNI_BEAM_ATTN`)."""
+    from omni_avsr_tpu.serve import Transcriber as JaxTranscriber
+
+    jax_in_f32(monkeypatch)
+    monkeypatch.delenv("OMNI_BEAM_ATTN", raising=False)
+    jm = jax_tiny_flagship()
+    params = jax_tiny_params(jm)
+    items = clips((40, 33), seed=4)
+    batch, trim = pad_batch(items, "audiovisual")
+    jt = JaxTranscriber(jm, jax.tree_util.tree_map(jnp.asarray, params), num_beams=65,
+                        quantize="int8")
+    jfn = jt.engine._decode_fn("audiovisual", 4, 2, trim, 65, 32)
+    jax_ids = np.asarray(jfn(jt.params, {k: jnp.asarray(v) for k, v in batch.items()},
+                             jax.random.PRNGKey(0)))
+
+    pm = flagship(tiny=True, dtype=torch.float32, whisper_input_mode="bucket")
+    pt = Transcriber(pm, params_from_numpy(params, "cpu"), num_beams=65, quantize="int8",
+                     device="cpu")
+    ids = pt.decode_ids(batch, "audiovisual", 4, 2, trim, 65).numpy()
+    np.testing.assert_array_equal(ids, jax_ids)
+    assert (ids != pm.tok.pad_id).any()
