@@ -15,7 +15,8 @@ Phases, each printing lines with the elapsed seconds:
      the same work: B1 beam-decode attention (at the 6.4 s prefix and at
      the prefix of the 30 s-window requests below, with 15 beams, with
      the one beam of greedy decoding, and with 65 and 128 beams, more than
-     one 64-bit live-beam mask word; each timed case with its host time
+     one 64-bit live-beam mask word, and at (e)'s Qwen2.5-7B heads, 28
+     over 4 at D 128; each timed case with its host time
      per call and the key splits `plan_splits` gave it), B3 flash attention (timed at
      Whisper's 30 s window at B 1 and B 3, AV-HuBERT at T 384 with the
      lengths of (a), the training LLM's causal GQA shape with lse and
@@ -44,23 +45,31 @@ Phases, each printing lines with the elapsed seconds:
        (c) the bucketed window, packed int4 LLM and int8 towers: as (b);
      and (b) once more with greedy decoding (`num_beams=1`, B1 at K = 1),
      and (b)'s first two requests at 65 beams (one warm and one measured
-     batch);
+     batch), and one (b) batch through the evaluation entry point
+     `OmniEngine.decode_batch` with babble (seeded, from numpy) mixed at
+     0 dB SNR (`decode_snr_target=0.0`);
      then, with the earlier trees freed,
        (d) (b) with the LLM at Llama-3's base vocabulary of 128256 and both
            opt-in kernel routes on (`select_kernel=True`: B5 once per beam
-           step; `conv_kernel=True`: B7 in the ResNet trunk's 19 convs).
+           step; `conv_kernel=True`: B7 in the ResNet trunk's 19 convs);
+       (e) (b) served by the registry's Qwen2.5-7B at full width and depth
+           (`models/omni.py::registry_model`: 28 layers, hidden 3584, 28/4
+           heads at D 128, FFN 18944, q/k/v bias, untied head, Qwen2.5's
+           151643-token vocabulary plus the specials), int8; then one
+           request through `Transcriber.transcribe`, its transcript
+           printed.
      For each, one warm batch and 5 measured ones (3 for greedy; the
      median reported); every kernel counter is set to 0 just before each
      measured batch, read just after, and held to the count the path must
      give;
-  5. B2 at every distinct (M, K, N) that one measured batch of (a) and of
-     (b) launched it with, and B6 at every one of a (c) batch (the wrappers
+  5. B2 at every distinct (M, K, N) that one measured batch of (a), (b)
+     and (e) launched it with, and B6 at every one of a (c) batch (the wrappers
      count launches by shape), each against its plain version, timed beside
      cuBLAS's bf16 product and the bound, and summed over the batch's
      tower, prefill and decode launches;
      then reference checks at full width: the prefill and the first decode
      steps through the kernels and through the plain versions (int8 and
-     int4), one Whisper layer at T = 1500 through B3 and through its
+     int4, and (e)'s Qwen2.5-7B), one Whisper layer at T = 1500 through B3 and through its
      plain version, the ResNet of (d)'s batch (480 frames) through B7 and
      through its plain version, and B5 on the logits of (d)'s first decode
      step against its plain version;
@@ -169,9 +178,12 @@ def bound_ms(nbytes: float, flops: float):
 # --------------------------------------------------------------------- B1
 
 
-def b1_inputs(B: int, P: int, step: int, seed: int, K: int = K):
+def b1_inputs(B: int, P: int, step: int, seed: int, K: int = K, heads=(HQ, HKV, D)):
+    """B1's inputs at B batch items x K beams, prefix P, and `heads` = (query
+    heads, kv heads, head dim)."""
     import torch
 
+    HQ, HKV, D = heads
     g = torch.Generator(device=DEV).manual_seed(seed)
     dev, bf = DEV, torch.bfloat16
 
@@ -194,7 +206,8 @@ def b1_bound_ms(inp, step: int) -> float:
     entries only), the output written once; the operations are ~1000x
     below the bf16 peak."""
     q, anc = inp["q"], inp["anc"]
-    B, P = anc.shape[0], inp["pk"].shape[2]
+    B, HKV, P, D = inp["pk"].shape
+    HQ = q.shape[2]
     live_rows = sum(len({(int(r), n) for n in range(step) for r in anc[b, :, n].tolist()})
                     for b in range(B))
     byte = 2
@@ -215,7 +228,8 @@ def sdpa_on_reordered_cache(inp, step: int):
     import torch.nn.functional as F
 
     q, anc = inp["q"], inp["anc"]
-    B, K, P = anc.shape[0], anc.shape[1], inp["pk"].shape[2]
+    B, HKV, P, D = inp["pk"].shape
+    K, HQ = anc.shape[1], q.shape[2]
     BK = B * K
     G = HQ // HKV
     b_idx = torch.arange(B, device=DEV)[:, None, None]
@@ -239,9 +253,10 @@ def sdpa_on_reordered_cache(inp, step: int):
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=valid)
 
 
-def check_b1(flush, P: int, batches=(1, B_SERVE, 4), K: int = K):
+def check_b1(flush, P: int, batches=(1, B_SERVE, 4), K: int = K, heads=(HQ, HKV, D)):
     """B1 against its plain version (and SDPA on the reordered cache) at
-    prefix P with K beams; returns the timed row at B 3, step 17."""
+    prefix P with K beams and `heads` (query heads, kv heads, head dim);
+    returns the timed row at B 3, step 17."""
     import torch
 
     from omni_avsr_tpu_torch import kernels
@@ -254,7 +269,7 @@ def check_b1(flush, P: int, batches=(1, B_SERVE, 4), K: int = K):
     max_err, timed = 0.0, None
     for B in batches:
         for step in (0, 17, 31, N):
-            inp = b1_inputs(B, P, step, seed=100 * B + step + P + K, K=K)
+            inp = b1_inputs(B, P, step, seed=100 * B + step + P + K, K=K, heads=heads)
             out = beam_decode_attention(**inp, step=step, num_beams=K)
             ref = beam_decode_attention_plain(**inp, step=step, num_beams=K)
             torch.cuda.synchronize()
@@ -272,11 +287,13 @@ def check_b1(flush, P: int, batches=(1, B_SERVE, 4), K: int = K):
                              **inp, step=step, num_beams=K), flush),
                          library_ms=time_ms(sdpa_on_reordered_cache(inp, step), flush),
                          bound_ms=b1_bound_ms(inp, step), bound_by="bytes",
-                         splits=plan_splits(B, HKV, K * (HQ // HKV), P, K, step,
-                                            kernels.sm_count(torch.device(DEV))))
+                         splits=plan_splits(B, heads[1], K * (heads[0] // heads[1]), P, K,
+                                            step, kernels.sm_count(torch.device(DEV))))
     timed["max_abs_err"] = max_err
     timed["K"] = K
-    log("B1", f"kernel vs plain at P {P}, K {K}, B {list(batches)} x step 0/17/31/{N}: max_abs_err "
+    timed["heads"] = dict(Hq=heads[0], Hkv=heads[1], G=heads[0] // heads[1], D=heads[2])
+    log("B1", f"kernel vs plain at P {P}, K {K}, Hq {heads[0]} / Hkv {heads[1]}, D {heads[2]}, "
+        f"B {list(batches)} x step 0/17/31/{N}: max_abs_err "
         f"{max_err:.3g} (tol atol/rtol 2e-2); timed at B 3 step 17: {json.dumps(timed)}")
     return timed
 
@@ -576,8 +593,9 @@ def b2_stage(M: int, Kd: int, Nd: int, vocab: int, llm_dims) -> str:
 def qmm_per_batch(flush, label: str, shapes, vocab: int, llm_dims, bits: int = 8):
     """B2 (bits 8) or B6 (bits 4) at every distinct (M, K, N) that one
     served batch launched it with, each against its plain version, timed
-    (cold L2) beside cuBLAS's bf16 product on the weight dequantised
-    beforehand and the bound; summed over the batch's launches by stage.
+    (cold L2) beside the plain version, cuBLAS's bf16 product on the weight
+    dequantised beforehand and the bound; summed over the batch's launches
+    by stage.
     Returns {stage: sums} and the shape rows."""
     import torch
 
@@ -592,7 +610,8 @@ def qmm_per_batch(flush, label: str, shapes, vocab: int, llm_dims, bits: int = 8
     plain = quantized_matmul4_plain if bits == 4 else quantized_matmul_plain
     name = "B6" if bits == 4 else "B2"
 
-    sums = {st: dict(launches=0, ms=0.0, library_ms=0.0, bound_ms=0.0, nbytes=0.0, flops=0.0)
+    sums = {st: dict(launches=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, nbytes=0.0,
+                     flops=0.0)
             for st in ("tower", "prefill", "decode", "batch")}
     rows = []
     for (M, Kd, Nd), count in shapes:
@@ -615,12 +634,13 @@ def qmm_per_batch(flush, label: str, shapes, vocab: int, llm_dims, bits: int = 8
         row = dict(stage=stage, M=M, K=Kd, N=Nd, launches=count,
                    max_abs_err=(out.float() - ref.float()).abs().max().item(),
                    ms=time_ms(lambda: kernel(x, leaf, out_dtype=out_dtype), flush),
+                   plain_ms=time_ms(lambda: plain(x, leaf, out_dtype=out_dtype), flush, iters=20),
                    library_ms=time_ms(lambda: x @ w_bf16, flush))
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
         rows.append(row)
         log(name, f"{label}: {json.dumps(row)}")
         for st in (stage, "batch"):
-            for key in ("ms", "library_ms", "bound_ms"):
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 sums[st][key] += count * row[key]
             sums[st]["launches"] += count
             sums[st]["nbytes"] += count * nbytes
@@ -630,8 +650,8 @@ def qmm_per_batch(flush, label: str, shapes, vocab: int, llm_dims, bits: int = 8
     for st, v in sums.items():
         v["bound_by"] = bound_ms(v["nbytes"], v["flops"])[1] if v["launches"] else None
         log(name, f"{label}, one batch, {st}: {v['launches']} launches, kernel "
-            f"{v['ms']:.4f} ms, cuBLAS bf16 {v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
-            f"({v['bound_by']})")
+            f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, cuBLAS bf16 {v['library_ms']:.4f} ms, "
+            f"bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
     return sums, rows
 
 
@@ -852,6 +872,11 @@ def make_items(frames, seed: int):
 
 
 SERVE_REPEATS = 5  # measured batches per configuration: the host-bound wall time varies
+SERVE_REPEATS_E = 5  # (e)'s measured batches
+# (e): the registry's Qwen2.5-7B with Qwen2.5's 151643-token BPE vocabulary
+QWEN_E, QWEN_BASE_VOCAB = "Qwen/Qwen2.5-7B", 151643
+# babble for the noisy evaluation: 10 s of seeded Gaussian noise at 16 kHz
+BABBLE = (np.random.RandomState(4321).randn(10 * 16000) * 0.1).astype(np.float32)
 
 
 def serve(label: str, server, items, expected, repeats: int = SERVE_REPEATS, **kw):
@@ -1062,6 +1087,59 @@ def select_agreement(t, items):
         dec.row_stats_chunkmax = kernel
     x = captured[1]
     return tuple(x.shape), b5_agreement(x)
+
+
+def noisy_decode(engine, params, items, expected):
+    """`OmniEngine.decode_batch`, the evaluation entry point, on a served
+    batch with babble mixed at the engine's `decode_snr_target`: its kernel
+    launches set to 0 just before and held to `expected(steps)` just after."""
+    import torch
+
+    from omni_avsr_tpu_torch.serve import pad_batch
+
+    batch, trim = pad_batch(items, "audiovisual")
+    batch["audio_trim_len"] = trim
+    fns = counters()
+    reset_counts(fns)
+    t = time.perf_counter()
+    texts = engine.decode_batch(params, batch, "audiovisual", 4, 2, num_beams=K, max_new=N)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = expected(engine.last_decode_steps)
+    if launches != want:
+        raise RuntimeError(f"noisy decode_batch: kernel launches {launches}, expected {want}")
+    if len(texts) != len(items) or not all(texts):
+        raise RuntimeError(f"noisy decode_batch: bad transcripts {texts!r}")
+    row = dict(config=f"(b) decode_batch at SNR {engine.decode_snr_target} dB", batch_s=dt,
+               decode_steps=engine.last_decode_steps, launches=launches)
+    log("noisy", json.dumps(row))
+    for i, text in enumerate(texts):
+        log("noisy", f"request {i}: {text[:120]}")
+    return row
+
+
+def transcribe_one(server, item, expected):
+    """One request through `Transcriber.transcribe`, its launches held to
+    `expected(steps)`; returns the row with its transcript."""
+    import torch
+
+    fns = counters()
+    reset_counts(fns)
+    t = time.perf_counter()
+    text = server.transcribe(audio=item["audio"], video=item["video"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = expected(server.last_decode_steps)
+    if launches != want:
+        raise RuntimeError(f"transcribe: kernel launches {launches}, expected {want}")
+    if not isinstance(text, str) or not text:
+        raise RuntimeError(f"transcribe: an empty transcript {text!r}")
+    row = dict(request_s=dt, audio_s=len(item["audio"]) / 16000,
+               decode_steps=server.last_decode_steps, launches=launches, transcript=text)
+    log("transcribe", json.dumps(row))
+    return row
 
 
 # --------------------------------------------------------------- training
@@ -1310,8 +1388,11 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from omni_avsr_tpu_torch import kernels
     from omni_avsr_tpu_torch.bridge import init_params
-    from omni_avsr_tpu_torch.models.omni import flagship
+    from omni_avsr_tpu_torch.config import TrainConfig
+    from omni_avsr_tpu_torch.data.tokenizer import synthetic_tokenizer
+    from omni_avsr_tpu_torch.models.omni import flagship, registry_model
     from omni_avsr_tpu_torch.serve import Transcriber, pad_batch
+    from omni_avsr_tpu_torch.train.engine import OmniEngine
 
     # f32 matmuls and convs in full f32 (the mel frontend); the rest is bf16
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1344,6 +1425,12 @@ def main() -> int:
     batch_b, trim_b = pad_batch(items_b, "audiovisual")
     if model_b.prefix_slots("audiovisual", 4, 2, trim_b, batch_b["video"].shape[1]) != P_BUCKET:
         raise RuntimeError("the bucketed requests' prefix is not the B1 check's P")
+    # (e): Qwen2.5-7B from the registry, Qwen2.5's BPE vocabulary plus the specials
+    model_e = registry_model(QWEN_E, synthetic_tokenizer("qwen", base_vocab=QWEN_BASE_VOCAB),
+                             whisper_input_mode="bucket")
+    llm_e = model_e.cfg.llm
+    heads_e = (llm_e.num_heads, llm_e.num_kv_heads, llm_e.head_dim)
+    P_e = model_e.prefix_slots("audiovisual", 4, 2, trim_b, batch_b["video"].shape[1])
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     b1 = check_b1(flush, P_BUCKET)
@@ -1351,6 +1438,7 @@ def main() -> int:
     b1_greedy = check_b1(flush, P_BUCKET, batches=(1, B_SERVE), K=1)  # greedy decoding
     b1_k65 = check_b1(flush, P_BUCKET, batches=(1, B_SERVE), K=65)  # past one 64-bit mask word
     b1_k128 = check_b1(flush, P_BUCKET, batches=(1, B_SERVE), K=128)
+    b1_e = check_b1(flush, P_e, batches=(B_SERVE,), heads=heads_e)  # (e): G 7, D 128
     b3, b3_rows = check_b3(flush)
     b4_rows = check_b4(flush)
     vocab = model_a.cfg.llm.vocab_size
@@ -1365,6 +1453,9 @@ def main() -> int:
     server_a = Transcriber(model_a, params, quantize="int8", device="cuda")
     server_b = Transcriber(model_b, params, quantize="int8", device="cuda")
     server_c = Transcriber(model_b, params, quantize="int4", device="cuda")
+    # the evaluation entry point: babble at 0 dB SNR, decoded on (b)'s tree
+    engine_noisy = OmniEngine(model_b, params, TrainConfig(), noise_bank=BABBLE,
+                              decode_snr_target=0.0, seed=0, device="cuda")
     del params
     torch.cuda.synchronize()
     n_params = sum(int(v.numel()) for v in _leaves(server_a.params))
@@ -1391,6 +1482,9 @@ def main() -> int:
     # more beams than one 64-bit live-beam mask word of B1: two requests
     rows["b65"] = serve("(b) bucket int8 65 beams", server_b, items_b[:2], lambda s: counts(
         B1=layers_llm * s, B2=tower_b2 + llm_mats * (1 + s)), repeats=1, num_beams=65)
+    rows["noisy"] = noisy_decode(engine_noisy, server_b.params, items_b, lambda s: counts(
+        B1=layers_llm * s, B2=tower_b2 + llm_mats * (1 + s)))
+    del engine_noisy
 
     for label, server in (("int8 (B1, B2)", server_b), ("int4 (B1, B6)", server_c)):
         rel = decode_agreement(server, items_b[0])
@@ -1415,7 +1509,6 @@ def main() -> int:
     sums, shape_rows = qmm_per_batch(flush, rows["c"]["config"], rows["c"]["b6_shapes"], vocab,
                                      llm_dims, bits=4)
     b6_batch = dict(config=rows["c"]["config"], by_stage=sums, shapes=shape_rows)
-    del flush
 
     profile_batch("(a) pad30s int8", lambda: server_a.transcribe_many(items_a))
     profile_batch("(b) bucket int8", lambda: server_b.transcribe_many(items_b))
@@ -1450,6 +1543,47 @@ def main() -> int:
     del server_d
     torch.cuda.empty_cache()
 
+    # (e): Qwen2.5-7B at full width and depth, random weights from a seed, int8
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model_e.cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_bf16 = sum(int(v.numel()) for v in _leaves(params))
+    server_e = Transcriber(model_e, params, quantize="int8", device="cuda")
+    del params
+    torch.cuda.synchronize()
+    log("model", f"(e) {QWEN_E}: {llm_e.num_layers} layers, hidden {llm_e.hidden_size}, "
+        f"{llm_e.num_heads}/{llm_e.num_kv_heads} heads at D {llm_e.head_dim}, FFN "
+        f"{llm_e.intermediate_size}, vocabulary {llm_e.vocab_size}, untied head; "
+        f"{n_bf16 / 1e9:.3f} B parameters at init (bf16), int8 serving tree in "
+        f"{time.perf_counter() - t:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+        f"GiB while it was built")
+    layers_e = llm_e.num_layers
+    mats_e = 4 * layers_e + 1
+    expect_e = lambda s: counts(B1=layers_e * s, B2=tower_b2 + mats_e * (1 + s))  # noqa: E731
+    rows["e"] = serve("(e) Qwen2.5-7B bucket int8", server_e, items_b, expect_e,
+                      repeats=SERVE_REPEATS_E)
+    rows["e transcribe"] = transcribe_one(server_e, items_b[0], expect_e)
+    rel = decode_agreement(server_e, items_b[0])
+    if rel > REL_L2_TOL:
+        raise RuntimeError(f"(e) logits: kernel vs plain relative L2 {rel:.3g}")
+    log("reference", f"(e) {QWEN_E} int8 (B1 at G {heads_e[0] // heads_e[1]}, D {heads_e[2]}; "
+        f"B2): prefill + 2 decode steps, kernel vs plain route: relative L2 logit difference "
+        f"{rel:.3g} (tol {REL_L2_TOL})")
+    rows["e"]["decode_rel_l2"] = rel
+    sums, shape_rows = qmm_per_batch(flush, rows["e"]["config"], rows["e"]["b2_shapes"],
+                                     llm_e.vocab_size, (llm_e.hidden_size,
+                                                        llm_e.intermediate_size))
+    steps_e = rows["e"]["decode_steps"]
+    per_step = {k: sums["decode"][k] / steps_e
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log("B2", f"(e) one decode step ({layers_e} x qkv, o, gateup, down + lm_head, M 45), from "
+        f"the batch's {steps_e} steps: {json.dumps(per_step)}")
+    b2_batches["e"] = dict(config=rows["e"]["config"], by_stage=sums, shapes=shape_rows,
+                           decode_step=per_step)
+    profile_batch("(e) Qwen2.5-7B bucket int8", lambda: server_e.transcribe_many(items_b))
+    del server_e, flush
+    torch.cuda.empty_cache()
+
     rows["train"], train_agree, rows["train conv"] = train_phase()
 
     def entry(key, name, source, replaces, row, config, shape):
@@ -1465,15 +1599,18 @@ def main() -> int:
         {**entry("B1", "beam_decode_attention", "omni_avsr_tpu_torch/csrc/beam_attention.cu",
                  "omni_avsr_tpu/ops/beam_attention.py:51", b1, "b",
                  "per launch: B 3 x 15 beams, P 176, step 17; cases: the timed shapes (K 15 "
-                 "at P 176 and 400, K 1, K 65, K 128)"),
-         "cases": [b1, b1_a, b1_greedy, b1_k65, b1_k128]},
+                 "at P 176 and 400, K 1, K 65, K 128, and (e)'s Qwen2.5-7B: Hq 28 / Hkv 4, D "
+                 "128)"),
+         "cases": [b1, b1_a, b1_greedy, b1_k65, b1_k128, b1_e]},
         {**entry("B2", "quantized_matmul", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
                  "omni_avsr_tpu/ops/quant.py:54", b2, "b",
                  "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head; tower_ms and "
-                 "prefill_ms: one (b) batch's tower and prefill launches, summed"),
+                 "prefill_ms: one (b) batch's tower and prefill launches, summed; per_batch: "
+                 "(a), (b) and (e) by stage, qwen7b_decode_step: (e)'s per step"),
          "tower_ms": b2_batches["b"]["by_stage"]["tower"]["ms"],
          "prefill_ms": b2_batches["b"]["by_stage"]["prefill"]["ms"],
          "per_batch": {k: v["by_stage"] for k, v in b2_batches.items()},
+         "qwen7b_decode_step": b2_batches["e"]["decode_step"],
          "tower_fc1_m4500": b2["tower"]},
         {**entry("B3", "flash_attention", "omni_avsr_tpu_torch/csrc/flash_attention.cu",
                  "omni_avsr_tpu/ops/flash_attention.py:58", b3, "a",

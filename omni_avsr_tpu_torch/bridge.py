@@ -212,11 +212,27 @@ def _init_avhubert(ini: _Init, cfg: AVHubertConfig) -> Params:
 
 
 def _init_projectors(ini: _Init, cfg: OmniConfig, rates, enc_dim: int) -> Params:
+    """One modality's projectors, by the decision table of the JAX
+    package's `init_matry_projectors` (`omni_avsr_tpu/models/projector.py:55-101`):
+    one projector without matryoshka or with `is_single_matry_projector`,
+    with its LayerNorm unless `remove_layernorm_from_projector` (its input
+    is enc_dim x the single rate for non-matryoshka stacking); else one per
+    rate, never with a LayerNorm (the reference's LN-as-bias quirk), whose
+    input is enc_dim x rate when stacking."""
     inter, out = cfg.projector_intermediate_size, cfg.llm.hidden_size
-    if cfg.compression_mode != "avg-pooling" or not cfg.is_matryoshka or cfg.is_single_matry_projector:
-        raise NotImplementedError("the port initialises per-rate avg-pooling projectors only")
-    return {"per_rate": {f"r{r}": {"fc1": ini.linear((), enc_dim, inter),
-                                   "fc2": ini.linear((), inter, out)} for r in rates}}
+    stack = cfg.compression_mode == "stack"
+
+    def projector(in_dim: int, with_ln: bool) -> Params:
+        p = {"fc1": ini.linear((), in_dim, inter), "fc2": ini.linear((), inter, out)}
+        if with_ln:
+            p["ln"] = ini.layer_norm((), out)
+        return p
+
+    if not cfg.is_matryoshka or cfg.is_single_matry_projector:
+        dim = enc_dim * rates[0] if stack and not cfg.is_matryoshka else enc_dim
+        return {"single": projector(dim, not cfg.remove_layernorm_from_projector)}
+    return {"per_rate": {f"r{r}": projector(enc_dim * r if stack else enc_dim, False)
+                         for r in rates}}
 
 
 def init_params(cfg: OmniConfig, generator: torch.Generator, device="cuda",

@@ -1,9 +1,11 @@
 """Typed configuration for the PyTorch port.
 
-A copy of the dataclasses of `omni_avsr_tpu/config.py` that the serving
-and training slices need (the port imports nothing of the JAX package). Field names,
-defaults and the published geometries are the same, so a config built here
-describes the same model as its JAX twin.
+A copy of the dataclasses of `omni_avsr_tpu/config.py` and its model
+registry (the port imports nothing of the JAX package): Llama-3.2-1B/3B,
+Llama-3.1-8B and Qwen2.5 0.5B-32B under `LLM_REGISTRY`, the per-model LoRA
+V divisor, and the Whisper and AV-HuBERT sizes. Field names, defaults and
+the published geometries are the same, so a config built here describes
+the same model as its JAX twin.
 
   - LLM hidden sizes: `Omni_AVSR/lightning_OmniAVSR.py:28-37`
   - LoRA geometry: `Omni_AVSR/Llama_LoRA.py:103-230` (RANK is a reduction
@@ -41,7 +43,8 @@ class LoRAConfig:
 
 @dataclass(frozen=True)
 class LLMConfig:
-    """Decoder-only LLM config (Llama-3.x geometry; Qwen fields kept)."""
+    """Decoder-only LLM config of the Llama-3.x and Qwen-2.5 families: Qwen
+    has q/k/v bias, plain rope (no llama3 rescale) and rms eps 1e-6."""
 
     family: str = "llama"
     vocab_size: int = 128256
@@ -81,6 +84,73 @@ def llama32_1b(lora: Optional[LoRAConfig] = None, vocab_size: int = 128256) -> L
     )
 
 
+def llama32_3b(lora: Optional[LoRAConfig] = None, vocab_size: int = 128256) -> LLMConfig:
+    """meta-llama/Llama-3.2-3B"""
+    return LLMConfig(
+        family="llama", vocab_size=vocab_size, hidden_size=3072,
+        intermediate_size=8192, num_layers=28, num_heads=24, num_kv_heads=8,
+        head_dim=128, rms_norm_eps=1e-5, rope_theta=500000.0,
+        tie_word_embeddings=True, lora=lora,
+    )
+
+
+def llama31_8b(lora: Optional[LoRAConfig] = None, vocab_size: int = 128256) -> LLMConfig:
+    """meta-llama/Meta-Llama-3.1-8B"""
+    return LLMConfig(
+        family="llama", vocab_size=vocab_size, hidden_size=4096,
+        intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
+        head_dim=128, rms_norm_eps=1e-5, rope_theta=500000.0,
+        rope_scaling_factor=8.0, tie_word_embeddings=False, lora=lora,
+    )
+
+
+_QWEN25 = {
+    # name: (hidden, inter, layers, heads, kv_heads, tie)
+    "0.5B": (896, 4864, 24, 14, 2, True),
+    "1.5B": (1536, 8960, 28, 12, 2, True),
+    "3B": (2048, 11008, 36, 16, 2, True),
+    "7B": (3584, 18944, 28, 28, 4, False),
+    "14B": (5120, 13824, 48, 40, 8, False),
+    "32B": (5120, 27648, 64, 40, 8, False),
+}
+
+# GQA-aware V-up output divisors per Qwen size (`Qwen_LoRA.py:464-473`).
+QWEN_V_DIVISOR = {"0.5B": 7, "1.5B": 6, "3B": 8, "7B": 7, "14B": 5, "32B": 5}
+
+
+def qwen25(size: str, lora: Optional[LoRAConfig] = None, vocab_size: int = 151936) -> LLMConfig:
+    """Qwen/Qwen2.5-{size}: q/k/v bias, plain rope (theta 1e6), rms eps 1e-6."""
+    h, i, l, nh, nkv, tie = _QWEN25[size]
+    return LLMConfig(
+        family="qwen", vocab_size=vocab_size, hidden_size=h,
+        intermediate_size=i, num_layers=l, num_heads=nh, num_kv_heads=nkv,
+        head_dim=h // nh, rms_norm_eps=1e-6, rope_theta=1000000.0,
+        rope_scaling_factor=None, tie_word_embeddings=tie,
+        attention_bias=True, lora=lora,
+    )
+
+
+# HF model name -> constructor (`lightning_OmniAVSR.py:28-37`).
+LLM_REGISTRY = {
+    "meta-llama/Llama-3.2-1B": lambda lora=None, vocab_size=128256: llama32_1b(lora, vocab_size),
+    "meta-llama/Llama-3.2-3B": lambda lora=None, vocab_size=128256: llama32_3b(lora, vocab_size),
+    "meta-llama/Meta-Llama-3.1-8B": lambda lora=None, vocab_size=128256: llama31_8b(lora, vocab_size),
+    **{
+        f"Qwen/Qwen2.5-{s}": (lambda s: (lambda lora=None, vocab_size=151936: qwen25(s, lora, vocab_size)))(s)
+        for s in _QWEN25
+    },
+}
+
+
+def default_v_divisor(llm_model: str) -> int:
+    """GQA V-up divisor the reference hard-codes per model (`Llama_LoRA.py:143-187`)."""
+    if "Qwen" in llm_model:
+        return QWEN_V_DIVISOR[llm_model.split("-")[-1]]
+    if llm_model == "meta-llama/Llama-3.2-3B":
+        return 3
+    return 4  # Llama-3 8B / 3.1-8B / 3.2-1B
+
+
 @dataclass(frozen=True)
 class WhisperEncoderConfig:
     """HF WhisperModel.encoder geometry (`modeling_OmniAVSR.py:59-62`)."""
@@ -96,6 +166,14 @@ class WhisperEncoderConfig:
 
 def whisper_medium_en() -> WhisperEncoderConfig:
     return WhisperEncoderConfig()
+
+
+def whisper_small_en() -> WhisperEncoderConfig:
+    return WhisperEncoderConfig(hidden_size=768, num_layers=12, num_heads=12, ffn_dim=3072)
+
+
+def whisper_base_en() -> WhisperEncoderConfig:
+    return WhisperEncoderConfig(hidden_size=512, num_layers=6, num_heads=8, ffn_dim=2048)
 
 
 @dataclass(frozen=True)
@@ -123,6 +201,16 @@ class AVHubertConfig:
 
 def avhubert_large(use_lora: bool = True) -> AVHubertConfig:
     return AVHubertConfig(lora_rank_divisor=16 if use_lora else None)
+
+
+def avhubert_base(use_lora: bool = True) -> AVHubertConfig:
+    """AV-HuBERT Base: post-LN (`layer_norm_first=False`), which neither
+    package's encoder runs (`models/avhubert.py::avhubert_encode` refuses it)."""
+    return AVHubertConfig(
+        encoder_embed_dim=768, encoder_layers=12, encoder_heads=12,
+        encoder_ffn_dim=3072, layer_norm_first=False,
+        lora_rank_divisor=16 if use_lora else None,
+    )
 
 
 @dataclass(frozen=True)

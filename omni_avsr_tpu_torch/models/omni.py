@@ -2,7 +2,8 @@
 projectors, the three-task training forward and the decode prefix (port of
 `omni_avsr_tpu/models/omni.py`; reference `modeling_OmniAVSR.py:27-606`).
 
-Sequences (Llama), per task, with the task's subset of A and V:
+Sequences (Llama; Qwen drops the BOS and appends the text after the
+prompt), per task, with the task's subset of A and V:
   train  : [BOS][<audio> A </audio>][<video> V </video>][prompt][text EOS]
   labels : [bos ][-100 ...                                    ][text EOS]
   infer  : [BOS][<audio> A </audio>][<video> V </video>][prompt]
@@ -20,6 +21,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..config import (
+    LLM_REGISTRY,
     MODALITIES,
     AVHubertConfig,
     LLMConfig,
@@ -27,6 +29,7 @@ from ..config import (
     OmniConfig,
     WhisperEncoderConfig,
     avhubert_large,
+    default_v_divisor,
     llama32_1b,
     whisper_medium_en,
 )
@@ -180,8 +183,6 @@ class OmniAVSR:
         training sequence, `span` the static [t0, t1) window of logits
         positions whose shifted targets can be real
         (`omni_avsr_tpu/models/omni.py:181-227`)."""
-        if self.cfg.llm.family != "llama":
-            raise NotImplementedError("the port trains the Llama layout only")
         B, dev = text_emb.shape[0], text_emb.device
         blocks = []
         if modality in ("audio", "audiovisual"):
@@ -193,12 +194,17 @@ class OmniAVSR:
         blocks.append(self._prompt_embeds(params, modality, B, dev))
         prefix = torch.cat(blocks, dim=1)
         P, Tt = prefix.shape[1], text_emb.shape[1]
-        # [BOS | prefix (P) | text (Tt-1)]: the first real target is labels[:, 1]
-        # at sequence index P + 1, so the logits span is [P, P + Tt - 1)
-        embeds = torch.cat([text_emb[:, :1], prefix, text_emb[:, 1:]], dim=1)
         ignore = torch.full((B, P), IGNORE_INDEX, dtype=labels.dtype, device=dev)
-        lab = torch.cat([labels[:, :1], ignore, labels[:, 1:]], dim=1)
-        return embeds, lab, (P, P + Tt - 1)
+        if self.cfg.llm.family == "llama":
+            # [BOS | prefix (P) | text (Tt-1)]: the first real target is labels[:, 1]
+            # at sequence index P + 1, so the logits span is [P, P + Tt - 1)
+            embeds = torch.cat([text_emb[:, :1], prefix, text_emb[:, 1:]], dim=1)
+            lab = torch.cat([labels[:, :1], ignore, labels[:, 1:]], dim=1)
+            return embeds, lab, (P, P + Tt - 1)
+        # qwen, no BOS: [prefix (P) | text (Tt)]: the first target labels[:, 0]
+        # sits at sequence index P, so the logits span is [P - 1, P + Tt - 1)
+        embeds = torch.cat([prefix, text_emb], dim=1)
+        return embeds, torch.cat([ignore, labels], dim=1), (P - 1, P + Tt - 1)
 
     def train_losses(self, params: Params, batch: Dict[str, torch.Tensor], rate_audio: int,
                      rate_video: int, audio_trim_len: int, train_mode: bool = True,
@@ -267,4 +273,26 @@ def flagship(tiny: bool, dtype=torch.bfloat16, whisper_input_mode: str = "pad30s
     if whisper_input_mode not in ("pad30s", "bucket"):
         raise ValueError(f"whisper_input_mode {whisper_input_mode!r}")
     cfg = dataclasses.replace(cfg, whisper_input_mode=whisper_input_mode)
+    return OmniAVSR(cfg, tok, dtype=dtype)
+
+
+def registry_model(llm_model: str, tok: TokenizerBundle, dtype=torch.bfloat16,
+                   whisper_input_mode: str = "pad30s") -> OmniAVSR:
+    """The model of an `LLM_REGISTRY` name (Llama-3.2-1B/3B, Llama-3.1-8B,
+    Qwen2.5 0.5B-32B) with Whisper-medium and AV-HuBERT-Large: the
+    configuration the JAX `Transcriber.from_pretrained` builds when it is
+    given no config (`omni_avsr_tpu/serve.py:119-132`), task-specific
+    Omni-LoRA with the model's V divisor, the LLM at `tok`'s vocabulary."""
+    if tok.family != ("qwen" if "Qwen" in llm_model else "llama"):
+        raise ValueError(f"a {tok.family} tokenizer for {llm_model}")
+    if whisper_input_mode not in ("pad30s", "bucket"):
+        raise ValueError(f"whisper_input_mode {whisper_input_mode!r}")
+    lora = LoRAConfig(rank_divisor=32, alpha=4, task_specific=True,
+                      v_out_divisor=default_v_divisor(llm_model))
+    cfg = OmniConfig(
+        llm_model=llm_model,
+        llm=LLM_REGISTRY[llm_model](lora=lora, vocab_size=tok.vocab_size),
+        whisper=whisper_medium_en(), avhubert=avhubert_large(),
+        whisper_input_mode=whisper_input_mode,
+    )
     return OmniAVSR(cfg, tok, dtype=dtype)

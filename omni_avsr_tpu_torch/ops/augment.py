@@ -6,7 +6,7 @@
   video eval : /255 -> CenterCrop(88) -> Grayscale -> Normalize
   audio train: AdaptiveTimeMask(6400, 16000) -> AddNoise(babble, random SNR)
                -> per-utterance layer_norm(eps 1e-8)
-  audio eval : per-utterance layer_norm
+  audio eval : [AddNoise(babble, fixed SNR)] -> per-utterance layer_norm
 
 Every random draw comes from an explicit `torch.Generator` and lands on
 its device. `jax.random` and torch draw different bits from the same seed,
@@ -136,11 +136,15 @@ def video_pipeline(video_u8: torch.Tensor, lengths: torch.Tensor, train: bool = 
 def audio_pipeline(audio: torch.Tensor, lengths: torch.Tensor, train: bool = False,
                    generator: Optional[torch.Generator] = None,
                    noise_bank: Optional[torch.Tensor] = None,
+                   snr_target: Optional[float] = None,
                    snr_choices: Sequence[float] = SNR_CHOICES, mask_window: int = 6400,
                    mask_stride: int = 16000) -> torch.Tensor:
     """(B, S) -> per-utterance standardised waveform. Train mode masks time
     spans and, given a noise bank, mixes babble at an SNR drawn from
-    `snr_choices` per sample, all from `generator`."""
+    `snr_choices` per sample, all from `generator`. Eval mode with a noise
+    bank and `snr_target` below 999998 (the clean choice) mixes it at that
+    fixed SNR, the reference's noise-robustness evaluation, its offsets
+    drawn from `generator`."""
     B, S = audio.shape
     x = audio
     if train:
@@ -151,4 +155,7 @@ def audio_pipeline(audio: torch.Tensor, lengths: torch.Tensor, train: bool = Fal
             pick = _randint(generator, 0, len(snr_choices), (B,), x.device)
             snr = torch.tensor(snr_choices, device=x.device)[pick]
             x = add_noise_snr(generator, x, lengths, noise_bank, snr)
+    elif snr_target is not None and snr_target < 999998 and noise_bank is not None:
+        snr = torch.full((B,), float(snr_target), device=x.device)
+        x = add_noise_snr(generator, x, lengths, noise_bank, snr)
     return utterance_layer_norm(x, lengths)

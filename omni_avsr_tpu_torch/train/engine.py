@@ -11,7 +11,10 @@ into the masters and applies AdamW with the global-norm clip.
 
 `augment=False` trains on the decode-time computation end to end: eval
 preprocessing, eval-mode BN and no dropout (the JAX package's setting for
-its WER probe, `benchmarks/wer_probe.py`). Decoding lives in `serve.py`.
+its WER probe, `benchmarks/wer_probe.py`). `decode_batch` decodes a test
+batch through `serve.py`'s decode body, with babble mixed at a fixed SNR
+when `decode_snr_target` is set (the reference's noise-robustness
+evaluation).
 `conv_kernel=True` runs the ResNet trunk's convs through the fused conv
 B7, as the JAX package's `OMNI_CONV_KERNEL=1` does in its train step too
 (the raw convs of train-mode BN; the frozen trunk takes no grad).
@@ -20,7 +23,7 @@ B7, as the JAX package's `OMNI_CONV_KERNEL=1` does in its train step too
 from __future__ import annotations
 
 import random
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +52,7 @@ class OmniEngine:
         steps_per_epoch: float = 1000.0,
         unfrozen_modules: Tuple[str, ...] = ("peft_llm", "lora_avhubert"),
         noise_bank: Optional[np.ndarray] = None,
+        decode_snr_target: Optional[float] = None,
         seed: int = 42,
         augment: bool = True,
         device="cuda",
@@ -62,6 +66,9 @@ class OmniEngine:
         self.augment = augment
         self.noise_bank = (torch.as_tensor(noise_bank, device=self.device)
                            if noise_bank is not None else None)
+        # babble mixed at this fixed SNR into decode_batch's audio (None: clean)
+        self.decode_snr_target = decode_snr_target
+        self.last_decode_steps = 0  # decode steps of the last decode_batch
         self._py_rng = random.Random(seed)
         # augmentation, dropout and layerdrop draws (on the device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -130,6 +137,30 @@ class OmniEngine:
         rate_a, rate_v = self.sample_rates()
         arrays, trim = self._arrays(batch)
         return self._loss(arrays, rate_a, rate_v, trim, is_train=False)
+
+    def decode_batch(self, params: Dict[str, Any], batch: Dict[str, Any], modality: str,
+                     rate_a: Optional[int] = None, rate_v: Optional[int] = None,
+                     num_beams: Optional[int] = None, max_new: Optional[int] = None) -> List[str]:
+        """Decoded transcripts of a padded (test) batch
+        (`omni_avsr_tpu/train/engine.py:330-356`): eval preprocessing with
+        the engine's noise bank mixed at `decode_snr_target` (its offsets
+        from the engine's generator), then `Transcriber`'s decode body on
+        `params` (e.g. `merged_params()`, or a quantised serving tree).
+        `batch` holds numpy arrays and may carry "audio_trim_len" (else
+        1500) and "gold_text"; rates default to each modality's first."""
+        from ..serve import decode_padded, ids_to_texts
+
+        trim = int(batch.get("audio_trim_len", 1500))
+        arrays = {k: v for k, v in batch.items() if k not in ("gold_text", "audio_trim_len")}
+        out = decode_padded(
+            self.model, params, arrays, modality, rate_a or self.cfg.audio_rates[0],
+            rate_v or self.cfg.video_rates[0], trim,
+            self.cfg.num_beams if num_beams is None else num_beams,
+            self.cfg.max_dec_tokens if max_new is None else max_new, self.device,
+            conv_kernel=self.conv_kernel, noise_bank=self.noise_bank,
+            snr_target=self.decode_snr_target, generator=self.generator)
+        self.last_decode_steps = out.steps
+        return ids_to_texts(self.model.tok, out.tokens)
 
     def merged_params(self) -> Dict[str, Any]:
         """The full tree for serving: masters in the compute dtype, detached."""

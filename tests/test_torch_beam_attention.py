@@ -73,9 +73,11 @@ def _jax_kernel(K):
 
 # (B, K, G, Hkv, D, P, N) x step in {0, mid, N-1}: K from 1 (greedy) to 15
 # (serving) and past 64 (65, 80: more beams than one 64-bit mask word),
-# GQA groups 1-4 and 40, batch 1-3, head dims 16 and 64
+# GQA groups 1-4 and 40, the Qwen2.5 groups 7 (7B: 28 over 4 heads) and 6
+# (1.5B) at head dim 128, batch 1-3, head dims 16 and 64
 SHAPES = [(1, 15, 4, 2, 16, 48, 32), (2, 3, 2, 4, 64, 16, 8), (3, 1, 1, 4, 16, 24, 8),
-          (1, 65, 1, 2, 16, 24, 8), (2, 80, 2, 1, 16, 16, 6), (1, 3, 40, 2, 16, 20, 8)]
+          (1, 65, 1, 2, 16, 24, 8), (2, 80, 2, 1, 16, 16, 6), (1, 3, 40, 2, 16, 20, 8),
+          (1, 15, 7, 4, 128, 40, 8), (2, 15, 6, 2, 128, 24, 8)]
 CASES = [(*s, step) for s in SHAPES for step in (0, s[-1] // 2 + 1, s[-1] - 1)]
 
 
@@ -126,6 +128,7 @@ def test_bf16_plain_follows_the_kernel_casts():
 # middle run holds only masked keys.
 SPLIT_CASES = [
     (2, 15, 4, 2, 16, 176, 32, 17, None),
+    (3, 15, 7, 4, 128, 176, 32, 17, None),  # Qwen2.5-7B: 105 rows a kv head, two row chunks
     (1, 65, 1, 2, 16, 40, 8, 5, None),
     (1, 1, 4, 2, 16, 130, 8, 0, None),
     (1, 5, 2, 2, 16, 40, 8, 8, None),

@@ -58,6 +58,10 @@ def _beam_case(B, K, Hq, Hkv, D, P, N, device, seed):
     (2, 65, 32, 8, 64, 176, 32, 17),   # 65 beams: past one 64-bit mask word
     (1, 80, 8, 4, 128, 96, 16, 9),     # 80 beams, G 2, head dim 128
     (1, 128, 32, 8, 64, 176, 32, 31),  # 128 beams, the last slot
+    (3, 15, 28, 4, 128, 176, 32, 17),  # Qwen2.5-7B: G 7, 105 rows a kv head, beams straddle 64
+    (1, 15, 28, 4, 128, 176, 32, 31),  # G 7, the last slot
+    (2, 15, 12, 4, 128, 96, 32, 5),    # G 3, head dim 128
+    (3, 15, 12, 2, 128, 176, 32, 17),  # Qwen2.5-1.5B: G 6
 ])
 def test_beam_attention_kernel_matches_plain(cuda_device, B, K, Hq, Hkv, D, P, N, step):
     """bf16 in and out; the kernel keeps the probabilities in f32 where the
@@ -161,6 +165,12 @@ def _quant_inputs(M, K, N, device, seed, bits=8):
     (4500, 4096, 1024, True),   # Whisper fc2
     (1, 64, 16, True),          # smallest
     (7, 48, 37, False),         # K not a multiple of 64, N of 16
+    (45, 3584, 4608, False),    # Qwen2.5-7B decode q|k|v (the bias is added after)
+    (45, 3584, 37888, False),   # Qwen2.5-7B decode gate|up
+    (45, 18944, 3584, False),   # Qwen2.5-7B decode down: K 18944
+    (45, 3584, 151650, True),   # Qwen2.5-7B's untied lm_head: odd N, f32 logits
+    (528, 3584, 4608, False),   # Qwen2.5-7B prefill q|k|v
+    (528, 18944, 3584, False),  # Qwen2.5-7B prefill down
 ])
 def test_quantized_matmul_kernel_matches_plain(cuda_device, M, K, N, out_f32):
     from omni_avsr_tpu_torch.ops.quant import (
@@ -180,6 +190,24 @@ def test_quantized_matmul_kernel_matches_plain(cuda_device, M, K, N, out_f32):
     assert out.dtype == ref.dtype and out.shape == (M, N)
     tol = dict(atol=1e-3, rtol=1e-3) if out_f32 else dict(atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_biased_leaf(cuda_device):
+    """A Qwen q|k|v leaf as the serving tree holds it: int8 codes in the
+    card layout, the f32 scale and the bias, which `linear` adds after B2."""
+    from omni_avsr_tpu_torch.models.common import linear
+    from omni_avsr_tpu_torch.ops.quant import arrange_for_card, quantized_matmul_plain
+
+    x, q = _quant_inputs(45, 3584, 4608, cuda_device, seed=11)
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    b = torch.randn(4608, generator=g, device=cuda_device).to(torch.bfloat16)
+    leaf = arrange_for_card({**q, "b": b})
+    assert set(leaf) == {"wc", "s", "b"}
+    out = linear(x, leaf)
+    ref = quantized_matmul_plain(x, leaf) + b
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda

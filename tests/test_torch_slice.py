@@ -136,6 +136,10 @@ def test_no_jax_imports(target):
         assert {"train/engine.py", "train/state.py", "train/optim.py", "train/checkpoint.py",
                 "ops/flash_attention_bwd.py", "decode/decoding.py", "ops/select_topk.py",
                 "ops/conv_block.py"} <= names
+        # and the registry slice's: the model registry, `registry_model`, the
+        # tokenizer, rope, the eval noise branch and the single-request API
+        assert {"config.py", "models/omni.py", "data/tokenizer.py", "ops/rope.py",
+                "ops/augment.py", "serve.py", "bridge.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
