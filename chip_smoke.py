@@ -84,7 +84,25 @@ Phases, each printing lines with the elapsed seconds:
      step's loss and trainable grads through the kernels and through the
      plain B3/B4, with the same random draws; then the first step once more
      on a fresh engine with `conv_kernel=True` (B7 in the ResNet's raw
-     train-mode convs, 19 launches), its loss beside the first step's.
+     train-mode convs, 19 launches), its loss beside the first step's;
+  8. (f), corpus eval + train at full width, as the CLIs run it: a corpus
+     written by `data/synthetic.py::generate_corpus` (8 train, 2 val and 6
+     test clips of 150-160 frames, seed 0) and read by `DataModule`;
+     `test_batches(3)` of each task at its first rates through
+     `OmniEngine.decode_batch` on the int8 tree `eval_omni
+     --quantize-decode int8` builds (the flagship, 30 s window, beam 15, 32
+     new tokens), WER by `WerAccumulator`, each batch's B1, B2 and B3
+     launches held to the count the path must give; then two epochs of
+     `train_batches` through `OmniEngine.train_step` with validation and
+     `save_checkpoint` after each, every step's B3 and B4 launches held to
+     the count its rates and lengths give, then `restore_checkpoint` (the
+     restored state must equal the saved one) and `average_last_n` (the
+     mean of the two checkpoints), each timed;
+  9. the two CLIs as a user runs them, as subprocesses on the card:
+     `eval_omni --synthetic 2 --num-beams 2 --max-dec-tokens 4` with
+     `--quantize-decode int8` and with `int4`, and `train_omni --synthetic
+     4 --max-epochs 2`: exit 0, the result keys, the checkpoints and
+     `model_avg_4`.
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1326,6 +1344,289 @@ def train_phase():
     return row, agree, conv_row
 
 
+# ------------------------------------------------- (f): corpus eval + train
+
+# (f)'s corpus: `generate_corpus` with the JAX function's parameters, clips
+# of 150-160 frames (6.0-6.4 s, the length of (b)'s requests), seed 0
+CORPUS_F = dict(n_train=8, n_val=2, n_test=6, min_frames=150, max_frames=160, seed=0)
+F_TASKS = (("audio", 4, None), ("video", None, 2), ("audiovisual", 4, 2))  # first rates
+
+
+def _tensor_leaves(x):
+    """The tensors of a nested dict / list / tuple (a parameter tree, a
+    TrainState with its optimizer state), dict keys in sorted order."""
+    if isinstance(x, dict):
+        for k in sorted(x):
+            yield from _tensor_leaves(x[k])
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensor_leaves(v)
+    elif hasattr(x, "is_floating_point"):
+        yield x
+
+
+def eval_launches(model, task: str, steps: int, video_frames: int):
+    """What one test batch of `task` must launch at pad30s with the int8
+    tree: B1 in every LLM layer of every decode step; B2 in the six
+    matrices of every layer of each tower the task runs and in every LLM
+    matrix of the prefill and of each decode step; B3 in Whisper's layers
+    (T 1500), and in AV-HuBERT's when its padded video reaches the flash
+    gate."""
+    from omni_avsr_tpu_torch.ops.attention import FLASH_MIN_T_TRAIN
+
+    c = model.cfg
+    use_a, use_v = task != "video", task != "audio"
+    L, W, A = c.llm.num_layers, c.whisper.num_layers, c.avhubert.encoder_layers
+    return counts(B1=L * steps,
+                  B2=6 * (W * use_a + A * use_v) + (4 * L + 1) * (1 + steps),
+                  B3=W * use_a + A * (use_v and video_frames >= FLASH_MIN_T_TRAIN))
+
+
+def corpus_phase(work: Path):
+    """(f): a corpus written by `generate_corpus`, read by `DataModule`,
+    evaluated and trained on at full width as `cli/eval_omni.py` and
+    `cli/train_omni.py` do. Evaluation: `test_batches(3)` of each task at
+    its first rates through `OmniEngine.decode_batch` on the int8 tree of
+    `eval_omni --quantize-decode int8` (beam 15, 32 new tokens, the 30 s
+    window), WER by `WerAccumulator`. Training: two epochs of
+    `train_batches` through `OmniEngine.train_step`, `save_checkpoint`
+    after each, then `restore_checkpoint` and `average_last_n`. Every batch
+    and step has its launches held to the count the path must give.
+    Returns the rows by configuration."""
+    import shutil
+
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.cli.eval_omni import decode_tree
+    from omni_avsr_tpu_torch.config import DataConfig, TrainConfig
+    from omni_avsr_tpu_torch.data.datamodule import DataModule
+    from omni_avsr_tpu_torch.data.noise import load_noise_bank
+    from omni_avsr_tpu_torch.data.synthetic import generate_corpus
+    from omni_avsr_tpu_torch.models.omni import flagship
+    from omni_avsr_tpu_torch.ops.attention import FLASH_MIN_T_TRAIN
+    from omni_avsr_tpu_torch.train.checkpoint import (
+        average_last_n,
+        latest_checkpoint,
+        list_checkpoints,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from omni_avsr_tpu_torch.train.engine import OmniEngine
+    from omni_avsr_tpu_torch.train.state import TrainState
+    from omni_avsr_tpu_torch.utils.metrics import WerAccumulator
+
+    shutil.rmtree(work, ignore_errors=True)
+    t = time.perf_counter()
+    corpus = work / "corpus"
+    train_csv, val_csv, test_csv = generate_corpus(str(corpus), **CORPUS_F)
+    log("corpus", f"(f) generate_corpus {json.dumps(CORPUS_F)} in {time.perf_counter() - t:.1f} s")
+    data_cfg = DataConfig(root_dir=str(corpus), train_file=train_csv, val_file=val_csv,
+                          test_file=test_csv, num_workers=4)
+    model = flagship(tiny=False)  # pad30s, beam 15, 32 new tokens
+    params = init_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    engine = OmniEngine(model, params, TrainConfig(), 1.0, seed=0, device=DEV)
+    tree = decode_tree(engine, "int8")  # as `eval_omni --quantize-decode int8` builds it
+    fns = counters()
+    rows = {}
+    for task, ra, rv in F_TASKS:
+        dm = DataModule(data_cfg, model.tok, modality=task)
+        # a warm pass over the test set (first use of the task's shapes), then
+        # the measured one; every batch's launches held to the count
+        for measured in (False, True):
+            acc = WerAccumulator()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, launches_each, steps_each, shapes, clip_s = [], [], [], [], 0.0
+            for batch in dm.test_batches(3):
+                reset_counts(fns)
+                t = time.perf_counter()
+                hyps = engine.decode_batch(tree, batch, task, ra, rv)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                launches = {name: fn.launches for name, fn in fns.items()}
+                frames = batch["video"].shape[1] if "video" in batch else 0
+                want = eval_launches(model, task, engine.last_decode_steps, frames)
+                if launches != want:
+                    raise RuntimeError(f"(f) eval {task}: kernel launches {launches}, expected "
+                                       f"{want} for {engine.last_decode_steps} decode steps")
+                if (len(hyps) != len(batch["gold_text"])
+                        or not all(isinstance(h, str) for h in hyps)):
+                    raise RuntimeError(f"(f) eval {task}: bad hypotheses {hyps!r}")
+                for ref, hyp in zip(batch["gold_text"], hyps):
+                    acc.update(ref, hyp)
+                launches_each.append(launches)
+                steps_each.append(engine.last_decode_steps)
+                shapes.append(dict(clips=len(hyps), video_frames=frames,
+                                   audio_trim=batch.get("audio_trim_len")))
+                clip_s += (batch["audio_len"].sum() / 16000 if "audio_len" in batch
+                           else batch["video_len"].sum() / 25.0)
+            if not measured:
+                warm_s = times
+        if acc.total_length == 0 or not np.isfinite(acc.wer):
+            raise RuntimeError(f"(f) eval {task}: WER {acc.wer} over {acc.total_length} words")
+        row = dict(config=f"(f) eval {task} a={ra} v={rv}, pad30s int8 beam 15",
+                   batches=len(times), batch_s_each=times, warm_pass_batch_s=warm_s,
+                   s_per_batch=float(np.median(times)), audio_s=float(clip_s),
+                   audio_s_per_s=float(clip_s / sum(times)), decode_steps_each=steps_each,
+                   batch_shapes=shapes, launches=launches_each[-1], launches_each=launches_each,
+                   wer=acc.wer, wer_counts=[acc.total_edit_distance, acc.total_length],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log("corpus", json.dumps(row))
+        for ref, hyp in zip(batch["gold_text"], hyps):
+            log("corpus", f"{task}: GOLD {ref!r} HYP {hyp[:80]!r}")
+        rows[f"f {task}"] = row
+    profile_batch("(f) eval audiovisual", lambda: engine.decode_batch(tree, batch, "audiovisual",
+                                                                      4, 2))
+    del tree, engine
+    torch.cuda.empty_cache()
+
+    # training, as `train_omni` runs it: the epoch's bucketed batches, the
+    # engine's random rates (recorded to derive each step's launches)
+    dm = DataModule(data_cfg, model.tok)
+    steps_per_epoch = dm.steps_per_epoch()
+    engine = OmniEngine(model, params, TrainConfig(lr=1e-3, max_epochs=2), steps_per_epoch,
+                        noise_bank=load_noise_bank(None), seed=0, device=DEV)
+    del params
+    rates = []
+    sample = engine.sample_rates
+    engine.sample_rates = lambda: rates.append(sample()) or rates[-1]
+    ckpt_dir = work / "train" / "checkpoints"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches_each, losses, batch_shapes, save_s, val_losses = [], [], [], [], [], []
+    for epoch in range(2):
+        for batch in dm.train_batches(epoch):
+            reset_counts(fns)
+            t = time.perf_counter()
+            loss = float(engine.train_step(batch))  # a host sync: the step has ended
+            times.append(time.perf_counter() - t)
+            launches = {name: fn.launches for name, fn in fns.items()}
+            ra, rv = rates[-1]
+            frames = batch["video"].shape[1]
+            lengths = llm_lengths(model, batch["audio_trim_len"], ra, rv, frames,
+                                  batch["tokens"].shape[1])
+            flash = sum(n >= FLASH_MIN_T_TRAIN for n in lengths.values())
+            video_layers = model.last_video_layers if frames >= FLASH_MIN_T_TRAIN else 0
+            want = train_launches(model, flash, video_layers)
+            if launches != want:
+                raise RuntimeError(f"(f) train step: kernel launches {launches}, expected {want} "
+                                   f"(rates {ra}/{rv}, LLM lengths {lengths}, video {frames})")
+            if not np.isfinite(loss):
+                raise RuntimeError(f"(f) train step: loss {loss}")
+            losses.append(loss)
+            launches_each.append(launches)
+            batch_shapes.append(dict(clips=int(batch["video"].shape[0]), video_frames=frames,
+                                     audio_trim=batch["audio_trim_len"], rates=[ra, rv],
+                                     llm_lengths=lengths))
+        val = [float(engine.eval_step(b)[0]) for b in dm.val_batches()]
+        val_losses.append(float(np.mean(val)))
+        t = time.perf_counter()
+        save_checkpoint(str(ckpt_dir), engine.state.step, engine.state, keep=4)
+        save_s.append(time.perf_counter() - t)
+    if len(list_checkpoints(str(ckpt_dir))) != 2:
+        raise RuntimeError(f"(f) checkpoints: {list_checkpoints(str(ckpt_dir))}")
+    t = time.perf_counter()
+    restored = restore_checkpoint(latest_checkpoint(str(ckpt_dir)), DEV)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    saved, back = list(_tensor_leaves(engine.state)), list(_tensor_leaves(restored))
+    if restored.step != engine.state.step or len(saved) != len(back) or not all(
+            torch.equal(a.detach(), b.detach()) for a, b in zip(saved, back)):
+        raise RuntimeError("(f) the restored state differs from the saved one")
+    t = time.perf_counter()
+    avg = average_last_n(str(ckpt_dir), 2)
+    average_s = time.perf_counter() - t
+    first, last = (restore_checkpoint(p, "cpu").trainable for p in list_checkpoints(str(ckpt_dir)))
+    want_avg = [((a.detach().double() + b.detach().double()) / 2).float()
+                for a, b in zip(_tensor_leaves(first), _tensor_leaves(last))]
+    if not all(torch.equal(a, b) for a, b in zip(_tensor_leaves(avg), want_avg)):
+        raise RuntimeError("(f) average_last_n is not the mean of the two checkpoints")
+    t = time.perf_counter()
+    save_checkpoint(str(work / "train" / "model_avg_2"), engine.state.step,
+                    TrainState(engine.state.step, avg, engine.state.opt_state), keep=0)
+    avg_save_s = time.perf_counter() - t
+    # one more step, after the checks, under the profiler
+    profile_batch("(f) train step", lambda: engine.train_step(batch))
+    n_train = sum(int(v.numel()) for v in _tensor_leaves(engine.state.trainable))
+    ckpt_mb = Path(latest_checkpoint(str(ckpt_dir))).stat().st_size / 2**20
+    row = dict(config="(f) train, DataModule batches, pad30s", steps_per_epoch=steps_per_epoch,
+               steps=len(times), step_s_each=times, s_per_step=float(np.median(times)),
+               losses=losses, val_losses=val_losses, batch_shapes=batch_shapes,
+               launches=launches_each[-1], launches_each=launches_each, save_s_each=save_s,
+               restore_s=restore_s, average_s=average_s, average_save_s=avg_save_s,
+               checkpoint_mib=ckpt_mb, trainable_params=n_train,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("corpus", json.dumps(row))
+    rows["f train"] = row
+    del engine, restored, avg
+    torch.cuda.empty_cache()
+    return rows
+
+
+# Runs a CLI module as `python -m` does (`runpy`, as `__main__`, with its
+# arguments in `sys.argv`), then prints the kernels' launches in its process
+# on the last line.
+RUN_COUNTED = """
+import json, runpy, sys
+from chip_smoke import counters
+fns = counters()
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+print(json.dumps({name: fn.launches for name, fn in fns.items()}))
+"""
+
+
+def cli_phase(work: Path):
+    """Both CLIs as a user runs them, as subprocesses on the card
+    (`--synthetic` runs at the JAX CLI's tiny widths): `eval_omni` with the
+    int8 and the packed-int4 decode tree, `train_omni` for two epochs.
+    Each must exit 0 and give the result keys and files; the int8 run must
+    launch B2 and the int4 run B6."""
+    root = Path(__file__).resolve().parent
+    grid = [f"{t} (a={a}, v={v})" for t, a, v in
+            [("audio", 4, None), ("audio", 16, None), ("video", None, 2), ("video", None, 5)]
+            + [("audiovisual", a, v) for a in (4, 16) for v in (2, 5)]]
+    runs = [(f"eval_omni {q}", ["eval_omni", "--synthetic", "2", "--num-beams", "2",
+                                "--max-dec-tokens", "4", "--quantize-decode", q,
+                                "--print-hyp", "false", "--exp-dir", str(work / f"eval_{q}"),
+                                "--output-json", str(work / f"eval_{q}.json")])
+            for q in ("int8", "int4")]
+    runs.append(("train_omni", ["train_omni", "--synthetic", "4", "--max-epochs", "2",
+                                "--exp-dir", str(work / "cli_train")]))
+    rows = []
+    for label, argv in runs:
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", RUN_COUNTED,
+                               f"omni_avsr_tpu_torch.cli.{argv[0]}", *argv[1:]], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise RuntimeError(f"{label}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        launches = json.loads(proc.stdout.splitlines()[-1])
+        kernel = {"eval_omni int8": "B2", "eval_omni int4": "B6"}.get(label)
+        if kernel and not launches[kernel]:
+            raise RuntimeError(f"{label}: no {kernel} launch ({launches})")
+        if label.startswith("eval"):
+            wer = json.loads(Path(argv[-1]).read_text())
+            if list(wer) != grid:
+                raise RuntimeError(f"{label}: result keys {list(wer)}, expected {grid}")
+            result = dict(keys=len(wer), wer=wer)
+        else:
+            exp = work / "cli_train" / "omni"
+            ckpts = sorted(p.name for p in (exp / "checkpoints").glob("step_*.pt"))
+            avg = sorted(p.name for p in (exp / "model_avg_4").glob("step_*.pt"))
+            recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+            wer = sorted(k for r in recs for k in r if k.startswith("wer/"))
+            if len(ckpts) != 2 or not avg or len(wer) != 12 or "epoch 1:" not in proc.stdout:
+                raise RuntimeError(f"{label}: checkpoints {ckpts}, average {avg}, WER keys {wer}")
+            result = dict(checkpoints=ckpts, model_avg_4=avg, wer_keys=len(wer))
+        row = dict(cli=label, exit=proc.returncode, wall_s=dt, launches=launches, **result)
+        log("cli", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
 def device_activities(run, least: int = 1, attempts: int = 3):
     """(name, device us) of each device activity that one call of `run`
     starts, from torch.profiler. The profiler at times drops a capture's
@@ -1458,7 +1759,7 @@ def main() -> int:
                               decode_snr_target=0.0, seed=0, device="cuda")
     del params
     torch.cuda.synchronize()
-    n_params = sum(int(v.numel()) for v in _leaves(server_a.params))
+    n_params = sum(int(v.numel()) for v in _tensor_leaves(server_a.params))
     log("model", f"flagship full width on the card, three serving trees (int8 30 s window, int8 "
         f"bucketed, int4 bucketed): {n_params / 1e9:.3f} B parameters in the int8 tree, "
         f"{time.perf_counter() - t:.1f} s")
@@ -1547,7 +1848,7 @@ def main() -> int:
     t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(model_e.cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    n_bf16 = sum(int(v.numel()) for v in _leaves(params))
+    n_bf16 = sum(int(v.numel()) for v in _tensor_leaves(params))
     server_e = Transcriber(model_e, params, quantize="int8", device="cuda")
     del params
     torch.cuda.synchronize()
@@ -1585,6 +1886,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rows["train"], train_agree, rows["train conv"] = train_phase()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    rows.update(corpus_phase(work))
+    cli_rows = cli_phase(work)
 
     def entry(key, name, source, replaces, row, config, shape):
         """The kernel's line: its launches in the configuration whose main
@@ -1644,14 +1948,6 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
 
 
 if __name__ == "__main__":

@@ -121,6 +121,8 @@ def _init_llm(ini: _Init, cfg: LLMConfig) -> Params:
             }
 
         layers["lora"] = {m: pair() for m in MODALITIES} if cfg.lora.task_specific else pair()
+        if cfg.lora.task_specific and cfg.lora.shared:  # the hybrid's shared adapter
+            layers["lora_shared"] = pair()
     params: Params = {
         "embed": {"w": ini.normal((cfg.vocab_size, h), 0.02)},
         "layers": layers,

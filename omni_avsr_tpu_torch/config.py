@@ -270,3 +270,24 @@ class TrainConfig:
     num_checkpoints_to_average: int = 4
     log_every_steps: int = 50
     checkpoint_dir: str = "checkpoints"
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Data pipeline config (`datamodule/data_module.py:147-243`)."""
+
+    root_dir: str = ""
+    train_file: str = ""
+    val_file: str = ""
+    test_file: str = ""
+    dataset_name: str = "lrs3"
+    max_frames_audio: int = 1500
+    max_frames_video: int = 1000
+    max_frames_audiovisual: int = 1000
+    train_num_buckets: int = 400
+    num_workers: int = 5
+    decode_snr_target: float = 999999.0
+    # collation pads video to a multiple of this many frames and audio to
+    # 640 samples per padded frame (16 kHz / 25 fps, `av_dataset.py:55`)
+    video_pad_multiple: int = 32
+    audio_samples_per_frame: int = 640

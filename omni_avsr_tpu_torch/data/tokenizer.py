@@ -1,9 +1,12 @@
-"""Tokenizer interface plus the offline synthetic tokenizer.
+"""Tokenizer interface, the HF tokenizer wrapper and the offline synthetic
+tokenizer.
 
-A numpy-only copy of `TokenizerBundle` and `synthetic_tokenizer` from the
-JAX package (`omni_avsr_tpu/data/tokenizer.py`); the reference's template
-rules (`Omni_AVSR/lightning_OmniAVSR.py:53-91`) are the same: Llama encodes
-"<bos> $A <eos>", and the prompt buffer is input_ids[1:-1].
+A numpy-only copy of `TokenizerBundle`, `load_hf_tokenizer` and
+`synthetic_tokenizer` from the JAX package (`omni_avsr_tpu/data/tokenizer.py`);
+the reference's template rules (`Omni_AVSR/lightning_OmniAVSR.py:53-91`)
+are the same: Llama encodes "<bos> $A <eos>" with an added <pad> and the
+four AV delimiters, Qwen "$A <eos>" with pad = EOS, and the prompt buffer is
+input_ids[1:-1] (Llama) or [:-1] (Qwen).
 """
 
 from __future__ import annotations
@@ -56,6 +59,43 @@ class TokenizerBundle:
             self.video_sos_id, self.video_eos_id,
         }
         return self._decode([i for i in ids if i not in specials])
+
+
+def load_hf_tokenizer(llm_model: str) -> TokenizerBundle:
+    """Wrap the HF tokenizer of `llm_model` (a hub name or a local
+    directory; `transformers` is imported here, on first use)."""
+    from transformers import AutoTokenizer
+
+    family = "qwen" if "Qwen" in llm_model else "llama"
+    tok = AutoTokenizer.from_pretrained(llm_model)
+    delimiters = [AUDIO_SOS, AUDIO_EOS, VIDEO_SOS, VIDEO_EOS]
+    if family == "llama":
+        tok.add_special_tokens({"pad_token": DEFAULT_PAD,
+                                "additional_special_tokens": delimiters})
+        pad_id = tok.convert_tokens_to_ids(DEFAULT_PAD)
+        bos_id = tok.bos_token_id
+    else:
+        tok.add_special_tokens({"additional_special_tokens": delimiters})
+        pad_id = tok.eos_token_id
+        bos_id = None
+    tok.padding_side = "right"
+
+    def encode_plain(text: str) -> List[int]:
+        return tok(text, add_special_tokens=False).input_ids
+
+    return TokenizerBundle(
+        family=family,
+        vocab_size=len(tok),
+        bos_id=bos_id,
+        eos_id=tok.eos_token_id,
+        pad_id=pad_id,
+        audio_sos_id=tok.convert_tokens_to_ids(AUDIO_SOS),
+        audio_eos_id=tok.convert_tokens_to_ids(AUDIO_EOS),
+        video_sos_id=tok.convert_tokens_to_ids(VIDEO_SOS),
+        video_eos_id=tok.convert_tokens_to_ids(VIDEO_EOS),
+        _encode_plain=encode_plain,
+        _decode=lambda ids: tok.decode(ids, skip_special_tokens=True),
+    )
 
 
 def synthetic_tokenizer(family: str = "llama", base_vocab: int = 247) -> TokenizerBundle:

@@ -32,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from ..config import LLMConfig
 from ..data.tokenizer import IGNORE_INDEX
 from ..ops.attention import FLASH_MIN_T_TRAIN, NEG_INF, causal_mask, dot_product_attention
-from ..ops.beam_attention import beam_decode_attention
+from ..ops.beam_attention import (PLAIN_HEAD_DIM, beam_decode_attention,
+                                  beam_decode_attention_plain)
 from ..ops.flash_attention_bwd import flash_attention_trainable
 from ..ops.norms import rms_norm
 from ..ops.quant import quantized_matmul, quantized_matmul4
@@ -301,7 +302,13 @@ def llm_decode_step_beam_anc(
         v = v.reshape(BK, 1, cfg.num_kv_heads, cfg.head_dim)
         q, k = apply_rope(q, k, cos, sin)
         k_cur, v_cur = k[:, 0].contiguous(), v[:, 0].contiguous()
-        out = beam_decode_attention(
+        # the CLIs' tiny test model alone runs the same attention as torch
+        # ops, on the card too, where the JAX package leaves its kernel for
+        # its XLA route (`omni_avsr_tpu/decode/decoding.py:337-348`); B1
+        # raises on the card at any other head size it lacks
+        attend = (beam_decode_attention_plain if cfg.head_dim == PLAIN_HEAD_DIM
+                  else beam_decode_attention)
+        out = attend(
             q.contiguous(), cache.prefix_k[i].to(q.dtype), cache.prefix_v[i].to(q.dtype),
             cache.gen_k[i].to(q.dtype), cache.gen_v[i].to(q.dtype), k_cur, v_cur,
             prefix_bias, anc, step, num_beams)

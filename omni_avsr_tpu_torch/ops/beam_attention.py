@@ -37,6 +37,18 @@ _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctype
                                                           ctypes.c_void_p]
 
 
+# The head size of the CLIs' tiny test model (`cli/common.py::tiny_dims`),
+# which the kernel lacks: its decode step takes the plain version, on the
+# card too (`models/llm.py::llm_decode_step_beam_anc`).
+PLAIN_HEAD_DIM = 16
+
+
+def kernel_supported(head_dim: int) -> bool:
+    """Whether the kernel takes this head size (64 or 128), the JAX
+    package's `beam_attn_supported`."""
+    return head_dim in (64, 128)
+
+
 def smem_bytes(K: int, N: int, D: int) -> int:
     """The kernel's shared memory (`csrc/beam_attention.cu::Cfg::smem`):
     two stages of a 64-key K and V tile (rows padded by 8 bf16), each key's
@@ -192,7 +204,7 @@ def _launch(q, pk, pv, gk, gv, k_cur, v_cur, prefix_bias, anc, step, num_beams):
     if Hq % Hkv:
         raise ValueError(f"Hq {Hq} not a multiple of Hkv {Hkv}")
     G = Hq // Hkv
-    if D not in (64, 128):
+    if not kernel_supported(D):
         raise ValueError(f"head_dim {D}: the kernel takes 64 or 128")
     if smem_bytes(K, N, D) > SMEM_LIMIT:
         raise ValueError(f"num_beams {K} at {N} generated slots: the ancestor table, {K} x "

@@ -1,11 +1,11 @@
 """Serving API: raw media in, transcript out (port of `omni_avsr_tpu/serve.py`
-but for `from_pretrained` and `transcribe_file`, and of the decode half of
-`train/engine.py`).
+but for `transcribe_file`, and of the decode half of `train/engine.py`).
 
     from omni_avsr_tpu_torch.models.omni import flagship
     from omni_avsr_tpu_torch.serve import Transcriber
 
     t = Transcriber(model, params, quantize="int8")          # on "cuda"
+    t = Transcriber.from_pretrained("omni.pth", tokenizer=tok, quantize="int8")
     text = t.transcribe(audio=wav16k, video=frames)
     texts = t.transcribe_many([{"audio": wav16k, "video": frames}, ...])
 
@@ -27,11 +27,14 @@ runs the ResNet trunk's 19 convs through the fused conv B7.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .config import OmniConfig
+from .data.tokenizer import TokenizerBundle
 from .decode.decoding import DecodeOutput, beam_search, greedy_decode
 from .models.common import Params
 from .models.omni import OmniAVSR
@@ -193,6 +196,48 @@ class Transcriber:
         self.num_beams = num_beams if num_beams is not None else model.cfg.num_beams
         self.max_new = max_new_tokens if max_new_tokens is not None else model.cfg.max_dec_tokens
         self.last_decode_steps = 0  # decode steps of the last batch
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        checkpoint_path: str,
+        llm_model: str = "meta-llama/Llama-3.2-1B",
+        tokenizer: Optional[TokenizerBundle] = None,
+        cfg: Optional[OmniConfig] = None,
+        base_params: Optional[Params] = None,
+        **kwargs,
+    ) -> "Transcriber":
+        """A trained reference `.pth` (converted by `convert/omni_ckpt.py`),
+        or a directory (or `step_*.pt` file) of the port's own checkpoints,
+        with a tokenizer (`load_hf_tokenizer(llm_model)` when none is
+        given) and the config `registry_model(llm_model)` builds when none
+        is given (`omni_avsr_tpu/serve.py:109-161`). The port's checkpoints
+        hold only the trainable tree, which is merged over `base_params`
+        (the converted frozen weights). `kwargs` go to the constructor
+        (device, quantize, num_beams...)."""
+        from .data.tokenizer import load_hf_tokenizer
+        from .models.omni import registry_model
+
+        tok = tokenizer if tokenizer is not None else load_hf_tokenizer(llm_model)
+        model = OmniAVSR(cfg, tok) if cfg is not None else registry_model(llm_model, tok)
+        if os.path.isdir(checkpoint_path) or os.path.basename(checkpoint_path).startswith("step_"):
+            from .train.checkpoint import resolve_checkpoint, restore_trainable
+            from .train.state import merge_params
+
+            if base_params is None:
+                raise ValueError(
+                    "the port's checkpoints hold only the trainable tree (LoRA and "
+                    "projectors): pass the frozen Whisper, AV-HuBERT and LLM weights as "
+                    "base_params (converted with omni_avsr_tpu_torch.convert, or "
+                    "bridge.init_params for random ones)")
+            trained = restore_trainable(resolve_checkpoint(checkpoint_path),
+                                        kwargs.get("device", "cuda"))
+            params = merge_params(trained, base_params)
+        else:
+            from .convert.omni_ckpt import convert_omni_checkpoint, load_torch_checkpoint
+
+            params = convert_omni_checkpoint(load_torch_checkpoint(checkpoint_path), model.cfg)
+        return cls(model, params, **kwargs)
 
     def decode_ids(self, batch: Dict[str, np.ndarray], modality: str, rate_audio: int,
                    rate_video: int, trim: int, num_beams: int) -> torch.Tensor:

@@ -58,6 +58,22 @@ def restore_checkpoint(path: str, device="cuda") -> TrainState:
     return TrainState(raw["step"], trainable, raw["opt_state"])
 
 
+def restore_trainable(path: str, device="cuda"):
+    """Only the saved trainable tree (f32 masters, not requiring grad), on
+    `device`: what serving merges over the frozen base weights."""
+    return torch.load(path, map_location=device, weights_only=False)["trainable"]
+
+
+def resolve_checkpoint(path: str) -> str:
+    """A `step_*.pt` file as given; a directory -> its newest checkpoint."""
+    if os.path.basename(path).startswith("step_"):
+        return path
+    latest = latest_checkpoint(path)
+    if latest is None:
+        raise FileNotFoundError(f"no step_*.pt checkpoint in {path}")
+    return latest
+
+
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     ckpts = list_checkpoints(ckpt_dir)
     return ckpts[-1] if ckpts else None

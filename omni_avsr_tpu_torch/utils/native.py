@@ -1,0 +1,179 @@
+"""ctypes bindings for the repository's host-side C++ library
+(`native/editdist.cpp`): word edit distance, BLEU n-gram statistics and
+frame-budget bucket packing (port of the subset of
+`omni_avsr_tpu/utils/native.py` that WER, BLEU and batching use).
+
+The library is built with `g++` at first use into `build/native/` at the
+repository root, under a file name that carries a hash of the source, so
+an edited source is rebuilt; `native/` itself is never written. If the
+build fails, the first call raises with the compiler's output: nothing
+falls back to Python quietly. The pure-Python functions beside each entry
+point (`*_py`) are the plain references the tests hold the library to.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import random
+import subprocess
+import threading
+import warnings
+from collections import Counter
+from pathlib import Path
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent.parent
+SOURCE = ROOT / "native" / "editdist.cpp"
+BUILD_DIR = ROOT / "build" / "native"
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libomniavsr-{digest}.so"
+
+
+def _build(out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed to build {SOURCE} (exit {proc.returncode}):\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+
+
+def load() -> ctypes.CDLL:
+    """The library, built on first use; raises if it does not build."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+            lib.edit_distance_ids.restype = ctypes.c_int64
+            lib.edit_distance_ids.argtypes = [_I32P, ctypes.c_int64, _I32P, ctypes.c_int64]
+            lib.bleu_add.restype = None
+            lib.bleu_add.argtypes = [_I32P, ctypes.c_int64, _I32P, ctypes.c_int64, _I64P]
+            lib.bucket_pack.restype = ctypes.c_int64
+            lib.bucket_pack.argtypes = [_I64P, _I64P, ctypes.c_int64, ctypes.c_int64,
+                                        ctypes.c_int64, ctypes.c_int64, _I64P, _I64P]
+            _lib = lib
+        return _lib
+
+
+def _ptr(a: np.ndarray, ct):
+    return a.ctypes.data_as(ctypes.POINTER(ct))
+
+
+def edit_distance_native(a: Sequence[int], b: Sequence[int]) -> int:
+    aa = np.ascontiguousarray(a, np.int32)
+    bb = np.ascontiguousarray(b, np.int32)
+    return int(load().edit_distance_ids(_ptr(aa, ctypes.c_int32), len(aa),
+                                        _ptr(bb, ctypes.c_int32), len(bb)))
+
+
+def edit_distance_py(a: Sequence[int], b: Sequence[int]) -> int:
+    """Levenshtein distance with unit costs, row by row."""
+    a, b = list(a), list(b)
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a, start=1):
+        cur = [i]
+        for j, y in enumerate(b, start=1):
+            cur.append(min(prev[j - 1] + (x != y), prev[j] + 1, cur[j - 1] + 1))
+        prev = cur
+    return prev[-1]
+
+
+def bleu_stats_native(ref: Sequence[int], hyp: Sequence[int], stats: np.ndarray) -> None:
+    """Accumulate clipped n-gram BLEU statistics (orders 1-4) into the int64
+    stats[10]: [ref_len, hyp_len, match1, count1, ..., match4, count4]."""
+    if stats.dtype != np.int64 or stats.shape != (10,) or not stats.flags.c_contiguous:
+        raise ValueError(f"stats must be a contiguous int64 (10,), not {stats.dtype} {stats.shape}")
+    aa = np.ascontiguousarray(ref, np.int32)
+    bb = np.ascontiguousarray(hyp, np.int32)
+    load().bleu_add(_ptr(aa, ctypes.c_int32), len(aa), _ptr(bb, ctypes.c_int32), len(bb),
+                    _ptr(stats, ctypes.c_int64))
+
+
+def bleu_stats_py(ref: Sequence[int], hyp: Sequence[int], stats: np.ndarray) -> None:
+    ref, hyp = list(ref), list(hyp)
+    stats[0] += len(ref)
+    stats[1] += len(hyp)
+    for k in range(1, 5):
+        if len(hyp) - k + 1 <= 0:
+            continue
+        refc = Counter(tuple(ref[i:i + k]) for i in range(len(ref) - k + 1))
+        hypc = Counter(tuple(hyp[i:i + k]) for i in range(len(hyp) - k + 1))
+        stats[2 + 2 * (k - 1)] += sum(min(c, refc[g]) for g, c in hypc.items())
+        stats[3 + 2 * (k - 1)] += len(hyp) - k + 1
+
+
+def bucket_batches_native(lengths: Sequence[int], max_frames: int, num_buckets: int,
+                          shuffle: bool, batch_size: int, seed: int) -> List[List[int]]:
+    """Bucketize the lengths into `num_buckets` equal-width buckets, visit
+    the samples in a seeded permutation (`shuffle`) or longest first, order
+    them by bucket (stable) and pack greedily until `max_frames` frames or
+    `batch_size` samples (0: no limit). Every sample must fit the budget."""
+    n = len(lengths)
+    ls = np.ascontiguousarray(lengths, np.int64)
+    if n and int(ls.max()) > max_frames:
+        raise ValueError(f"a sample of {int(ls.max())} frames exceeds max_frames={max_frames}")
+    if shuffle:
+        order = np.random.RandomState(seed).permutation(n).astype(np.int64)
+    else:
+        order = np.argsort(-ls, kind="stable").astype(np.int64)
+    starts = np.zeros(n + 1, np.int64)
+    members = np.zeros(n, np.int64)
+    nb = int(load().bucket_pack(_ptr(ls, ctypes.c_int64), _ptr(order, ctypes.c_int64), n,
+                                max_frames, num_buckets, batch_size,
+                                _ptr(starts, ctypes.c_int64), _ptr(members, ctypes.c_int64)))
+    return [members[starts[i]:starts[i + 1]].tolist() for i in range(nb)]
+
+
+def bucket_batches_py(lengths: Sequence[int], max_frames: int, num_buckets: int,
+                      shuffle: bool = False, batch_size: Optional[int] = None,
+                      seed: int = 0) -> List[List[int]]:
+    """The Python packer (`omni_avsr_tpu/data/batching.py:31-95`): the same
+    buckets and greedy packing, its shuffle a `random.Random(seed)` shuffle
+    (another permutation than the library's); a sample over the budget
+    becomes a batch of its own, with a warning."""
+    lengths = np.asarray(lengths)
+    lo, hi = int(lengths.min()), int(lengths.max())
+    if hi > max_frames:
+        n_long = int((lengths > max_frames).sum())
+        warnings.warn(f"{n_long} sample(s) exceed max_frames={max_frames} "
+                      f"(longest {hi}); each becomes its own batch")
+    boundaries = np.linspace(lo, hi, num_buckets)
+    assignments = np.searchsorted(boundaries, lengths, side="left")
+    items = [(int(i), int(n), int(b)) for i, (n, b) in enumerate(zip(lengths, assignments))]
+    if shuffle:
+        random.Random(seed).shuffle(items)
+    else:
+        items.sort(key=lambda x: x[1], reverse=True)
+    items.sort(key=lambda x: x[2])  # stable: keeps the order within a bucket
+    batches: List[List[int]] = []
+    cur: List[int] = []
+    cur_frames = 0
+    for idx, length, _ in items:
+        if (cur_frames + length > max_frames) or (batch_size and len(cur) == batch_size):
+            if cur:
+                batches.append(cur)
+            cur, cur_frames = [idx], length
+        else:
+            cur.append(idx)
+            cur_frames += length
+    if cur:
+        batches.append(cur)
+    return batches

@@ -5,7 +5,8 @@ JAX `Transcriber.from_pretrained` builds, the parameter tree
 `bridge.init_params` makes for every registry model (shapes and dtypes,
 on the meta device), the synthetic tokenizer of both families, rope of
 each family, Whisper-base and Whisper-small through the port's encoder,
-and AV-HuBERT-Base (post-LN), which both packages refuse.
+and AV-HuBERT-Base (post-LN), which both packages refuse; every registry
+model's head size is one that the beam-decode kernel B1 takes.
 """
 
 import numpy as np
@@ -44,6 +45,19 @@ def test_registry_entry_matches_jax(name):
     ref = jcfg.LLM_REGISTRY[name](lora=jcfg.LoRAConfig(task_specific=True, v_out_divisor=v),
                                   vocab_size=1000)
     _assert_same_config(ours, ref)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_registry_entry_decodes_through_b1(name):
+    """The beam step runs B1 at every head size but the CLIs' tiny test
+    model's, and B1 raises on the card at a head size it lacks: so every
+    registry model must have one that it takes, or it would fail there."""
+    from omni_avsr_tpu_torch.cli.common import tiny_dims
+    from omni_avsr_tpu_torch.ops.beam_attention import PLAIN_HEAD_DIM, kernel_supported
+
+    head_dim = pcfg.LLM_REGISTRY[name]().head_dim
+    assert kernel_supported(head_dim) and head_dim != PLAIN_HEAD_DIM
+    assert tiny_dims()[2]["head_dim"] == PLAIN_HEAD_DIM and not kernel_supported(PLAIN_HEAD_DIM)
 
 
 @pytest.mark.parametrize("ctor", ["whisper_medium_en", "whisper_small_en", "whisper_base_en",

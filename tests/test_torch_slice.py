@@ -140,6 +140,13 @@ def test_no_jax_imports(target):
         # tokenizer, rope, the eval noise branch and the single-request API
         assert {"config.py", "models/omni.py", "data/tokenizer.py", "ops/rope.py",
                 "ops/augment.py", "serve.py", "bridge.py"} <= names
+        # and the CLI slice's: the data layer, WER/BLEU, the converters, the CLIs
+        assert {"cli/common.py", "cli/eval_omni.py", "cli/train_omni.py",
+                "convert/common.py", "convert/whisper_torch.py", "convert/avhubert_torch.py",
+                "convert/llm_torch.py", "convert/omni_ckpt.py",
+                "data/dataset.py", "data/batching.py", "data/noise.py", "data/synthetic.py",
+                "data/datamodule.py", "utils/native.py", "utils/metrics.py",
+                "utils/logging.py", "utils/profiling.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
