@@ -24,8 +24,8 @@ Phases, each printing lines with the elapsed seconds:
      SDPA and the kernels SDPA ran; and causal / key-length / GQA /
      D 128 / lse / dropout / scale 0 and -0.125 cases), B4 flash backward
      (AV-HuBERT's training shape with
-     key lengths and dropout 0.1, the LLM's causal GQA shape; three calls
-     under the profiler must run its two kernels and nothing else), B2 and
+     key lengths and dropout 0.1, the LLM's causal GQA shape; a CUDA graph
+     of one call must hold its two kernels and nothing else), B2 and
      B6 int8 and packed-int4 matmuls (every decode matrix, the lm_head with
      f32 logits, a tower matrix; in the card layouts of
      `arrange_for_card`), B5 the
@@ -61,7 +61,12 @@ Phases, each printing lines with the elapsed seconds:
      For each, one warm batch and 5 measured ones (3 for greedy; the
      median reported); every kernel counter is set to 0 just before each
      measured batch, read just after, and held to the count the path must
-     give;
+     give. Then (g): `cli/serve_http.py::serve` in front of (a)'s
+     Transcriber, eight client threads posting at once (4 audiovisual
+     requests of 160 frames, 3 audio-only ones of 6.4 s, and one naming
+     "audiovisual" without video, a 400): an audiovisual batch of 4 and an
+     audio batch of 3, each batch's launches held to its count, each text
+     equal to `transcribe_many` of the batch called directly;
   5. B2 at every distinct (M, K, N) that one measured batch of (a), (b)
      and (e) launched it with, and B6 at every one of a (c) batch (the wrappers
      count launches by shape), each against its plain version, timed beside
@@ -85,6 +90,15 @@ Phases, each printing lines with the elapsed seconds:
      plain B3/B4, with the same random draws; then the first step once more
      on a fresh engine with `conv_kernel=True` (B7 in the ResNet's raw
      train-mode convs, 19 launches), its loss beside the first step's;
+     then (h) on (t)'s batch: the Llama-MTSK flagship (one prompt, a
+     modality-agnostic LoRA) through `OmniEngine.single_train_step` on
+     audio, video and audiovisual (the mean over every rate combo), one warm
+     and two measured steps each, and one `single_eval_step`; then the
+     task-specific flagship with `fused_task_forward=True` at rates (4, 2),
+     one warm and two measured `train_step`s (B4 at B 12 x T 347 in the
+     stacked backbone), and in eval mode its per-task losses and one
+     step's grads against the unfused route (bf16, tol 2e-2); every
+     step's B3 and B4 launches held to the count its rate combos give;
   8. (f), corpus eval + train at full width, as the CLIs run it: a corpus
      written by `data/synthetic.py::generate_corpus` (8 train, 2 val and 6
      test clips of 150-160 frames, seed 0) and read by `DataModule`;
@@ -98,11 +112,16 @@ Phases, each printing lines with the elapsed seconds:
      the count its rates and lengths give, then `restore_checkpoint` (the
      restored state must equal the saved one) and `average_last_n` (the
      mean of the two checkpoints), each timed;
-  9. the two CLIs as a user runs them, as subprocesses on the card:
+  9. the CLIs as a user runs them, as subprocesses on the card:
+     `serve_http --synthetic` (/healthz, one audio request, then stopped),
      `eval_omni --synthetic 2 --num-beams 2 --max-dec-tokens 4` with
-     `--quantize-decode int8` and with `int4`, and `train_omni --synthetic
-     4 --max-epochs 2`: exit 0, the result keys, the checkpoints and
-     `model_avg_4`.
+     `--quantize-decode int8` and with `int4`, `train_omni --synthetic 4
+     --max-epochs 2`, `train_llama_avsr --synthetic 6 --max-epochs 1
+     --modality audio`, `eval_llama_avsr --synthetic 4 --modality audio
+     --quantize-decode int8` and `verify_parity --synthetic 2 --modes
+     bf16,int8,int4`: exit 0 (verify_parity 1, all 8 settings measured:
+     random weights fail BASELINE.md), the result keys, the checkpoints and
+     `model_avg_4`; B2 in the int8 runs, B6 in the int4 ones.
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -349,6 +368,8 @@ def check_b3(flush):
          dict(kv_lengths=(300, 280, 260)), True),
         (f"llm causal T {T_LLM_AV} B4 GQA 32/8 lse (train)", B_TRAIN, T_LLM_AV, T_LLM_AV, 32, 8,
          64, dict(causal=True, return_lse=True), True),
+        (f"llm causal T {T_LLM_AV} B12 GQA 32/8 lse (fused train)", 3 * B_TRAIN, T_LLM_AV,
+         T_LLM_AV, 32, 8, 64, dict(causal=True, return_lse=True), True),
         (f"avhubert T {FRAMES_TRAIN} B4 lengths dropout 0.1 lse (train)", B_TRAIN, FRAMES_TRAIN,
          FRAMES_TRAIN, 16, 16, 64, dict(kv_lengths=(320, 301, 280, 257), dropout_rate=0.1,
                                         dropout_seed=seed, return_lse=True), True),
@@ -436,9 +457,10 @@ def valid_pairs(T: int, S: int, causal: bool, lens) -> int:
 
 
 def check_b4(flush):
-    """B4 against its plain version at the training phase's two shapes, both
-    timed against the backward of scaled_dot_product_attention (a
-    yardstick; the port never calls it) and the bound. Returns the rows."""
+    """B4 against its plain version at the training phase's shapes (the
+    fused three-task step's (3B, T) backbone among them), each timed
+    against the backward of scaled_dot_product_attention (a yardstick; the
+    port never calls it) and the bound. Returns the rows."""
     import torch
     import torch.nn.functional as F
 
@@ -452,6 +474,8 @@ def check_b4(flush):
         ("avhubert T 320 lengths dropout 0.1", B_TRAIN, FRAMES_TRAIN, 16, 16, False,
          (320, 301, 280, 257), 0.1),
         (f"llm causal T {T_LLM_AV} GQA 32/8", B_TRAIN, T_LLM_AV, 32, 8, True, None, 0.0),
+        (f"llm causal fused T {T_LLM_AV} B 12 GQA 32/8", 3 * B_TRAIN, T_LLM_AV, 32, 8, True, None,
+         0.0),
     ]
     rows = []
     for name, B, T, Hq, Hkv, causal, lens, rate in cases:
@@ -497,17 +521,28 @@ def check_b4(flush):
         row["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         row["operations_bound_ms"] = flops / BF16_FLOPS * 1e3
         # the wrapper allocates and launches its two kernels, and runs no other
-        # op: three warm calls under the profiler show those two names alone
+        # op: a CUDA graph of one call holds those two kernel nodes alone
+        census = graph_census(lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw))
+        families = sorted((re.search(r"flash_bwd_(dq|dkv)_kernel", n) or [n])[0]
+                          for n in census)
+        if families != ["flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"]:
+            raise RuntimeError(f"B4 {name}: one call put the device work {census} in a graph, "
+                               f"not the two kernels alone")
+        # three warm calls under the profiler, for each kernel's device time; the
+        # profiler may drop records, but a name it does record must be one of the two
         acts = device_activities(lambda: [flash_attention_bwd(q, k, v, o, do, lse, **kw)
                                           for _ in range(3)], least=6)
         by_name: dict = {}
         for n, us in acts:
             by_name.setdefault((re.search(r"(\w+)<", n) or re.search(r"(\w+)\(", n)).group(1),
                                []).append(us)
-        if sorted(by_name) != ["flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"] or len(acts) > 6:
+        if not set(by_name) <= {"flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"} or len(acts) > 6:
             raise RuntimeError(f"B4 {name}: three calls ran the device work {acts}, not the "
                                f"two kernels alone")
-        row["device_kernels_us"] = {n: sum(v) / len(v) for n, v in by_name.items()}
+        row["graph_census"] = census
+        row["device_kernels_us"] = ({n: sum(v) / len(v) for n, v in by_name.items()}
+                                    if len(acts) == 6 else "not measured: the profiler "
+                                    f"recorded {len(acts)} of the 6 device activities")
         log("B4", json.dumps(row))
         rows.append(row)
         profile_batch(f"B4 {name}", lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw))
@@ -1344,6 +1379,337 @@ def train_phase():
     return row, agree, conv_row
 
 
+# ------------------------------------------- (g): the HTTP batching server
+
+G_AV, G_AUDIO, G_FRAMES = 4, 3, 160  # (g)'s requests: 6.4 s each
+# (g)'s batching window. The burst reaches the queue over ~0.2 s on the
+# host (each audiovisual body is 6.4 MB, parsed in ~40 ms under the GIL, one
+# after another), so a 200 ms window splits a group now and then; 1 s holds
+# every request of the burst, and the groups are then its kinds alone.
+G_WAIT_MS = 1000
+
+
+def _request_body(item, modality=None) -> bytes:
+    """A POST /transcribe body: base64 f32 audio, base64 uint8 video."""
+    import base64
+
+    body = {"audio_b64": base64.b64encode(item["audio"].tobytes()).decode()}
+    if "video" in item:
+        body["video_b64"] = base64.b64encode(item["video"].tobytes()).decode()
+        body["video_shape"] = list(item["video"].shape)
+    if modality:
+        body["modality"] = modality
+    return json.dumps(body).encode()
+
+
+def _post(url: str, body: bytes, timeout: float = 600):
+    """(status, JSON reply, wall s as the client sees it)."""
+    import urllib.error
+    import urllib.request
+
+    t = time.perf_counter()
+    req = urllib.request.Request(f"{url}/transcribe", data=body,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t
+
+
+def http_phase(server, model):
+    """(g): `cli/serve_http.py::serve` in front of (a)'s Transcriber (the 30
+    s window, int8, beam 15, 32 tokens), `httpd.serve_forever` on a thread;
+    eight client threads POST at once: 4 audiovisual requests of 160 frames
+    (one bucket class), 3 audio-only ones of 6.4 s, and one that names
+    "audiovisual" and carries no video (a 400). Every decoded batch has its
+    launches counted (`transcribe_many` wrapped: counters set to 0 just
+    before, read just after) and held to the count its modality and decode
+    steps give; each 200's text must equal `transcribe_many` of the same
+    batch called directly; /healthz must count 7 requests and 2 batches."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from omni_avsr_tpu_torch.cli.serve_http import serve as serve_http
+
+    av = make_items([G_FRAMES] * G_AV, seed=7)
+    audio = [{"audio": it["audio"]} for it in make_items([G_FRAMES] * G_AUDIO, seed=8)]
+    bad = {"audio": make_items([G_FRAMES], seed=9)[0]["audio"]}
+    sent = ([(it, _request_body(it)) for it in av] + [(it, _request_body(it)) for it in audio]
+            + [(bad, _request_body(bad, "audiovisual"))])
+    fns = counters()
+    batches = []
+    inner = server.transcribe_many
+
+    def counted(items, **kw):
+        reset_counts(fns)
+        t = time.perf_counter()
+        texts = inner(items, **kw)
+        torch.cuda.synchronize()
+        batches.append(dict(items=items, modality=kw["modality"], texts=texts,
+                            s=time.perf_counter() - t, steps=server.last_decode_steps,
+                            launches={name: fn.launches for name, fn in fns.items()}))
+        return texts
+
+    server.transcribe_many = counted  # the batcher's calls, counted one by one
+    httpd, batcher = serve_http(server, port=0, max_batch=4, max_wait_ms=G_WAIT_MS)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    replies = [None] * len(sent)
+
+    def client(i):
+        replies[i] = _post(url, sent[i][1])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(sent))]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+        health = json.loads(r.read())
+    httpd.shutdown()
+    batcher.shutdown()
+    del server.transcribe_many
+
+    if any(r is None for r in replies):
+        raise RuntimeError(f"(g): a client got no reply: {replies}")
+    codes = [r[0] for r in replies]
+    if codes != [200] * (G_AV + G_AUDIO) + [400] or "requires" not in replies[-1][1]["error"]:
+        raise RuntimeError(f"(g): replies {[(r[0], r[1]) for r in replies]}")
+    sizes = [r[1]["batch_size"] for r in replies[:-1]]
+    if sizes != [G_AV] * G_AV + [G_AUDIO] * G_AUDIO:
+        raise RuntimeError(f"(g): batch sizes {sizes}")
+    if health != {"ok": True, "requests": G_AV + G_AUDIO, "batches": 2} or len(batches) != 2:
+        raise RuntimeError(f"(g): /healthz {health}, {len(batches)} decoded batches")
+    rows = []
+    for b in batches:
+        frames = server.bucket_class(b["items"][0], b["modality"])[1] if "video" in b[
+            "items"][0] else 0
+        want = eval_launches(model, b["modality"], b["steps"], frames)
+        if b["launches"] != want:
+            raise RuntimeError(f"(g) {b['modality']} batch: kernel launches {b['launches']}, "
+                               f"expected {want} for {b['steps']} decode steps")
+        direct = server.transcribe_many(b["items"], modality=b["modality"])
+        if direct != b["texts"] or not all(direct):
+            raise RuntimeError(f"(g) {b['modality']}: served {b['texts']!r}, direct {direct!r}")
+        rows.append(dict(modality=b["modality"], size=len(b["items"]), batch_s=b["s"],
+                         decode_steps=b["steps"], video_frames=frames, launches=b["launches"]))
+    for (item, _), (code, reply, _) in zip(sent[:-1], replies[:-1]):
+        b = next(b for b in batches for it in b["items"]
+                 if np.array_equal(it["audio"], item["audio"]))
+        pos = next(i for i, it in enumerate(b["items"]) if np.array_equal(it["audio"],
+                                                                         item["audio"]))
+        if reply["text"] != b["texts"][pos]:
+            raise RuntimeError(f"(g): reply {reply['text']!r}, batch text {b['texts'][pos]!r}")
+    walls = [r[2] for r in replies[:-1]]
+    audio_s = sum(len(it["audio"]) for it, _ in sent[:-1]) / 16000
+    row = dict(config=f"(g) HTTP, pad30s int8 beam 15, max_batch 4, max_wait {G_WAIT_MS} ms, "
+                      f"4 AV + 3 audio + 1 bad at once",
+               request_s_median=float(np.median(walls)), request_s_max=max(walls),
+               request_s_each=walls, bad_request_s=replies[-1][2], run_s=wall, audio_s=audio_s,
+               audio_s_per_s=audio_s / wall, batches=rows, healthz=health, peak_gib=peak,
+               launches=rows[0]["launches"])
+    log("http", json.dumps(row))
+    for b in batches:
+        log("http", f"{b['modality']} batch of {len(b['items'])}: {b['texts'][0][:100]}")
+    return row
+
+
+# ---------------------------------- (h): the Llama-AVSR baseline, fused step
+
+BASELINE_PROMPT = "Transcribe speech to text."  # the baseline CLIs' default prompt
+
+
+def single_length(model, modality: str, ra, rv, trim: int, frames: int, token_len: int) -> int:
+    """One rate combo's training sequence (`OmniAVSR._assemble_task`)."""
+    n = 1 + len(model.prompt_ids[modality]) + token_len - 1
+    if modality != "video":
+        n += 2 + trim // ra
+    if modality != "audio":
+        n += 2 + frames // rv
+    return n
+
+
+def single_launches(model, modality: str, flash_combos: int, video_layers: int,
+                    train: bool = True):
+    """What one single-task step must launch: B3 in Whisper's layers (once:
+    the engine encodes once for all the rate combos), B3 and (training) B4
+    in every AV-HuBERT layer that runs, and in every LLM layer of each
+    combo whose sequence reaches the flash gate, B3 twice (training: the
+    checkpoint recomputes the forward) or once (evaluation) and (training)
+    B4 once."""
+    c = model.cfg
+    use_a, use_v = modality != "video", modality != "audio"
+    n = flash_combos * c.llm.num_layers
+    return counts(B3=c.whisper.num_layers * use_a + video_layers * use_v + (2 if train else 1) * n,
+                  B4=(video_layers * use_v + n) if train else 0)
+
+
+def baseline_phase():
+    """(h): (t)'s batch (B 4 x 320 frames, 15-token transcripts, a babble
+    bank) through the Llama-MTSK flagship (one prompt, a modality-agnostic
+    LoRA, matryoshka): `single_train_step` on each modality, one warm and
+    two measured steps, then one `single_eval_step`; then the task-specific
+    flagship with `fused_task_forward=True` at rates (4, 2): one warm and two
+    measured `train_step`s (B4 at B 12 in the fused backbone), and, in eval
+    mode, its per-task losses and one step's grads against the unfused
+    route on the same batch. Returns the rows."""
+    import dataclasses
+
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.config import TrainConfig
+    from omni_avsr_tpu_torch.models.omni import OmniAVSR, flagship
+    from omni_avsr_tpu_torch.ops.attention import FLASH_MIN_T_TRAIN
+    from omni_avsr_tpu_torch.ops.audio_frontend import whisper_token_len
+    from omni_avsr_tpu_torch.train.engine import OmniEngine
+    from omni_avsr_tpu_torch.train.state import tree_leaves
+
+    base = flagship(tiny=False)
+    c = base.cfg
+    cfg = dataclasses.replace(
+        c, llm=dataclasses.replace(c.llm, lora=dataclasses.replace(c.llm.lora,
+                                                                   task_specific=False)),
+        is_task_specific=False, prompt_audio=BASELINE_PROMPT, prompt_video=BASELINE_PROMPT,
+        prompt_audiovisual=BASELINE_PROMPT)
+    model = OmniAVSR(cfg, base.tok)
+    bank = (np.random.RandomState(1234).randn(10 * 16000) * 0.1).astype(np.float32)
+    t = time.perf_counter()
+    engine = OmniEngine(model, init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV),
+                        TrainConfig(lr=1e-3), noise_bank=bank, seed=0, device=DEV)
+    log("baseline", f"Llama-MTSK flagship on the card in {time.perf_counter() - t:.1f} s")
+    batch = train_batch(model.tok, B_TRAIN, FRAMES_TRAIN, TOKENS_TRAIN)
+    trim = -(-int(whisper_token_len(FRAMES_TRAIN * 640)) // 25) * 25
+    batch["audio_trim_len"] = trim
+    clip_s = B_TRAIN * FRAMES_TRAIN / 25.0
+    fns = counters()
+    rows = {}
+    for modality in ("audio", "video", "audiovisual"):
+        combos = engine._rate_combos(modality)
+        lengths = [single_length(model, modality, ra, rv, trim, FRAMES_TRAIN, TOKENS_TRAIN)
+                   for ra, rv in combos]
+        flash = sum(n >= FLASH_MIN_T_TRAIN for n in lengths)
+        t = time.perf_counter()
+        warm = float(engine.single_train_step(dict(batch), modality))
+        warm_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, launches_each = [], [], []
+        for _ in range(2):
+            reset_counts(fns)
+            t = time.perf_counter()
+            loss = float(engine.single_train_step(dict(batch), modality))  # a host sync
+            times.append(time.perf_counter() - t)
+            launches = {name: fn.launches for name, fn in fns.items()}
+            want = single_launches(model, modality, flash, model.last_video_layers)
+            if launches != want:
+                raise RuntimeError(f"(h) {modality} single step: kernel launches {launches}, "
+                                   f"expected {want} (combos {combos}, lengths {lengths}, "
+                                   f"{model.last_video_layers} AV-HuBERT layers)")
+            if not np.isfinite(loss):
+                raise RuntimeError(f"(h) {modality} single step: loss {loss}")
+            losses.append(loss)
+            launches_each.append(launches)
+        dt = float(np.median(times))
+        rows[f"h {modality}"] = dict(
+            config=f"(h) Llama-MTSK {modality}, B {B_TRAIN} x {FRAMES_TRAIN} frames, pad30s",
+            rate_combos=combos, llm_lengths=lengths, flash_combos=flash, warm_s=warm_s,
+            warm_loss=warm, s_per_step=dt, s_per_step_each=times, train_audio_s_per_s=clip_s / dt,
+            losses=losses, launches=launches_each[-1], launches_each=launches_each,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log("baseline", json.dumps(rows[f"h {modality}"]))
+    lengths = [single_length(model, "audiovisual", ra, rv, trim, FRAMES_TRAIN, TOKENS_TRAIN)
+               for ra, rv in engine._rate_combos("audiovisual")]
+    reset_counts(fns)
+    t = time.perf_counter()
+    ev = float(engine.single_eval_step(dict(batch), "audiovisual"))
+    ev_s = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = single_launches(model, "audiovisual", sum(n >= FLASH_MIN_T_TRAIN for n in lengths),
+                           c.avhubert.encoder_layers, train=False)
+    if launches != want or not np.isfinite(ev):
+        raise RuntimeError(f"(h) single_eval_step: loss {ev}, kernel launches {launches}, "
+                           f"expected {want}")
+    rows["h eval"] = dict(config="(h) Llama-MTSK single_eval_step audiovisual", loss=ev,
+                          s=ev_s, launches=launches)
+    log("baseline", json.dumps(rows["h eval"]))
+    del engine
+    torch.cuda.empty_cache()
+
+    # the task-specific flagship, the three tasks in one stacked forward
+    fused = OmniAVSR(dataclasses.replace(c, fused_task_forward=True), base.tok)
+    engine = OmniEngine(fused, init_params(c, torch.Generator(device=DEV).manual_seed(0), DEV),
+                        TrainConfig(lr=1e-3), noise_bank=bank, seed=0, device=DEV)
+    engine.sample_rates = lambda: (4, 2)
+    lengths = llm_lengths(fused, trim, 4, 2, FRAMES_TRAIN, TOKENS_TRAIN)
+    t_max = max(lengths.values())
+    t = time.perf_counter()
+    warm = float(engine.train_step(dict(batch)))
+    warm_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, launches_each = [], [], []
+    for _ in range(2):
+        reset_counts(fns)
+        t = time.perf_counter()
+        loss = float(engine.train_step(dict(batch)))
+        times.append(time.perf_counter() - t)
+        launches = {name: fn.launches for name, fn in fns.items()}
+        want = train_launches(fused, int(t_max >= FLASH_MIN_T_TRAIN), fused.last_video_layers)
+        if launches != want or not np.isfinite(loss):
+            raise RuntimeError(f"(h) fused train step: loss {loss}, kernel launches {launches}, "
+                               f"expected {want} (T_max {t_max})")
+        losses.append(loss)
+        launches_each.append(launches)
+    dt = float(np.median(times))
+    rows["h fused"] = dict(
+        config=f"(h) fused three-task step, B {B_TRAIN} x {FRAMES_TRAIN} frames, pad30s, rates "
+               f"(4, 2)", llm_lengths=lengths, backbone=[3 * B_TRAIN, t_max], warm_s=warm_s,
+        warm_loss=warm, s_per_step=dt, s_per_step_each=times, train_audio_s_per_s=clip_s / dt,
+        losses=losses, launches=launches_each[-1], launches_each=launches_each,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("baseline", json.dumps(rows["h fused"]))
+
+    # eval mode, the same batch and masters: fused against unfused
+    unfused = OmniAVSR(c, base.tok)
+    arrays, trim_len = engine._arrays(dict(batch))
+    proc = engine._preprocess(arrays, train=False)
+    leaves = list(tree_leaves(engine.state.trainable))
+    result = {}
+    for name, m in (("fused", fused), ("unfused", unfused)):
+        reset_counts(fns)
+        losses = m.train_losses(engine._params(), proc, 4, 2, trim_len, train_mode=False)
+        total = (losses["audio"] + losses["video"] + losses["audiovisual"]) / 3.0
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        flat = torch.cat([(torch.zeros_like(p) if g is None else g).float().reshape(-1)
+                          for p, g in zip(leaves, grads)])
+        used = {k: fn.launches for k, fn in fns.items()}
+        if used != train_launches(m, 1, c.avhubert.encoder_layers):
+            raise RuntimeError(f"(h) {name} eval-mode step: kernel launches {used}")
+        result[name] = ({k: v.item() for k, v in losses.items()}, flat)
+    (lf, gf), (lu, gu) = result["fused"], result["unfused"]
+    rel = ((gf - gu).norm() / gu.norm()).item()
+    if (rel > REL_L2_TOL or not bool(torch.isfinite(gf).all())
+            or any(abs(lf[k] - lu[k]) > REL_L2_TOL * abs(lu[k]) for k in lu)):
+        raise RuntimeError(f"(h) fused vs unfused: losses {lf} vs {lu}, grads relative L2 "
+                           f"{rel:.3g}")
+    agree = dict(losses_fused=lf, losses_unfused=lu, grad_rel_l2=rel, grad_norm=gu.norm().item())
+    log("reference", f"(h) one full-width batch in eval mode, fused vs unfused route: "
+        f"{json.dumps(agree)} (tol {REL_L2_TOL})")
+    rows["h fused"]["agreement"] = agree
+    del engine, leaves, result, gf, gu
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------- (f): corpus eval + train
 
 # (f)'s corpus: `generate_corpus` with the JAX function's parameters, clips
@@ -1566,23 +1932,83 @@ def corpus_phase(work: Path):
 
 # Runs a CLI module as `python -m` does (`runpy`, as `__main__`, with its
 # arguments in `sys.argv`), then prints the kernels' launches in its process
-# on the last line.
+# on the last line and exits with the module's own code.
 RUN_COUNTED = """
 import json, runpy, sys
 from chip_smoke import counters
 fns = counters()
 sys.argv = sys.argv[1:]
-runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+code = 0
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code
 print(json.dumps({name: fn.launches for name, fn in fns.items()}))
+sys.exit(code)
 """
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def serve_http_cli(root: Path):
+    """`serve_http --synthetic --port <free>` as a subprocess on the card:
+    /healthz answers, one audio request gets a 200 with a text; then the
+    server is stopped (and killed if it does not stop)."""
+    import urllib.request
+
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    t = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "omni_avsr_tpu_torch.cli.serve_http",
+                             "--synthetic", "--port", str(port)], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        health = None
+        while health is None and time.perf_counter() - t < 300:
+            if proc.poll() is not None:
+                raise RuntimeError(f"serve_http: exit {proc.returncode}\n"
+                                   f"{proc.stderr.read()[-4000:]}")
+            try:
+                with urllib.request.urlopen(f"{url}/healthz", timeout=5) as r:
+                    health = json.loads(r.read())
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t
+        if health != {"ok": True, "requests": 0, "batches": 0}:
+            raise RuntimeError(f"serve_http: /healthz {health}")
+        code, reply, req_s = _post(url, _request_body(
+            {"audio": make_items([100], seed=11)[0]["audio"]}))
+        if code != 200 or not isinstance(reply.get("text"), str) or reply["batch_size"] != 1:
+            raise RuntimeError(f"serve_http: {code} {reply}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    row = dict(cli="serve_http --synthetic", up_s=up_s, request_s=req_s, reply=reply,
+               wall_s=time.perf_counter() - t)
+    log("cli", json.dumps(row))
+    return row
+
+
 def cli_phase(work: Path):
-    """Both CLIs as a user runs them, as subprocesses on the card
-    (`--synthetic` runs at the JAX CLI's tiny widths): `eval_omni` with the
-    int8 and the packed-int4 decode tree, `train_omni` for two epochs.
-    Each must exit 0 and give the result keys and files; the int8 run must
-    launch B2 and the int4 run B6."""
+    """The CLIs as a user runs them, as subprocesses on the card
+    (`--synthetic` runs at the JAX CLI's tiny widths): `serve_http` (one
+    request), `eval_omni` with the int8 and the packed-int4 decode tree,
+    `train_omni` for two epochs, `train_llama_avsr` for one epoch on audio,
+    `eval_llama_avsr` on audio with the int8 LLM, and `verify_parity` in
+    three modes. Each must exit 0 (verify_parity 1: random weights fail
+    BASELINE.md, with all 8 settings measured) and give the result keys
+    and files; the int8 runs must launch B2, the int4 run B6, and
+    verify_parity both."""
     root = Path(__file__).resolve().parent
     grid = [f"{t} (a={a}, v={v})" for t, a, v in
             [("audio", 4, None), ("audio", 16, None), ("video", None, 2), ("video", None, 5)]
@@ -1594,24 +2020,60 @@ def cli_phase(work: Path):
             for q in ("int8", "int4")]
     runs.append(("train_omni", ["train_omni", "--synthetic", "4", "--max-epochs", "2",
                                 "--exp-dir", str(work / "cli_train")]))
-    rows = []
+    runs.append(("train_llama_avsr", ["train_llama_avsr", "--synthetic", "6", "--max-epochs", "1",
+                                      "--modality", "audio", "--exp-dir", str(work / "llama")]))
+    runs.append(("eval_llama_avsr int8", ["eval_llama_avsr", "--synthetic", "4", "--modality",
+                                          "audio", "--quantize-decode", "int8", "--print-hyp",
+                                          "false", "--exp-dir", str(work / "llama_eval")]))
+    runs.append(("verify_parity", ["verify_parity", "--synthetic", "2", "--modes",
+                                   "bf16,int8,int4", "--exp-dir", str(work / "parity"),
+                                   "--output-json", str(work / "parity.json")]))
+    rows = [serve_http_cli(root)]
     for label, argv in runs:
         t = time.perf_counter()
         proc = subprocess.run([sys.executable, "-c", RUN_COUNTED,
                                f"omni_avsr_tpu_torch.cli.{argv[0]}", *argv[1:]], cwd=root,
                               capture_output=True, text=True, timeout=600)
         dt = time.perf_counter() - t
-        if proc.returncode != 0:
+        # random weights fail BASELINE.md: verify_parity's exit 1 is the expected outcome
+        if proc.returncode != (1 if label == "verify_parity" else 0):
             raise RuntimeError(f"{label}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
         launches = json.loads(proc.stdout.splitlines()[-1])
-        kernel = {"eval_omni int8": "B2", "eval_omni int4": "B6"}.get(label)
-        if kernel and not launches[kernel]:
+        kernel = {"eval_omni int8": ("B2",), "eval_omni int4": ("B6",),
+                  "eval_llama_avsr int8": ("B2",), "verify_parity": ("B2", "B6")}.get(label, ())
+        if not all(launches[k] for k in kernel):
             raise RuntimeError(f"{label}: no {kernel} launch ({launches})")
-        if label.startswith("eval"):
+        if label.startswith("eval_omni"):
             wer = json.loads(Path(argv[-1]).read_text())
             if list(wer) != grid:
                 raise RuntimeError(f"{label}: result keys {list(wer)}, expected {grid}")
             result = dict(keys=len(wer), wer=wer)
+        elif label == "train_llama_avsr":
+            exp = work / "llama" / "omni"
+            ckpts = sorted(p.name for p in (exp / "checkpoints").glob("step_*.pt"))
+            avg = sorted(p.name for p in (exp / "model_avg_4").glob("step_*.pt"))
+            wer = [line.split(":")[0] for line in proc.stdout.splitlines()
+                   if line.startswith("wer/")]
+            if (len(ckpts) != 1 or not avg or wer != ["wer/audio_a4_vNone", "wer/audio_a16_vNone"]
+                    or "epoch 0: loss=" not in proc.stdout):
+                raise RuntimeError(f"{label}: checkpoints {ckpts}, average {avg}, WER {wer}")
+            result = dict(checkpoints=ckpts, model_avg_4=avg, wer_lines=wer)
+        elif label == "eval_llama_avsr int8":
+            wer = [line for line in proc.stdout.splitlines() if line.startswith("WER audio")]
+            if [w.split(":")[0] for w in wer] != ["WER audio (a=4, v=None)",
+                                                  "WER audio (a=16, v=None)"]:
+                raise RuntimeError(f"{label}: WER lines {wer}")
+            result = dict(wer_lines=wer)
+        elif label == "verify_parity":
+            report = json.loads((work / "parity.json").read_text())
+            statuses = [r["status"] for r in report["rows"]]
+            if (len(statuses) != 8 or "MISSING" in statuses or report["passed"]
+                    or report["modes"] != ["bf16", "int8", "int4"]
+                    or not all(r.get("int8") is not None and r.get("int4") is not None
+                               for r in report["rows"])):
+                raise RuntimeError(f"{label}: report {json.dumps(report)[:2000]}")
+            result = dict(statuses=statuses, worst_abs_delta=report["worst_abs_delta"],
+                          rows=report["rows"], profile=report["profile"]["requested"])
         else:
             exp = work / "cli_train" / "omni"
             ckpts = sorted(p.name for p in (exp / "checkpoints").glob("step_*.pt"))
@@ -1649,6 +2111,62 @@ def device_activities(run, least: int = 1, attempts: int = 3):
         log("profile", f"the profiler recorded {len(acts)} device activities of at least "
             f"{least}: captured again")
     return acts
+
+
+def graph_census(run) -> list:
+    """The device work one call of `run` starts, read from a CUDA graph of
+    that call: each kernel node's (mangled) function name, and
+    "node type N" for any other node (a memset, a copy). Unlike
+    torch.profiler it needs no CUPTI session, which a process on the H100
+    machines is not always granted (a capture then holds no device
+    records at all)."""
+    import ctypes
+
+    import torch
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared_mem", ctypes.c_uint),
+                    ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"graph census: {what} returned CUresult {rc}")
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        run()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            names.append(f"node type {kind.value}")
+            continue
+        params = KernelNodeParams()
+        ok(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+           "cuGraphKernelNodeGetParams_v2")
+        name = ctypes.c_char_p()
+        if params.func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)),
+               "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)),
+               "cuKernelGetName")
+        names.append(name.value.decode())
+    del graph
+    torch.cuda.synchronize()
+    return names
 
 
 def profile_batch(label: str, run) -> None:
@@ -1814,6 +2332,7 @@ def main() -> int:
     profile_batch("(a) pad30s int8", lambda: server_a.transcribe_many(items_a))
     profile_batch("(b) bucket int8", lambda: server_b.transcribe_many(items_b))
     profile_batch("(c) bucket int4", lambda: server_c.transcribe_many(items_b))
+    rows["g"] = http_phase(server_a, model_a)
     del server_a, server_b, server_c
     torch.cuda.empty_cache()
 
@@ -1886,6 +2405,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rows["train"], train_agree, rows["train conv"] = train_phase()
+    rows.update(baseline_phase())
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
     rows.update(corpus_phase(work))
     cli_rows = cli_phase(work)

@@ -5,9 +5,8 @@ port's configs, and the model, parameter and data builders.
 One flag is the port's own: `--device` (default "cuda"). Without a CUDA
 device the CLIs stop with an error unless given `--device cpu`. The flags
 of work the port does not have yet (multi-host, meshes, FSDP, sequence
-parallelism, MoE, the fused three-task forward, the XLA compile cache)
-raise `NotImplementedError` naming the ROADMAP item, rather than being
-ignored.
+parallelism, MoE, the XLA compile cache) raise `NotImplementedError`
+naming the ROADMAP item, rather than being ignored.
 """
 
 from __future__ import annotations
@@ -66,7 +65,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="pad30s = the reference's 30 s Whisper window; bucket = only the "
                         "batch's audio window")
     p.add_argument("--fused-task-forward", type=str2bool, default=False,
-                   help="not ported (ROADMAP A1 rest)")
+                   help="run the three training tasks as one stacked decoder forward (the "
+                        "same losses)")
     p.add_argument("--downsample-ratio-audio", type=int, nargs="+", default=[4, 16])
     p.add_argument("--downsample-ratio-video", type=int, nargs="+", default=[2, 5])
     p.add_argument("--matry-weights", type=float, nargs=3, default=[1.0, 1.5, 1.0])
@@ -128,10 +128,25 @@ UNPORTED = {
     "fsdp": (False, "A5 (parallelism: FSDP)"),
     "sequence_parallel": (False, "A5 (parallelism: sequence parallel)"),
     "moe_experts": (0, "A5 (models/moe.py)"),
-    "fused_task_forward": (False, "A1 rest (_fused_train_losses)"),
+    "coordinator_address": (None, "A5 (parallelism: multi-host)"),
+    "node_rank": (None, "A5 (parallelism: multi-host)"),
     "compilation_cache_dir": (None, "none: the port compiles no XLA program; its CUDA "
                                     "kernels are cached under build/torch_kernels/"),
 }
+
+
+def add_baseline_prompt(p: argparse.ArgumentParser) -> None:
+    """The Llama-AVSR baselines' one prompt (`--prompt`)."""
+    p.add_argument("--prompt", default="Transcribe speech to text.",
+                   help="the baseline's single prompt")
+
+
+def single_prompt(args) -> None:
+    """The baselines' model: one prompt for every task and a
+    modality-agnostic LoRA (`omni_avsr_tpu/cli/train_llama_avsr.py:62-65`)."""
+    args.prompt_audio = args.prompt_video = args.prompt_audiovisual = args.prompt
+    args.is_task_specific = False
+    args.use_shared_lora_task_specific = False
 
 
 def check_args(args) -> torch.device:
@@ -194,6 +209,7 @@ def build_model(args) -> OmniAVSR:
         llm_model=args.llm_model, llm=llm, whisper=whisper, avhubert=avhubert,
         modality=args.modality, compression_mode=args.compression_mode,
         whisper_input_mode=args.whisper_input_mode,
+        fused_task_forward=args.fused_task_forward,
         downsample_ratio_audio=rates_a, downsample_ratio_video=rates_v,
         is_matryoshka=args.is_matryoshka,
         is_single_matry_projector=args.is_single_matry_projector,

@@ -84,14 +84,15 @@ def tasks_of(args):
     return ["audio", "video", "audiovisual"]
 
 
-def decode_tree(engine: OmniEngine, quantize):
-    """The serving tree: the merged parameters, quantised and arranged for
-    the card when asked (`serve.py::Transcriber`)."""
+def decode_tree(engine: OmniEngine, quantize, **quantize_kw):
+    """The serving tree: the merged parameters, quantised
+    (`quantize_for_decode(..., **quantize_kw)`) and arranged for the card
+    when asked (`serve.py::Transcriber`)."""
     merged = engine.merged_params()
     if quantize:
         from ..ops.quant import arrange_for_card, quantize_for_decode
 
-        merged = arrange_for_card(quantize_for_decode(merged, quantize))
+        merged = arrange_for_card(quantize_for_decode(merged, quantize, **quantize_kw))
     return merged
 
 
@@ -107,7 +108,8 @@ def main(argv=None):
     noise = load_noise_bank(args.noise_path) if args.decode_snr_target < 999998 else None
     engine = OmniEngine(model, params, TrainConfig(), 1.0,
                         unfrozen_modules=tuple(args.unfrozen_modules), noise_bank=noise,
-                        decode_snr_target=args.decode_snr_target, seed=args.seed, device=device)
+                        decode_snr_target=args.decode_snr_target, seed=args.seed,
+                        inference_only=True, device=device)
     del params
     merged = decode_tree(engine, args.quantize_decode)
 

@@ -15,7 +15,8 @@
     attention runs in `ops/beam_attention.py` (the kernel on the card).
 
 LoRA (`Llama_LoRA.py:246-262`): q += s * up_q(down_q(x)), v += s * up_v(down_v(x))
-with s = alpha / rank_divisor and the task's own adapter.
+with s = alpha / rank_divisor and the task's own adapter; with the modality
+`FUSED3` the batch is the three tasks stacked and each third takes its own.
 
 Unlike the JAX package, the generated-token cache is updated in place
 (one slot per step): it saves a copy of the whole cache per step.
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..config import LLMConfig
+from ..config import MODALITIES, LLMConfig
 from ..data.tokenizer import IGNORE_INDEX
 from ..ops.attention import FLASH_MIN_T_TRAIN, NEG_INF, causal_mask, dot_product_attention
 from ..ops.beam_attention import (PLAIN_HEAD_DIM, beam_decode_attention,
@@ -52,10 +53,19 @@ def _lora_delta(x: torch.Tensor, adapter: Params, scaling: float) -> Tuple[torch
     return dq * scaling, dv * scaling
 
 
+# The modality of the fused three-task training forward: the rows of x are
+# the three tasks' batches stacked [audio | video | audiovisual], x.shape[0]
+# // 3 each, and each block takes its own task's adapter
+# (`omni_avsr_tpu/models/llm.py:146-150`; `models/omni.py::_fused_train_losses`).
+FUSED3 = "__fused3__"
+
+
 def _qkv_with_lora(layer: Params, cfg: LLMConfig, x: torch.Tensor,
                    modality: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Base q/k/v projections (fused q|k|v in decode trees) plus the LoRA
-    q/v deltas of the task's adapter."""
+    q/v deltas of the task's adapter. With `FUSED3` the base projections
+    run once over the stacked (3B, T, H) batch and each task block adds its
+    own adapter's deltas (`omni_avsr_tpu/models/llm.py:153-200`)."""
     attn = layer["attn"]
     if "qkv" in attn:
         qkv = linear(x, attn["qkv"])
@@ -66,7 +76,13 @@ def _qkv_with_lora(layer: Params, cfg: LLMConfig, x: torch.Tensor,
         scaling = cfg.lora.scaling
         if cfg.lora.task_specific:
             assert modality is not None, "task-specific LoRA needs a modality"
-            dq, dv = _lora_delta(x, layer["lora"][modality], scaling)
+            if modality == FUSED3:
+                deltas = [_lora_delta(xm, layer["lora"][m], scaling)
+                          for xm, m in zip(torch.chunk(x, 3, dim=0), MODALITIES)]
+                dq = torch.cat([d[0] for d in deltas], dim=0)
+                dv = torch.cat([d[1] for d in deltas], dim=0)
+            else:
+                dq, dv = _lora_delta(x, layer["lora"][modality], scaling)
             if cfg.lora.shared:
                 dqs, dvs = _lora_delta(x, layer["lora_shared"], scaling)
                 dq, dv = dq + dqs, dv + dvs

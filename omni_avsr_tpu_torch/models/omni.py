@@ -9,8 +9,10 @@ prompt), per task, with the task's subset of A and V:
   infer  : [BOS][<audio> A </audio>][<video> V </video>][prompt]
 `infer_prefix_masked` keeps a static layout and masks each sample's feature
 slots past its own token count, so a batched decode keeps the reference's
-batch-size-1 semantics. `train_losses` is the unfused route; the fused
-three-task forward and `single_task_loss` are not ported.
+batch-size-1 semantics. `train_losses` runs the three tasks one after the
+other, or stacked in one decoder forward when `cfg.fused_task_forward`
+(`_fused_train_losses`); `single_task_loss` is the Llama-AVSR baseline's
+one-task loss.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import (
     LLM_REGISTRY,
@@ -38,7 +41,7 @@ from ..ops.audio_frontend import log_mel_spectrogram, whisper_token_len
 from ..ops.pooling import compress
 from .avhubert import avhubert_encode, layers_to_run
 from .common import Params
-from .llm import embed_tokens, llm_span_stats
+from .llm import FUSED3, embed_tokens, llm_backbone, llm_span_stats, lm_head, token_ce_stats
 from .projector import project
 from .whisper import whisper_encode
 
@@ -82,32 +85,55 @@ class OmniAVSR:
     def _per_rate(self) -> bool:
         return self.cfg.is_matryoshka and not self.cfg.is_single_matry_projector
 
-    def encode_audio(self, params: Params, audio: torch.Tensor, audio_len: torch.Tensor,
-                     rate: int, trim_len: int) -> torch.Tensor:
-        """(B, trim_len//rate, d_llm) projected audio tokens."""
+    def audio_features(self, params: Params, audio: torch.Tensor, audio_len: torch.Tensor,
+                       trim_len: int) -> torch.Tensor:
+        """(B, trim_len, d_whisper): Whisper over the log-mel of the
+        preprocessed audio, trimmed."""
         if self.cfg.whisper_input_mode == "bucket":
             mel = log_mel_spectrogram(audio, audio_len, num_frames=2 * trim_len)
         else:
             mel = log_mel_spectrogram(audio, audio_len)
         enc = whisper_encode(params["whisper"], self.cfg.whisper, mel.to(self.dtype))
-        enc = compress(enc[:, :trim_len], rate, self.cfg.compression_mode)
+        return enc[:, :trim_len]
+
+    def project_audio(self, params: Params, enc: torch.Tensor, rate: int) -> torch.Tensor:
+        """(B, T//rate, d_llm): Whisper features compressed at `rate` and
+        projected."""
+        enc = compress(enc, rate, self.cfg.compression_mode)
         return project(params["audio_proj"], enc, rate if self._per_rate else None)
+
+    def encode_audio(self, params: Params, audio: torch.Tensor, audio_len: torch.Tensor,
+                     rate: int, trim_len: int) -> torch.Tensor:
+        """(B, trim_len//rate, d_llm) projected audio tokens."""
+        return self.project_audio(params, self.audio_features(params, audio, audio_len,
+                                                              trim_len), rate)
+
+    def video_features(self, params: Params, video: torch.Tensor, train_mode: bool = False,
+                       generator: Optional[torch.Generator] = None,
+                       conv_kernel: bool = False) -> torch.Tensor:
+        """(B, T, d_avhubert): AV-HuBERT over the preprocessed video;
+        `train_mode` runs the ResNet's BN on batch statistics, `generator`
+        AV-HuBERT's dropouts and layerdrop (`models/avhubert.py`),
+        `conv_kernel` the ResNet trunk's convs through B7."""
+        plan = layers_to_run(self.cfg.avhubert, generator)
+        self.last_video_layers = len(plan[0])
+        return avhubert_encode(params["avhubert"], self.cfg.avhubert, video.to(self.dtype),
+                               train_mode=train_mode, generator=generator, plan=plan,
+                               conv_kernel=conv_kernel)
+
+    def project_video(self, params: Params, enc: torch.Tensor, rate: int) -> torch.Tensor:
+        """(B, T//rate, d_llm): AV-HuBERT features compressed at `rate` and
+        projected."""
+        enc = compress(enc, rate, self.cfg.compression_mode)
+        return project(params["video_proj"], enc, rate if self._per_rate else None)
 
     def encode_video(self, params: Params, video: torch.Tensor, rate: int,
                      train_mode: bool = False,
                      generator: Optional[torch.Generator] = None,
                      conv_kernel: bool = False) -> torch.Tensor:
-        """(B, T//rate, d_llm) projected video tokens; `train_mode` runs the
-        ResNet's BN on batch statistics, `generator` AV-HuBERT's dropouts and
-        layerdrop (`models/avhubert.py`), `conv_kernel` the ResNet trunk's
-        convs through B7."""
-        plan = layers_to_run(self.cfg.avhubert, generator)
-        self.last_video_layers = len(plan[0])
-        enc = avhubert_encode(params["avhubert"], self.cfg.avhubert, video.to(self.dtype),
-                              train_mode=train_mode, generator=generator, plan=plan,
-                              conv_kernel=conv_kernel)
-        enc = compress(enc, rate, self.cfg.compression_mode)
-        return project(params["video_proj"], enc, rate if self._per_rate else None)
+        """(B, T//rate, d_llm) projected video tokens (`video_features`)."""
+        return self.project_video(params, self.video_features(params, video, train_mode,
+                                                              generator, conv_kernel), rate)
 
     def prefix_slots(self, modality: str, rate_audio: int, rate_video: int, trim: int,
                      video_frames: int) -> int:
@@ -227,6 +253,8 @@ class OmniAVSR:
         a = self.encode_audio(params, batch["audio"], batch["audio_len"], rate_audio,
                               audio_trim_len).to(dtype)
         task_specific = bool(cfg.llm.lora and cfg.llm.lora.task_specific)
+        if cfg.fused_task_forward:
+            return self._fused_train_losses(params, a, v, text_emb, labels, task_specific, remat)
         losses = {}
         for i, m in enumerate(MODALITIES):
             parts = {"audio": (a,), "video": (v,), "audiovisual": (a, v)}[m]
@@ -238,6 +266,75 @@ class OmniAVSR:
                 loss = loss * cfg.matry_weights[i]
             losses[m] = loss
         return losses
+
+    def _fused_train_losses(self, params: Params, a: torch.Tensor, v: torch.Tensor,
+                            text_emb: torch.Tensor, labels: torch.Tensor, task_specific: bool,
+                            remat: bool) -> Dict[str, torch.Tensor]:
+        """The three tasks in one LLM forward, stacked on the batch axis
+        (`omni_avsr_tpu/models/omni.py:282-335`): each task's sequence is
+        right-padded to the longest (the audiovisual one), the decoder runs
+        one (3B, T_max) stack with each block's own adapter (`FUSED3`), then
+        one lm_head over the three label spans (each Tt wide at its task's
+        offset) and one CE. Causal masking keeps the padded tail out of
+        every real position, so the losses equal the unfused ones."""
+        cfg = self.cfg
+        B = text_emb.shape[0]
+        tasks = [self._assemble_task(params, m, {"audio": (a,), "video": (v,),
+                                                 "audiovisual": (a, v)}[m], text_emb, labels)
+                 for m in MODALITIES]
+        T_max = max(e.shape[1] for e, _, _ in tasks)
+        stacked = torch.cat([F.pad(e, (0, 0, 0, T_max - e.shape[1])) for e, _, _ in tasks])
+        positions = torch.arange(T_max, device=stacked.device)[None].expand(3 * B, T_max)
+        x = llm_backbone(params["llm"], cfg.llm, stacked, positions,
+                         FUSED3 if task_specific else None, remat)
+        rows = torch.cat([x[i * B:(i + 1) * B, t0:t1] for i, (_, _, (t0, t1)) in enumerate(tasks)])
+        targets = torch.cat([lab[:, t0 + 1:t1 + 1] for _, lab, (t0, t1) in tasks])
+        total, count = token_ce_stats(lm_head(params["llm"], cfg.llm, rows), targets)
+        losses = {}
+        for i, m in enumerate(MODALITIES):
+            loss = total[i * B:(i + 1) * B].sum() / torch.clamp(count[i * B:(i + 1) * B].sum(),
+                                                                 min=1)
+            if cfg.matry_weights is not None:
+                loss = loss * cfg.matry_weights[i]
+            losses[m] = loss
+        return losses
+
+    def task_features(self, params: Params, batch: Dict[str, torch.Tensor], modality: str,
+                      audio_trim_len: Optional[int], train_mode: bool = True,
+                      generator: Optional[torch.Generator] = None,
+                      conv_kernel: bool = False) -> Dict[str, torch.Tensor]:
+        """The encoder features a task reads, before compression: "audio"
+        (Whisper, trimmed) and/or "video" (AV-HuBERT), in the compute dtype."""
+        feats = {}
+        if modality in ("video", "audiovisual"):  # first: its layer plan is a host sync
+            feats["video"] = self.video_features(params, batch["video"], train_mode, generator,
+                                                 conv_kernel).to(self.dtype)
+        if modality in ("audio", "audiovisual"):
+            feats["audio"] = self.audio_features(params, batch["audio"], batch["audio_len"],
+                                                 audio_trim_len).to(self.dtype)
+        return feats
+
+    def single_task_loss(self, params: Params, batch: Dict[str, torch.Tensor], modality: str,
+                         features: Dict[str, torch.Tensor], rate_audio: Optional[int] = None,
+                         rate_video: Optional[int] = None, remat: bool = True) -> torch.Tensor:
+        """The Llama-AVSR baseline's loss: one task's CE at one pair of rates
+        (`omni_avsr_tpu/models/omni.py:337-374`; reference
+        `modeling_LlamaAVSR.py`), on `features`, the `task_features` of the
+        same batch: the Llama-MTSK step encodes once for all its rate
+        combos."""
+        cfg, dtype = self.cfg, self.dtype
+        text_emb = embed_tokens(params["llm"], batch["tokens"].long(), dtype)
+        parts = []
+        if modality in ("audio", "audiovisual"):
+            parts.append(self.project_audio(params, features["audio"], rate_audio).to(dtype))
+        if modality in ("video", "audiovisual"):
+            parts.append(self.project_video(params, features["video"], rate_video).to(dtype))
+        embeds, lab, span = self._assemble_task(params, modality, tuple(parts), text_emb,
+                                                batch["labels"])
+        lora_mod = modality if (cfg.llm.lora and cfg.llm.lora.task_specific) else None
+        total, count = llm_span_stats(params["llm"], cfg.llm, embeds, lab, span,
+                                      modality=lora_mod, remat=remat)
+        return total.sum() / torch.clamp(count.sum(), min=1)
 
 
 def flagship(tiny: bool, dtype=torch.bfloat16, whisper_input_mode: str = "pad30s") -> OmniAVSR:

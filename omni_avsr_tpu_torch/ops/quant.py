@@ -152,10 +152,11 @@ def fuse_decode_projections(llm: Dict) -> Dict:
     return out
 
 
-def quantize_for_decode(merged: Dict, mode: str) -> Dict:
-    """"int8": weight-only int8 on the LLM (q|k|v and gate|up fused) and on
-    the Whisper and AV-HuBERT layer stacks. "int4": int4-RTN codes on the
-    LLM, fused, then packed two per byte; the towers stay int8."""
+def quantize_for_decode(merged: Dict, mode: str, llm_only: bool = False) -> Dict:
+    """"int8": weight-only int8 on the LLM (q|k|v and gate|up fused) and,
+    unless `llm_only`, on the Whisper and AV-HuBERT layer stacks. "int4":
+    int4-RTN codes on the LLM, fused, then packed two per byte; the towers
+    int8 (`omni_avsr_tpu/ops/quant.py:345-368`)."""
     if not mode:
         return merged
     if mode not in ("int8", "int4"):
@@ -163,9 +164,10 @@ def quantize_for_decode(merged: Dict, mode: str) -> Dict:
     out = dict(merged)
     llm = fuse_decode_projections(quantize_llm_params(merged["llm"], 4 if mode == "int4" else 8))
     out["llm"] = pack_llm_int4(llm) if mode == "int4" else llm
-    for tower in ("whisper", "avhubert"):
-        if tower in merged:
-            out[tower] = quantize_tower_params(merged[tower])
+    if not llm_only:
+        for tower in ("whisper", "avhubert"):
+            if tower in merged:
+                out[tower] = quantize_tower_params(merged[tower])
     return out
 
 

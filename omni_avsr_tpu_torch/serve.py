@@ -205,6 +205,7 @@ class Transcriber:
         tokenizer: Optional[TokenizerBundle] = None,
         cfg: Optional[OmniConfig] = None,
         base_params: Optional[Params] = None,
+        allow_random_base: bool = False,
         **kwargs,
     ) -> "Transcriber":
         """A trained reference `.pth` (converted by `convert/omni_ckpt.py`),
@@ -213,8 +214,9 @@ class Transcriber:
         given) and the config `registry_model(llm_model)` builds when none
         is given (`omni_avsr_tpu/serve.py:109-161`). The port's checkpoints
         hold only the trainable tree, which is merged over `base_params`
-        (the converted frozen weights). `kwargs` go to the constructor
-        (device, quantize, num_beams...)."""
+        (the converted frozen weights), or over random ones from seed 0
+        (`bridge.init_params`) with `allow_random_base=True`, for tests.
+        `kwargs` go to the constructor (device, quantize, num_beams...)."""
         from .data.tokenizer import load_hf_tokenizer
         from .models.omni import registry_model
 
@@ -224,14 +226,19 @@ class Transcriber:
             from .train.checkpoint import resolve_checkpoint, restore_trainable
             from .train.state import merge_params
 
+            device = kwargs.get("device", "cuda")
             if base_params is None:
-                raise ValueError(
-                    "the port's checkpoints hold only the trainable tree (LoRA and "
-                    "projectors): pass the frozen Whisper, AV-HuBERT and LLM weights as "
-                    "base_params (converted with omni_avsr_tpu_torch.convert, or "
-                    "bridge.init_params for random ones)")
-            trained = restore_trainable(resolve_checkpoint(checkpoint_path),
-                                        kwargs.get("device", "cuda"))
+                if not allow_random_base:
+                    raise ValueError(
+                        "the port's checkpoints hold only the trainable tree (LoRA and "
+                        "projectors): pass the frozen Whisper, AV-HuBERT and LLM weights as "
+                        "base_params (converted with omni_avsr_tpu_torch.convert), or "
+                        "allow_random_base=True for random ones in tests")
+                from .bridge import init_params
+
+                base_params = init_params(model.cfg, torch.Generator(device=device).manual_seed(0),
+                                          device)
+            trained = restore_trainable(resolve_checkpoint(checkpoint_path), device)
             params = merge_params(trained, base_params)
         else:
             from .convert.omni_ckpt import convert_omni_checkpoint, load_torch_checkpoint

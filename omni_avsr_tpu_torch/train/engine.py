@@ -9,6 +9,12 @@ the batch on the device (train-mode augmentation when `augment`), runs the
 three task forwards (`OmniAVSR.train_losses`), backpropagates their mean
 into the masters and applies AdamW with the global-norm clip.
 
+The single-task steps of the Llama-AVSR baselines (`single_train_step`,
+`single_eval_step`) take one task's loss at every matryoshka rate combo
+and average it (Llama-MTSK). `inference_only=True` builds no optimizer:
+the trainable leaves stay in f32 without grads or AdamW moments, for
+evaluation and serving.
+
 `augment=False` trains on the decode-time computation end to end: eval
 preprocessing, eval-mode BN and no dropout (the JAX package's setting for
 its WER probe, `benchmarks/wer_probe.py`). `decode_batch` decodes a test
@@ -54,6 +60,7 @@ class OmniEngine:
         noise_bank: Optional[np.ndarray] = None,
         decode_snr_target: Optional[float] = None,
         seed: int = 42,
+        inference_only: bool = False,
         augment: bool = True,
         device="cuda",
         conv_kernel: bool = False,
@@ -74,9 +81,16 @@ class OmniEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         trainable, frozen = split_params(params, model.trainable_predicate(unfrozen_modules))
         self.frozen = tree_map(lambda x: x.detach().to(self.device), frozen)
-        self.tx, self.schedule = make_optimizer(train_cfg, steps_per_epoch)
-        masters = master_weights(trainable, self.device)
-        self.state = TrainState(0, masters, self.tx.init(list(tree_leaves(masters))))
+        if inference_only:
+            # no optimizer: f32 trainable leaves without grads or AdamW moments
+            # (`omni_avsr_tpu/train/engine.py:86-98`)
+            self.tx = self.schedule = None
+            self.state = TrainState(0, tree_map(lambda x: x.detach().to(
+                device=self.device, dtype=torch.float32), trainable), None)
+        else:
+            self.tx, self.schedule = make_optimizer(train_cfg, steps_per_epoch)
+            masters = master_weights(trainable, self.device)
+            self.state = TrainState(0, masters, self.tx.init(list(tree_leaves(masters))))
 
     def _params(self) -> Dict[str, Any]:
         """The merged tree: masters cast to the compute dtype (in the graph)."""
@@ -118,12 +132,11 @@ class OmniEngine:
         return (self._py_rng.choice(self.cfg.audio_rates),
                 self._py_rng.choice(self.cfg.video_rates))
 
-    def train_step(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """One optimizer step; returns the loss (a device scalar)."""
-        rate_a, rate_v = self.sample_rates()
-        arrays, trim = self._arrays(batch)
+    def _update(self, total: torch.Tensor) -> torch.Tensor:
+        """Backpropagate `total` into the masters, then the clip + AdamW step."""
+        if self.tx is None:
+            raise RuntimeError("an inference_only engine holds no optimizer")
         leaves = list(tree_leaves(self.state.trainable))
-        total, _ = self._loss(arrays, rate_a, rate_v, trim, is_train=True)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         # a leaf this step did not use (the other rates' projectors) has a
         # zero grad, as under jax.grad: AdamW still decays it and its moments
@@ -132,11 +145,63 @@ class OmniEngine:
         self.state = TrainState(self.state.step + 1, self.state.trainable, opt_state)
         return total.detach()
 
+    def train_step(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """One optimizer step; returns the loss (a device scalar)."""
+        rate_a, rate_v = self.sample_rates()
+        arrays, trim = self._arrays(batch)
+        total, _ = self._loss(arrays, rate_a, rate_v, trim, is_train=True)
+        return self._update(total)
+
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         rate_a, rate_v = self.sample_rates()
         arrays, trim = self._arrays(batch)
         return self._loss(arrays, rate_a, rate_v, trim, is_train=False)
+
+    def _rate_combos(self, modality: str) -> List[Tuple[Optional[int], Optional[int]]]:
+        """The rate pairs of the baseline's loss: every rate of the task's
+        modality, or the video x audio cross product for AVSR; the first
+        pair only without matryoshka (`modeling_LlamaAVSR.py:244-251,
+        317-332`; `omni_avsr_tpu/train/engine.py:184-195`)."""
+        cfg = self.cfg
+        if not cfg.is_matryoshka:
+            return [(cfg.audio_rates[0], cfg.video_rates[0])]
+        if modality == "audio":
+            return [(ra, None) for ra in cfg.audio_rates]
+        if modality == "video":
+            return [(None, rv) for rv in cfg.video_rates]
+        return [(ra, rv) for rv in cfg.video_rates for ra in cfg.audio_rates]
+
+    def _single_loss(self, batch: Dict[str, torch.Tensor], modality: str, trim_len: int,
+                     is_train: bool) -> torch.Tensor:
+        """The Llama-AVSR / Llama-MTSK loss of one batch: the mean of
+        `single_task_loss` over every rate combo (`omni_avsr_tpu/train/
+        engine.py:197-214`). The encoders run once for all the combos (each
+        combo compresses the same features at its rates), and their BN runs
+        on batch statistics when `is_train`, as there; dropout, layerdrop
+        and augmentation draw from the engine's generator when `is_train`
+        and `augment` (the JAX step runs AV-HuBERT without dropout here)."""
+        draw = is_train and self.augment
+        proc = self._preprocess(batch, train=is_train)
+        params = self._params()
+        feats = self.model.task_features(params, proc, modality, trim_len, train_mode=is_train,
+                                         generator=self.generator if draw else None,
+                                         conv_kernel=self.conv_kernel)
+        combos = self._rate_combos(modality)
+        total = sum(self.model.single_task_loss(params, proc, modality, feats, ra, rv)
+                    for ra, rv in combos)
+        return total / len(combos)
+
+    def single_train_step(self, batch: Dict[str, Any], modality: str) -> torch.Tensor:
+        """One optimizer step of the single-task baseline on `modality`;
+        returns the loss (a device scalar)."""
+        arrays, trim = self._arrays(batch)
+        return self._update(self._single_loss(arrays, modality, trim, is_train=True))
+
+    @torch.no_grad()
+    def single_eval_step(self, batch: Dict[str, Any], modality: str) -> torch.Tensor:
+        arrays, trim = self._arrays(batch)
+        return self._single_loss(arrays, modality, trim, is_train=False)
 
     def decode_batch(self, params: Dict[str, Any], batch: Dict[str, Any], modality: str,
                      rate_a: Optional[int] = None, rate_v: Optional[int] = None,

@@ -216,12 +216,22 @@ def test_eval_sweep_decodes_like_jax(monkeypatch, sweep_setup):
 def test_cli_refuses_to_run_without_a_card(tmp_path):
     """No CUDA device and no `--device cpu`: a non-zero exit with a message,
     before any work."""
-    from omni_avsr_tpu_torch.cli import eval_omni, train_omni
+    from omni_avsr_tpu_torch.cli import (
+        eval_llama_avsr,
+        eval_omni,
+        serve_http,
+        train_llama_avsr,
+        train_omni,
+        verify_parity,
+    )
 
-    for cli in (eval_omni, train_omni):
+    argv = ["--synthetic", "1", "--exp-dir", str(tmp_path / "inproc")]
+    for cli, args in ((eval_omni, argv), (train_omni, argv), (eval_llama_avsr, argv),
+                      (train_llama_avsr, argv), (verify_parity, argv),
+                      (serve_http, ["--synthetic", "--port", "0"])):
         with pytest.raises(SystemExit) as exc:
-            cli.main(["--synthetic", "1", "--exp-dir", str(tmp_path / "inproc")])
-        assert "--device cpu" in str(exc.value.code)
+            cli.main(args)
+        assert "--device cpu" in str(exc.value.code), cli
     proc = subprocess.run(
         [sys.executable, "-m", "omni_avsr_tpu_torch.cli.eval_omni", "--synthetic", "1",
          "--exp-dir", str(tmp_path / "sub")], cwd=ROOT, capture_output=True, text=True,
@@ -233,12 +243,12 @@ def test_cli_refuses_to_run_without_a_card(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--num-nodes", "2"], ["--mesh-tp", "2"], ["--mesh-pp", "2"], ["--mesh-ep", "2"],
     ["--fsdp", "true"], ["--sequence-parallel", "true"], ["--moe-experts", "4"],
-    ["--fused-task-forward", "true"], ["--compilation-cache-dir", "cache"],
+    ["--coordinator-address", "10.0.0.1:1234"], ["--compilation-cache-dir", "cache"],
 ])
 def test_unported_flags_raise(tmp_path, flag):
-    from omni_avsr_tpu_torch.cli import eval_omni, train_omni
+    from omni_avsr_tpu_torch.cli import eval_llama_avsr, eval_omni, train_llama_avsr, train_omni
 
-    for cli in (eval_omni, train_omni):
+    for cli in (eval_omni, train_omni, eval_llama_avsr, train_llama_avsr):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(["--synthetic", "1", "--device", "cpu", "--exp-dir", str(tmp_path)] + flag)
     assert not os.listdir(tmp_path)

@@ -385,6 +385,7 @@ def test_beam_attention_kernel_one_beam(cuda_device, B, P, step):
     (1, 96, 96, 4, 1, 64, True, (70,), 0.1),            # causal + lengths + dropout, G 4
     (2, 200, 200, 16, 4, 128, False, (200, 77), 0.1),   # G 4, D 128, lengths, dropout
     (3, 347, 347, 32, 8, 64, True, (347, 300, 12), 0.0),  # the LLM's shape with lengths
+    (12, 347, 347, 32, 8, 64, True, None, 0.0),  # the fused three-task backbone, 3 x B 4
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, T, S, Hq, Hkv, D, causal,
                                                   lens, rate):

@@ -147,6 +147,9 @@ def test_no_jax_imports(target):
                 "data/dataset.py", "data/batching.py", "data/noise.py", "data/synthetic.py",
                 "data/datamodule.py", "utils/native.py", "utils/metrics.py",
                 "utils/logging.py", "utils/profiling.py"} <= names
+        # and the serving and baseline slice's
+        assert {"cli/serve_http.py", "cli/train_llama_avsr.py", "cli/eval_llama_avsr.py",
+                "cli/verify_parity.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
