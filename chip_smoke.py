@@ -1710,6 +1710,219 @@ def baseline_phase():
     return rows
 
 
+# ------------------------------------------- (i): a raw clip, end to end
+
+# LRS3's raw crop size and the golden clip's shape (tests/test_golden_clip.py:21)
+RAW_T, RAW_HW = 155, 224
+RAW_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_raw"
+DET_CPU_FRAMES = 8  # frames the card's detector is held against the CPU on
+
+
+def raw_clip(root: Path, name: str, frames: int, seed: int) -> Path:
+    """A raw clip as the card's machine reads one: `.npy` frames (T, 224,
+    224, 3) uint8 RGB (a moving pattern plus noise) and a sibling 16 kHz
+    wav of 640 samples per frame, from `seed`."""
+    from omni_avsr_tpu_torch.data.synthetic import _write_wav
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:RAW_HW, 0:RAW_HW].astype(np.float32)
+    t = np.arange(frames, dtype=np.float32)[:, None, None]
+    base = 127 + 80 * np.sin(xx / 13 + t * 0.2) * np.cos(yy / 17 - t * 0.1)
+    video = base[..., None] + rng.randn(frames, RAW_HW, RAW_HW, 3).astype(np.float32) * 6
+    path = root / f"{name}.npy"
+    np.save(path, np.clip(video, 0, 255).astype(np.uint8))
+    _write_wav(str(root / f"{name}.wav"), (rng.randn(frames * 640) * 0.1).astype(np.float32))
+    return path
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def raw_transcribe(server, clip: Path, expected):
+    """`transcribe_file(clip, preprocessed=False, detector="center")`: one
+    warm call, then one with every counter set to 0 just before and read
+    just after, held to `expected(steps)`."""
+    import torch
+
+    server.transcribe_file(str(clip), detector="center")
+    torch.cuda.synchronize()
+    fns = counters()
+    reset_counts(fns)
+    t = time.perf_counter()
+    text = server.transcribe_file(str(clip), detector="center")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = expected(server.last_decode_steps)
+    if launches != want:
+        raise RuntimeError(f"(i) transcribe_file: kernel launches {launches}, expected {want} "
+                           f"for {server.last_decode_steps} decode steps")
+    if not isinstance(text, str) or not text:
+        raise RuntimeError(f"(i) transcribe_file: an empty transcript {text!r}")
+    row = dict(config="(i) raw clip, center detector, pad30s int8", frames=RAW_T,
+               frame_hw=RAW_HW, audio_s=RAW_T * 640 / 16000, s_per_clip=dt,
+               stages_s=server.last_file_seconds, decode_steps=server.last_decode_steps,
+               launches=launches, transcript=text)
+    log("raw", json.dumps(row))
+    return row
+
+
+def detector_phase(clip: Path):
+    """RetinaFace-ResNet50 and FAN (2 hourglass modules) at full width on
+    the card: the trees of `init_retinaface(0)` and `init_fan(0)` (face
+    class +6, box head x 1e-3, tests/test_detector_models.py:349-353),
+    saved as state dicts in the public layouts and loaded back through
+    `TorchLandmarksDetector(path, path)`; the clip's frames through it (one
+    warm call, one timed), each stage per frame, and the networks alone.
+    Then the same modules on the CPU in f32 on the first 8 frames: conf,
+    loc and the FAN heatmaps (of crops of a centered face box) by relative
+    L2 (tol 2e-2), the faces after NMS equal in count per frame, and the
+    share of landmarks within 0.5 px. The random-weight landmarks are not
+    fed to the ROI tail: their warped mouth may rightly hit `cut_patch`'s
+    OverflowError."""
+    import torch
+
+    from omni_avsr_tpu_torch.convert.detector_torch import (
+        fan_state_dict,
+        init_fan,
+        init_retinaface,
+        retinaface_state_dict,
+    )
+    from omni_avsr_tpu_torch.preprocess import fan as fan_mod
+    from omni_avsr_tpu_torch.preprocess import retinaface as rf_mod
+    from omni_avsr_tpu_torch.preprocess.detector import (
+        TorchLandmarksDetector,
+        largest_face_index,
+    )
+
+    rf, fan = init_retinaface(0), init_fan(0)
+    for h in rf["class_head"]:
+        h["b"][1::2] += 6.0
+    for h in rf["bbox_head"]:
+        h["w"] *= 1e-3
+    paths = RAW_DIR / "Resnet50_Final.pth", RAW_DIR / "fan.pth"
+    for path, sd in zip(paths, (retinaface_state_dict(rf), fan_state_dict(fan))):
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    det = TorchLandmarksDetector(str(paths[0]), str(paths[1]), device=DEV)
+    frames = np.load(clip)
+    T = len(frames)
+    det(frames)  # first use of the networks' shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns = counters()
+    reset_counts(fns)
+    t = time.perf_counter()
+    lms = det(frames)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in fns.items()}  # none: cuDNN convs
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    found = sum(lm is not None for lm in lms)
+    if found != T or not all(np.isfinite(lm).all() and lm.shape == (68, 2) for lm in lms):
+        raise RuntimeError(f"(i) detector: landmarks for {found} of {T} frames")
+
+    # each stage alone over the clip: the networks, the host's box decode and
+    # NMS, the crops, the heatmap decode
+    x = torch.as_tensor(frames, device=DEV)
+    mean = torch.tensor(rf_mod.MEAN_BGR, device=DEV)
+    B = det.batch
+    priors = rf_mod.priors_for(RAW_HW, RAW_HW)
+
+    def rf_net():
+        with torch.inference_mode():
+            return [rf_mod.retinaface_forward(det.rf, x[i:i + B].float() - mean)
+                    for i in range(0, T, B)]
+
+    outs = rf_net()
+    loc = torch.cat([o[0] for o in outs]).cpu().numpy()
+    scores = torch.cat([o[1][..., 1] for o in outs]).cpu().numpy()
+
+    def box_decode():
+        return [rf_mod.frame_faces(loc[b], scores[b], priors, RAW_HW, RAW_HW, det.threshold)
+                for b in range(T)]
+
+    faces = box_decode()
+    boxes = np.stack([f[largest_face_index(f)][:4] for f in faces])
+    rgb = x.flip(-1)
+
+    def crops():
+        return [fan_mod.crop_faces(rgb[i:i + B], boxes[i:i + B]) for i in range(0, T, B)]
+
+    cropped = crops()
+
+    def fan_net():
+        with torch.inference_mode():
+            return [fan_mod.fan_forward(det.fan, c[0]) for c in cropped]
+
+    heatmaps = fan_net()
+
+    def heatmap_decode():
+        return [fan_mod.heatmaps_to_landmarks(h, c[1], c[2]) for h, c in zip(heatmaps, cropped)]
+
+    ms = {name: host_ms(fn, iters=3) for name, fn in
+          (("retinaface_net_ms", rf_net), ("box_decode_nms_ms", box_decode), ("crop_ms", crops),
+           ("fan_net_ms", fan_net), ("heatmap_decode_ms", heatmap_decode))}
+    per_frame = {**{k: v / T for k, v in ms.items()}, "detector_ms": total * 1e3 / T}
+
+    # the same modules on the CPU, f32, on the first frames
+    n = DET_CPU_FRAMES
+    rf_cpu, fan_cpu = rf_mod.conv_layout(rf, "cpu"), rf_mod.conv_layout(fan, "cpu")
+    xin = torch.as_tensor(frames[:n]).float() - torch.tensor(rf_mod.MEAN_BGR)
+    with torch.inference_mode():
+        loc_d, conf_d, _ = rf_mod.retinaface_forward(det.rf, xin.to(DEV))
+        loc_h, conf_h, _ = rf_mod.retinaface_forward(rf_cpu, xin)
+        faces_h = rf_mod.detect_faces(rf_cpu, torch.as_tensor(frames[:n]))
+        # FAN on crops of a centered face box (80% of the frame): with random
+        # weights the largest detected box is far larger than the frame, and
+        # its crop holds no pixel of it
+        side = 0.8 * RAW_HW
+        centered = np.array([[(RAW_HW - side) / 2 + i, (RAW_HW - side) / 2,
+                              (RAW_HW + side) / 2 + i, (RAW_HW + side) / 2] for i in range(n)],
+                            np.float32)
+        crops_h, _, _ = fan_mod.crop_faces(torch.as_tensor(frames[:n]).flip(-1), centered)
+        hm_d = fan_mod.fan_forward(det.fan, crops_h.to(DEV))
+        hm_h = fan_mod.fan_forward(fan_cpu, crops_h)
+    agree = dict(conf_rel_l2=rel_l2(conf_d, conf_h), loc_rel_l2=rel_l2(loc_d, loc_h),
+                 heatmap_rel_l2=rel_l2(hm_d, hm_h))
+    bad = {k: v for k, v in agree.items() if not v <= REL_L2_TOL}
+    if bad:
+        raise RuntimeError(f"(i) detector on the card vs the CPU: {bad} (tol {REL_L2_TOL})")
+    counts_d, counts_h = [len(f) for f in faces[:n]], [len(f) for f in faces_h]
+    if counts_d != counts_h:
+        raise RuntimeError(f"(i) faces after NMS: card {counts_d}, CPU {counts_h}")
+    lms_h = TorchLandmarksDetector(rf, fan, device="cpu")(frames[:n])
+    dist = np.stack([np.linalg.norm(a - b, axis=-1) for a, b in zip(lms[:n], lms_h)])
+    row = dict(config="(i) RetinaFace-ResNet50 + FAN (2 modules), random weights via .pth",
+               frames=T, frame_hw=RAW_HW, batch=det.batch, clip_s=total, per_frame_ms=per_frame,
+               launches=launches,
+               peak_gib=peak, cpu_check_frames=n, **agree, faces_after_nms=counts_d,
+               landmarks_within_half_px=float((dist <= 0.5).mean()),
+               landmark_max_px=float(dist.max()),
+               cudnn_math=("TF32" if torch.backends.cudnn.allow_tf32 else "f32 (TF32 off)"),
+               channels_last=bool(det.rf["body"]["stem"]["w"].is_contiguous(
+                   memory_format=torch.channels_last)))
+    log("raw", json.dumps(row))
+    return row
+
+
+def raw_phase(server, expected):
+    """(i): a raw clip (155 frames of 224x224x3 and 6.2 s of audio, from a
+    seed) through `Transcriber.transcribe_file` on (a)'s server, then the
+    full-width detectors over it (`detector_phase`). Returns the rows and
+    the clip, which the CLI phase reads too."""
+    import shutil
+
+    shutil.rmtree(RAW_DIR, ignore_errors=True)
+    RAW_DIR.mkdir(parents=True)
+    clip = raw_clip(RAW_DIR, "clip", RAW_T, seed=155)
+    rows = {"i": raw_transcribe(server, clip, expected), "i detector": detector_phase(clip)}
+    return rows, clip
+
+
 # ------------------------------------------------- (f): corpus eval + train
 
 # (f)'s corpus: `generate_corpus` with the JAX function's parameters, clips
@@ -1999,20 +2212,28 @@ def serve_http_cli(root: Path):
     return row
 
 
-def cli_phase(work: Path):
+def cli_phase(work: Path, raw_clip_path: Path):
     """The CLIs as a user runs them, as subprocesses on the card
     (`--synthetic` runs at the JAX CLI's tiny widths): `serve_http` (one
     request), `eval_omni` with the int8 and the packed-int4 decode tree,
     `train_omni` for two epochs, `train_llama_avsr` for one epoch on audio,
-    `eval_llama_avsr` on audio with the int8 LLM, and `verify_parity` in
-    three modes. Each must exit 0 (verify_parity 1: random weights fail
-    BASELINE.md, with all 8 settings measured) and give the result keys
-    and files; the int8 runs must launch B2, the int4 run B6, and
-    verify_parity both."""
+    `eval_llama_avsr` on audio with the int8 LLM, `verify_parity` in three
+    modes with (i)'s raw clip as its golden clip, and the preparation CLIs
+    of (i): `preprocess_video` on (i)'s clip, `prepare_dataset` on 4 raw
+    clips and `make_noise babble` on their wavs (`--detector center`, the
+    ROI chain on the card). Each must exit 0 (verify_parity 1: random
+    weights fail BASELINE.md, with all 8 settings measured) and give the
+    result keys and files; the int8 runs must launch B2, the int4 run B6,
+    and verify_parity both."""
     root = Path(__file__).resolve().parent
     grid = [f"{t} (a={a}, v={v})" for t, a, v in
             [("audio", 4, None), ("audio", 16, None), ("video", None, 2), ("video", None, 5)]
             + [("audiovisual", a, v) for a in (4, 16) for v in (2, 5)]]
+    corpus = work / "raw_corpus"
+    corpus.mkdir(parents=True)
+    for i in range(4):
+        raw_clip(corpus, f"spk{i}-clip", 30 + 5 * i, seed=20 + i)
+        (corpus / f"spk{i}-clip.txt").write_text(f"Text:  HELLO WORLD {i}\n")
     runs = [(f"eval_omni {q}", ["eval_omni", "--synthetic", "2", "--num-beams", "2",
                                 "--max-dec-tokens", "4", "--quantize-decode", q,
                                 "--print-hyp", "false", "--exp-dir", str(work / f"eval_{q}"),
@@ -2027,7 +2248,17 @@ def cli_phase(work: Path):
                                           "false", "--exp-dir", str(work / "llama_eval")]))
     runs.append(("verify_parity", ["verify_parity", "--synthetic", "2", "--modes",
                                    "bf16,int8,int4", "--exp-dir", str(work / "parity"),
-                                   "--output-json", str(work / "parity.json")]))
+                                   "--output-json", str(work / "parity.json"),
+                                   "--golden-clip", str(raw_clip_path)]))
+    runs.append(("preprocess_video", ["preprocess_video", "--path-to-input-video",
+                                      str(raw_clip_path), "--transcription", "HELLO",
+                                      "--detector", "center", "--out-dir", str(work / "pre")]))
+    runs.append(("prepare_dataset", ["prepare_dataset", "--input-dir", str(corpus),
+                                     "--output-dir", str(work / "prepared"), "--dataset-name",
+                                     "raw", "--detector", "center", "--num-workers", "2"]))
+    runs.append(("make_noise babble", ["make_noise", "babble", "--input-dir", str(corpus),
+                                       "--output", str(work / "noise" / "noise.wav"),
+                                       "--num-per-mixture", "3", "--min-seconds", "1"]))
     rows = [serve_http_cli(root)]
     for label, argv in runs:
         t = time.perf_counter()
@@ -2067,13 +2298,50 @@ def cli_phase(work: Path):
         elif label == "verify_parity":
             report = json.loads((work / "parity.json").read_text())
             statuses = [r["status"] for r in report["rows"]]
+            golden = report.get("golden_clip", {})
             if (len(statuses) != 8 or "MISSING" in statuses or report["passed"]
                     or report["modes"] != ["bf16", "int8", "int4"]
                     or not all(r.get("int8") is not None and r.get("int4") is not None
-                               for r in report["rows"])):
+                               for r in report["rows"])
+                    or list(golden) != ["modality", "transcripts"]
+                    or golden["modality"] != "audiovisual"
+                    or list(golden["transcripts"]) != ["bf16", "int8", "int4"]):
                 raise RuntimeError(f"{label}: report {json.dumps(report)[:2000]}")
             result = dict(statuses=statuses, worst_abs_delta=report["worst_abs_delta"],
-                          rows=report["rows"], profile=report["profile"]["requested"])
+                          rows=report["rows"], profile=report["profile"]["requested"],
+                          golden_clip=golden)
+        elif label == "preprocess_video":
+            # `.npy` where OpenCV is not installed or has no mp4 writer
+            out = sorted(p.name for p in (work / "pre").iterdir())
+            written = "clip_preprocessed.mp4" if "clip_preprocessed.mp4" in out \
+                else "clip_preprocessed.npy"
+            manifest = (work / "pre" / "test_file.csv").read_text()
+            if (manifest != f"pre,{written},{RAW_T},0,HELLO\n" or (
+                    written.endswith(".npy")
+                    and np.load(work / "pre" / written).shape != (RAW_T, 96, 96))):
+                raise RuntimeError(f"{label}: wrote {out}, manifest {manifest!r}")
+            result = dict(files=out, manifest=manifest.strip())
+        elif label == "prepare_dataset":
+            manifest = (work / "prepared" / "train.csv").read_text().splitlines()
+            out = work / "prepared" / "raw"
+            videos = [p for p in out.iterdir() if p.suffix in (".npy", ".mp4")]
+            shapes = sorted(np.load(p).shape for p in videos if p.suffix == ".npy")
+            wavs = sorted(out.glob("*.wav"))
+            if (len(manifest) != 4 or len(videos) != 4 or len(wavs) != 4
+                    or shapes not in ([], [(30 + 5 * i, 96, 96) for i in range(4)])
+                    or "found 4 clips" not in proc.stdout):
+                raise RuntimeError(f"{label}: manifest {manifest}, ROI shapes {shapes}, "
+                                   f"{len(wavs)} wavs\n{proc.stdout[-2000:]}")
+            result = dict(rows=manifest, roi_shapes=shapes)
+        elif label == "make_noise babble":
+            from omni_avsr_tpu_torch.preprocess.noise_prep import read_wav_int16
+
+            noise = read_wav_int16(str(work / "noise" / "noise.wav"))
+            # the mix is as long as the shortest of the 3 clips it draws
+            if len(noise) not in [(30 + 5 * i) * 640 for i in range(4)] \
+                    or "mixed 3 clips" not in proc.stdout:
+                raise RuntimeError(f"{label}: {len(noise)} samples\n{proc.stdout[-2000:]}")
+            result = dict(samples=len(noise))
         else:
             exp = work / "cli_train" / "omni"
             ckpts = sorted(p.name for p in (exp / "checkpoints").glob("step_*.pt"))
@@ -2333,6 +2601,11 @@ def main() -> int:
     profile_batch("(b) bucket int8", lambda: server_b.transcribe_many(items_b))
     profile_batch("(c) bucket int4", lambda: server_c.transcribe_many(items_b))
     rows["g"] = http_phase(server_a, model_a)
+    # (i): a raw clip through (a)'s server; AV-HuBERT at its 160 frames is
+    # under B3's gate, so B3 runs in Whisper's 24 layers only
+    raw_rows, raw_clip_path = raw_phase(server_a, lambda s: counts(
+        B1=layers_llm * s, B2=tower_b2 + llm_mats * (1 + s), B3=model_a.cfg.whisper.num_layers))
+    rows.update(raw_rows)
     del server_a, server_b, server_c
     torch.cuda.empty_cache()
 
@@ -2408,7 +2681,7 @@ def main() -> int:
     rows.update(baseline_phase())
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
     rows.update(corpus_phase(work))
-    cli_rows = cli_phase(work)
+    cli_rows = cli_phase(work, raw_clip_path)
 
     def entry(key, name, source, replaces, row, config, shape):
         """The kernel's line: its launches in the configuration whose main

@@ -27,8 +27,13 @@ configuration.
 `--profile` names the JAX package's numerics profile. The port reads no
 `OMNI_*` variable: the report records which of the reference profile's
 pins the port holds and which it cannot, with the ROADMAP item of each.
-`--golden-clip` needs the mouth-ROI preprocessing, which is not ported
-(ROADMAP A4.4, A6).
+`--golden-clip clip.npy` (or an mp4 where OpenCV is installed) also
+preprocesses the reference's bundled clip (the port's RetinaFace + FAN on
+the card with `--retinaface-weights` and `--fan-weights`, the centered
+fallback without them) and records its beam transcript per mode, the
+golden-clip check of `omni_avsr_tpu/cli/verify_parity.py:109-148`. Audio is
+taken from a sibling .wav (or `--golden-audio`); without one, the
+transcript is VSR-only.
 """
 
 from __future__ import annotations
@@ -94,14 +99,61 @@ def parse_args(argv=None):
     p.add_argument("--modes", default="bf16",
                    help="comma list of decode modes to grid: bf16,int8,int4,bucket")
     p.add_argument("--golden-clip", default=None,
-                   help="raw mp4 to preprocess and transcribe per mode: not ported")
-    p.add_argument("--retinaface-weights", default=None)
+                   help="raw clip (.npy, or mp4 with OpenCV) to preprocess and transcribe per mode")
+    p.add_argument("--retinaface-weights", default=None,
+                   help="Resnet50_Final.pth: golden-clip landmarks from the port's RetinaFace+FAN "
+                        "instead of the centered fallback")
     p.add_argument("--fan-weights", default=None)
-    p.add_argument("--golden-audio", default=None)
+    p.add_argument("--golden-audio", default=None,
+                   help="16 kHz wav for the golden clip (default: sibling .wav of --golden-clip "
+                        "if present)")
     p.add_argument("--profile", default="reference", choices=["reference", "tpu", "none"],
                    help="the JAX package's numerics profile: the report records which of the "
                         "reference pins the port holds")
     return p.parse_known_args(argv)
+
+
+def golden_transcripts(clip, audio_path, eval_argv, modes, detector_weights=(None, None)):
+    """Preprocess --golden-clip on the device and beam-decode it under each
+    mode -> {"modality", "transcripts": {mode: text}}."""
+    import os
+
+    import numpy as np
+
+    from ..data.dataset import load_audio, load_video
+    from ..preprocess.detector import build_detector
+    from ..preprocess.mean_face import load_mean_face
+    from ..preprocess.video_process import extract_mouth_rois
+    from ..serve import Transcriber
+    from . import common, eval_omni
+
+    device = common.check_args(eval_omni.parse_args(eval_argv + ["--print-hyp", "false"]))
+    frames = load_video(clip)
+    det = build_detector("auto", device=device, retinaface_weights=detector_weights[0],
+                         fan_weights=detector_weights[1])
+    rois = extract_mouth_rois(frames, det(frames), load_mean_face(), device=device)
+    if rois is None:
+        raise ValueError(f"{clip}: no usable landmarks or clip shorter than the 12-frame "
+                         f"smoothing window")
+    video = np.repeat(rois[..., None], 3, axis=-1)
+
+    if audio_path is None:
+        sib = os.path.splitext(clip)[0] + ".wav"
+        audio_path = sib if os.path.exists(sib) else None
+    audio = load_audio(audio_path) if audio_path else None
+    modality = "audiovisual" if audio is not None else "video"
+
+    out = {}
+    for mode in modes:
+        ep = eval_omni.parse_args(eval_argv + MODE_ARGV[mode] + ["--print-hyp", "false"])
+        model = common.build_model(ep)
+        params = common.build_params(ep, model, device)
+        t = Transcriber(model, params, num_beams=model.cfg.num_beams,
+                        max_new_tokens=model.cfg.max_dec_tokens,
+                        quantize=mode if mode in ("int8", "int4") else None, device=device)
+        out[mode] = t.transcribe(video=video, audio=audio, modality=modality)
+        print(f"golden-clip [{mode}, {modality}]: {out[mode]!r}")
+    return {"modality": modality, "transcripts": out}
 
 
 def _leaves(tree, prefix=""):
@@ -125,11 +177,6 @@ def _tree_summary(params, init_params) -> dict:
 
 def main(argv=None):
     args, eval_argv = parse_args(argv)
-    if args.golden_clip:
-        raise NotImplementedError(
-            "--golden-clip is not ported to omni_avsr_tpu_torch: it needs the mouth-ROI "
-            "preprocessing (ROADMAP A4.4, A6 preprocessing)")
-
     from . import eval_omni
 
     if args.convert_only:
@@ -213,6 +260,10 @@ def main(argv=None):
                   avg_reference=round(avg_ref, 3), avg_ours=round(avg_ours, 3),
                   worst_abs_delta=None if worst == float("inf") else round(worst, 3),
                   passed=all(r["status"] == "PASS" for r in rows), profile=profile)
+    if args.golden_clip:
+        report["golden_clip"] = golden_transcripts(
+            args.golden_clip, args.golden_audio, eval_argv, modes,
+            detector_weights=(args.retinaface_weights, args.fan_weights))
     with open(args.output_json, "w") as f:
         json.dump(report, f, indent=2)
     print(f"wrote {args.output_json}")

@@ -133,19 +133,21 @@ def _write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> None:
         w.writeframes(pcm.tobytes())
 
 
-def _write_video(path: str, frames: np.ndarray) -> str:
-    """mp4 through OpenCV where it is installed and can write one, else
-    `.npy` (`dataset.load_video` reads both); returns the path written."""
+def _write_video(path: str, frames: np.ndarray, fps: float = 25.0) -> str:
+    """(T, H, W, 3) RGB or (T, H, W) grayscale uint8 frames -> mp4 through
+    OpenCV where it is installed and can write one (grayscale replicated to
+    3 channels), else `.npy` of the frames as given (`dataset.load_video`
+    reads both); returns the path written."""
     try:
         import cv2
     except ImportError:
         cv2 = None
     if cv2 is not None:
-        T, H, W, C = frames.shape
-        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (W, H))
+        T, H, W = frames.shape[:3]
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (W, H))
         if vw.isOpened():
             for f in frames:
-                vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+                vw.write(cv2.cvtColor(f, cv2.COLOR_GRAY2BGR if f.ndim == 2 else cv2.COLOR_RGB2BGR))
             vw.release()
             if os.path.getsize(path) > 0:
                 return path

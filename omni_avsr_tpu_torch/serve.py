@@ -1,5 +1,5 @@
-"""Serving API: raw media in, transcript out (port of `omni_avsr_tpu/serve.py`
-but for `transcribe_file`, and of the decode half of `train/engine.py`).
+"""Serving API: raw media in, transcript out (port of `omni_avsr_tpu/serve.py`,
+and of the decode half of `train/engine.py`).
 
     from omni_avsr_tpu_torch.models.omni import flagship
     from omni_avsr_tpu_torch.serve import Transcriber
@@ -8,6 +8,7 @@ but for `transcribe_file`, and of the decode half of `train/engine.py`).
     t = Transcriber.from_pretrained("omni.pth", tokenizer=tok, quantize="int8")
     text = t.transcribe(audio=wav16k, video=frames)
     texts = t.transcribe_many([{"audio": wav16k, "video": frames}, ...])
+    text = t.transcribe_file("clip.npy")   # raw frames + clip.wav: mouth ROIs first
 
 `models/omni.py::registry_model` builds the model of any `LLM_REGISTRY`
 name (Llama-3.x, Qwen2.5) with Whisper-medium and AV-HuBERT-Large.
@@ -28,6 +29,7 @@ runs the ResNet trunk's 19 convs through the fused conv B7.
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -196,6 +198,7 @@ class Transcriber:
         self.num_beams = num_beams if num_beams is not None else model.cfg.num_beams
         self.max_new = max_new_tokens if max_new_tokens is not None else model.cfg.max_dec_tokens
         self.last_decode_steps = 0  # decode steps of the last batch
+        self.last_file_seconds: Dict[str, float] = {}  # stages of the last transcribe_file
 
     @classmethod
     def from_pretrained(
@@ -309,3 +312,52 @@ class Transcriber:
         if modality in ("video", "audiovisual"):
             return ("v", bucket_ladder(len(item["video"]), self.video_pad_multiple))
         return ("a", bucket_ladder(len(item["audio"]), 640 * self.video_pad_multiple))
+
+    def transcribe_file(
+        self,
+        path: str,
+        preprocessed: bool = False,
+        detector: str = "auto",
+        mean_face_path: Optional[str] = None,
+        **kwargs,
+    ) -> str:
+        """A clip (`.npy` frames, or mp4 where OpenCV is installed) and its
+        sibling `.wav` -> transcript (`omni_avsr_tpu/serve.py:283-318`). With
+        preprocessed=False the mouth-ROI chain runs first, on this
+        Transcriber's device (the reference single-clip demo flow):
+        `detector` is a `build_detector` name; pass mean_face_path to warp
+        onto the reference `20words_mean_face.npy`.
+        `kwargs` go to `transcribe`. `last_file_seconds` holds the wall
+        time of the detector, the ROI chain and the decode."""
+        from .data.dataset import load_audio, load_video
+
+        frames = load_video(path)
+        try:
+            audio = load_audio(path)
+        except Exception:  # no sibling wav: the clip has video only
+            audio = None
+        times = {}
+        if not preprocessed:
+            from .preprocess.detector import build_detector
+            from .preprocess.mean_face import load_mean_face
+            from .preprocess.video_process import extract_mouth_rois
+
+            t = time.perf_counter()
+            landmarks = build_detector(detector, device=self.device)(frames)
+            times["detector_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            frames = extract_mouth_rois(frames, landmarks, load_mean_face(mean_face_path),
+                                        device=self.device)
+            times["roi_s"] = time.perf_counter() - t
+            if frames is None:
+                raise ValueError(f"{path}: no usable landmarks or clip shorter than the "
+                                 f"12-frame smoothing window")
+            # reference ROIs are grayscale; the model pipeline takes 3-channel
+            frames = np.repeat(frames[..., None], 3, axis=-1)
+        if audio is not None:
+            audio = audio[: len(frames) * 640]
+        t = time.perf_counter()
+        text = self.transcribe(audio=audio, video=frames, **kwargs)
+        times["decode_s"] = time.perf_counter() - t
+        self.last_file_seconds = times
+        return text

@@ -566,3 +566,45 @@ def test_conv_block_rejects_bad_input(cuda_device):
     x16 = torch.zeros(2, 8, 8, 16, dtype=torch.float16, device=cuda_device)
     with pytest.raises(ValueError, match="dtype"):
         conv2d_fused(x16, w[:, :, :1].expand(3, 3, 16, 16), 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 3])
+def test_roi_warp_on_the_card_matches_cpu(cuda_device, channels):
+    """The batched mouth-ROI warp and grayscale on the card give the CPU's
+    bytes: both are the same float32 and integer arithmetic."""
+    import numpy as np
+
+    from omni_avsr_tpu_torch.preprocess.video_process import rgb_to_gray, warp_frames
+
+    rng = np.random.RandomState(channels)
+    frames = torch.as_tensor(rng.randint(0, 256, (40, 224, 224, 3), dtype=np.uint8))
+    if channels == 1:
+        assert torch.equal(rgb_to_gray(frames.to(cuda_device)).cpu(), rgb_to_gray(frames))
+        frames = rgb_to_gray(frames)
+    ms = []
+    for _ in range(40):
+        a, s = rng.uniform(-0.5, 0.5), rng.uniform(0.5, 2.0)
+        ms.append(np.array([[s * np.cos(a), -s * np.sin(a), rng.uniform(-60, 60)],
+                            [s * np.sin(a), s * np.cos(a), rng.uniform(-60, 60)]]))
+    cpu = warp_frames(frames, ms, 256)
+    card = warp_frames(frames.to(cuda_device), ms, 256)
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_face_crop_on_the_card_matches_cpu(cuda_device):
+    import numpy as np
+
+    from omni_avsr_tpu_torch.preprocess.fan import crop_faces, heatmaps_to_landmarks
+
+    rng = np.random.RandomState(0)
+    frames = torch.as_tensor(rng.randint(0, 256, (16, 224, 224, 3), dtype=np.uint8))
+    xy = rng.uniform(-40, 150, (16, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(30, 120, (16, 2))], 1).astype(np.float32)
+    cpu, centers, sides = crop_faces(frames, boxes)
+    card, _, _ = crop_faces(frames.to(cuda_device), boxes)
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-6)
+    hm = torch.rand(16, 64, 64, 68, generator=torch.Generator().manual_seed(1))
+    np.testing.assert_array_equal(heatmaps_to_landmarks(hm.to(cuda_device), centers, sides),
+                                  heatmaps_to_landmarks(hm, centers, sides))

@@ -150,10 +150,30 @@ def test_no_jax_imports(target):
         # and the serving and baseline slice's
         assert {"cli/serve_http.py", "cli/train_llama_avsr.py", "cli/eval_llama_avsr.py",
                 "cli/verify_parity.py"} <= names
+        # and the raw-clip slice's: the mouth-ROI chain, the detectors, their
+        # converter and the preparation CLIs
+        assert {"preprocess/mean_face.py", "preprocess/video_process.py",
+                "preprocess/retinaface.py", "preprocess/fan.py", "preprocess/detector.py",
+                "preprocess/noise_prep.py", "convert/detector_torch.py",
+                "cli/preprocess_video.py", "cli/prepare_dataset.py", "cli/make_noise.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "omni_avsr_tpu", "__graft_entry__"), (f, name)
+
+
+def test_preprocessing_needs_no_opencv():
+    """The mouth-ROI chain runs where OpenCV is not installed: the chain,
+    the detector converter and the preparation CLIs import none (mp4 reading and writing
+    stay in data/dataset.py and data/synthetic.py, imported only there)."""
+    port = ROOT / "omni_avsr_tpu_torch"
+    files = sorted((port / "preprocess").rglob("*.py")) + [
+        port / "convert" / "detector_torch.py", port / "cli" / "preprocess_video.py",
+        port / "cli" / "prepare_dataset.py", port / "cli" / "make_noise.py"]
+    assert len(files) >= 10
+    for f in files:
+        for name in _imports(f):
+            assert name.split(".")[0] not in ("cv2", "jax", "omni_avsr_tpu"), (f, name)
 
 
 def _kernels_line_entries():

@@ -8,7 +8,10 @@
     every mode's columns, exit 1 (random weights fail BASELINE.md);
   - `--convert-only` on a reference-layout state dict (as
     tests/test_torch_convert.py builds one) gives the JAX census;
-  - `--golden-clip` raises `NotImplementedError`.
+  - `--golden-clip` on a raw clip (`.npy` frames and a sibling wav, the
+    centered detector): the report's `golden_clip` has the JAX keys, and
+    `golden_transcripts` gives the JAX function's transcripts on one f32
+    tree.
 """
 
 import json
@@ -150,9 +153,61 @@ def test_convert_only_census_matches_jax(monkeypatch, tmp_path, capsys):
     assert last(ours_out) == last(theirs_out) and last(ours_out).startswith("conversion OK")
 
 
+def _golden_clip(tmp_path):
+    """A raw clip: 20 frames of 120x120 RGB as `.npy`, with a sibling wav."""
+    from omni_avsr_tpu_torch.data.synthetic import _write_wav
+
+    rng = np.random.RandomState(0)
+    clip = tmp_path / "golden.npy"
+    np.save(clip, rng.randint(0, 256, (20, 120, 120, 3), dtype=np.uint8))
+    _write_wav(str(tmp_path / "golden.wav"), (rng.randn(20 * 640) * 0.1).astype(np.float32))
+    return str(clip)
+
+
 def test_golden_clip_is_not_ported(tmp_path):
+    """The name dates from when the port refused `--golden-clip`: the flag
+    now runs, and the report carries the JAX package's `golden_clip` record."""
     from omni_avsr_tpu_torch.cli.verify_parity import main
 
-    with pytest.raises(NotImplementedError, match="A4.4"):
-        main(["--golden-clip", str(tmp_path / "clip.mp4"), "--device", "cpu"] + EVAL)
-    assert not list(tmp_path.iterdir())
+    out_json = tmp_path / "parity.json"
+    rc = main(["--golden-clip", _golden_clip(tmp_path), "--modes", "bf16,int8",
+               "--output-json", str(out_json), "--device", "cpu", "--exp-dir",
+               str(tmp_path / "eval"), "--test-specific-modality", "audio",
+               "--test-specific-ratio", "4"] + EVAL)
+    assert rc == 1  # random weights fail BASELINE.md
+    golden = json.load(open(out_json))["golden_clip"]
+    assert list(golden) == ["modality", "transcripts"]
+    assert golden["modality"] == "audiovisual"  # the sibling wav
+    assert list(golden["transcripts"]) == ["bf16", "int8"]
+    assert all(isinstance(t, str) for t in golden["transcripts"].values())
+
+
+def test_golden_clip_matches_jax(monkeypatch, tmp_path):
+    import omni_avsr_tpu.cli.common as jax_common
+    import omni_avsr_tpu.cli.eval_omni as jax_eval
+    from omni_avsr_tpu.cli.verify_parity import golden_transcripts as jax_golden
+
+    import omni_avsr_tpu_torch.cli.common as port_common
+    from omni_avsr_tpu_torch.bridge import params_from_numpy
+    from omni_avsr_tpu_torch.cli.verify_parity import golden_transcripts
+    from omni_avsr_tpu_torch.models.omni import OmniAVSR
+
+    jax_in_f32(monkeypatch)
+    monkeypatch.setenv("OMNI_BEAM_ATTN", "kernel")
+    eval_argv = EVAL + ["--exp-dir", str(tmp_path / "eval")]
+    jm = jax_eval.build_model(jax_eval.parse_args(eval_argv))
+    init = jax.jit(lambda k: jm.init_params(k, frozen_dtype=jnp.float32))
+    tree = randomize_lora_down(jax.device_get(init(jax.random.PRNGKey(0))))
+    monkeypatch.setattr(jax_common, "build_params", lambda args, model: jax.tree_util.tree_map(
+        jnp.asarray, tree))
+    build_model = port_common.build_model
+    monkeypatch.setattr(port_common, "build_model", lambda args: OmniAVSR(
+        build_model(args).cfg, build_model(args).tok, dtype=torch.float32))
+    monkeypatch.setattr(port_common, "build_params",
+                        lambda args, model, device: params_from_numpy(tree, device))
+
+    clip = _golden_clip(tmp_path)
+    theirs = jax_golden(clip, None, eval_argv, ["bf16", "int8"])
+    ours = golden_transcripts(clip, None, eval_argv + ["--device", "cpu"], ["bf16", "int8"])
+    assert ours == theirs
+    assert ours["modality"] == "audiovisual" and list(ours["transcripts"]) == ["bf16", "int8"]
