@@ -112,6 +112,21 @@ Phases, each printing lines with the elapsed seconds:
      the count its rates and lengths give, then `restore_checkpoint` (the
      restored state must equal the saved one) and `average_last_n` (the
      mean of the two checkpoints), each timed;
+  8a. the reference numerics profile (`OMNI_PROFILE=reference` as
+     arguments): (j) (a)'s three requests on the flagship in bf16 weights
+     on the reorder route with grid selection (`attn_route="xla",
+     select_mode="grid"`; B3 48 and nothing else), held against the
+     kernel route (B1) on the same tree, the device time of the reorder
+     gather, the grid top-k and one layer's three-block attention per
+     step, then one (b) batch with `no_repeat_ngram_size=2` on the kernel
+     route (no output repeats a bigram); the threefry draws of
+     `utils/prng.py` at AV-HuBERT's dropout shape, card against CPU bit
+     for bit; (k) (t)'s batch through `OmniEngine(prng="threefry",
+     bn_stats="twopass")` at remat "off", "dots" and "full" from the same
+     masters and key (the losses within 1e-5 relative, a second "dots"
+     run bit-equal), each step's launches held to its policy's count;
+     (f)'s two train epochs run through `utils/prefetch.py::device_prefetch`
+     and their losses must be bit-equal to a synchronous upload's;
   9. the CLIs as a user runs them, as subprocesses on the card:
      `serve_http --synthetic` (/healthz, one audio request, then stopped),
      `eval_omni --synthetic 2 --num-beams 2 --max-dec-tokens 4` with
@@ -121,7 +136,10 @@ Phases, each printing lines with the elapsed seconds:
      --quantize-decode int8` and `verify_parity --synthetic 2 --modes
      bf16,int8,int4`: exit 0 (verify_parity 1, all 8 settings measured:
      random weights fail BASELINE.md), the result keys, the checkpoints and
-     `model_avg_4`; B2 in the int8 runs, B6 in the int4 ones.
+     `model_avg_4`; B2 in the int8 runs, B6 in the int4 ones, B1 in none
+     (the tiny head size 16 takes the reorder route); verify_parity under
+     its default `--profile reference` must report all eight pins held,
+     and the int8 eval_omni run passes `--compilation-cache-dir`.
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1241,14 +1259,16 @@ def plain_train_route():
             setattr(mod, name, fn)
 
 
-def train_launches(model, flash_tasks: int, video_layers: int):
+def train_launches(model, flash_tasks: int, video_layers: int, remat: str = "dots"):
     """What one train step must launch: B3 in Whisper's layers (at T 1500,
-    forward only); B3 and B4 once each in every AV-HuBERT layer that runs
-    (layerdrop); in every LLM layer of a task whose sequence reaches the
-    flash gate, B3 twice (the checkpoint runs the forward again in the
-    backward) and B4 once; nothing else."""
+    forward only); in every AV-HuBERT layer that runs (layerdrop) and in
+    every LLM layer of a task whose sequence reaches the flash gate, B4
+    once and B3 once in the forward and, under the remat policies "dots"
+    (the engine's default) and "full", once more where the backward
+    recomputes the layer; nothing else."""
     n = flash_tasks * model.cfg.llm.num_layers
-    return {"B1": 0, "B2": 0, "B3": model.cfg.whisper.num_layers + video_layers + 2 * n,
+    again = 1 if remat == "off" else 2
+    return {"B1": 0, "B2": 0, "B3": model.cfg.whisper.num_layers + again * (video_layers + n),
             "B4": video_layers + n, "B5": 0, "B6": 0, "B7": 0}
 
 
@@ -1540,15 +1560,16 @@ def single_length(model, modality: str, ra, rv, trim: int, frames: int, token_le
 def single_launches(model, modality: str, flash_combos: int, video_layers: int,
                     train: bool = True):
     """What one single-task step must launch: B3 in Whisper's layers (once:
-    the engine encodes once for all the rate combos), B3 and (training) B4
-    in every AV-HuBERT layer that runs, and in every LLM layer of each
-    combo whose sequence reaches the flash gate, B3 twice (training: the
-    checkpoint recomputes the forward) or once (evaluation) and (training)
-    B4 once."""
+    the engine encodes once for all the rate combos); in every AV-HuBERT
+    layer that runs and every LLM layer of each combo whose sequence
+    reaches the flash gate, B3 twice (training: the "dots" remat policy
+    recomputes the layer in the backward) or once (evaluation) and
+    (training) B4 once."""
     c = model.cfg
     use_a, use_v = modality != "video", modality != "audio"
     n = flash_combos * c.llm.num_layers
-    return counts(B3=c.whisper.num_layers * use_a + video_layers * use_v + (2 if train else 1) * n,
+    again = 2 if train else 1
+    return counts(B3=c.whisper.num_layers * use_a + again * (video_layers * use_v + n),
                   B4=(video_layers * use_v + n) if train else 0)
 
 
@@ -1923,6 +1944,272 @@ def raw_phase(server, expected):
     return rows, clip
 
 
+# ----------------------------------- (j): the reference profile, serving
+
+REF_PROFILE_SERVE = dict(attn_route="xla", select_mode="grid")  # OMNI_PROFILE=reference
+
+
+def route_agreement(t, item, steps: int = 2) -> float:
+    """The prefill and the first decode steps of the full-width LLM on the
+    kernel route (the ancestor cache, B1) and on the reorder route (the
+    split cache gathered by parent every step, the three-block softmax in
+    torch ops), on one tree and one prefix, the kernel route's tokens fed
+    to both and the same parents each step. Returns the largest relative
+    L2 logit difference."""
+    import torch
+
+    import omni_avsr_tpu_torch.models.llm as llm_mod
+    from omni_avsr_tpu_torch.ops.augment import audio_pipeline, video_pipeline
+    from omni_avsr_tpu_torch.serve import pad_batch
+
+    model, cfg = t.model, t.model.cfg.llm
+    batch, trim = pad_batch([item], "audiovisual")
+    arrays = {k: torch.as_tensor(v).to(DEV) for k, v in batch.items()}
+    logits = {}
+    with torch.inference_mode():
+        arrays["video"] = video_pipeline(arrays["video"], arrays["video_len"])
+        arrays["audio"] = audio_pipeline(arrays["audio"], arrays["audio_len"])
+        prefix, valid = model.infer_prefix_masked(t.params, arrays, "audiovisual", 4, 2, trim)
+        P0 = prefix.shape[1]
+        Pp = -(-P0 // 16) * 16
+        prefix = torch.nn.functional.pad(prefix, (0, 0, 0, Pp - P0))
+        valid = torch.nn.functional.pad(valid, (0, Pp - P0))
+        llm = t.params["llm"]
+        layers = llm_mod.unstack_layers(llm, cfg)
+        positions = torch.cumsum(valid.long(), dim=1) - 1
+        last = Pp - 1 - torch.argmax(valid.flip(1).int(), dim=1)
+        n_valid = valid.sum(dim=1).repeat_interleave(K)
+        tokens = []
+        for route in ("kernel", "xla"):
+            cache0 = llm_mod.KVCache.create(cfg, 1, Pp, dtype=model.dtype, device=DEV)
+            lg, cache0 = llm_mod.llm_prefill_masked(llm, cfg, prefix, valid, positions, last,
+                                                    cache0, "audiovisual", layers=layers)
+            out = [lg]
+            if route == "kernel":
+                cache = llm_mod.AncSplitCache.from_prefill(cache0, Pp, K, N)
+                anc = torch.arange(K, dtype=torch.int32, device=DEV)[None, :, None].expand(
+                    1, K, N).contiguous()
+                tokens.append(torch.topk(lg[0], K).indices)
+            else:
+                cache = llm_mod.SplitCache.from_prefill(cache0, Pp, K, N)
+            for step in range(steps):
+                flat_idx = torch.roll(torch.arange(K, device=DEV), step)  # exercise ancestry
+                emb = llm_mod.embed_tokens(llm, tokens[step][:, None], model.dtype)
+                if route == "kernel":
+                    anc = llm_mod.update_ancestors(anc, flat_idx, step, K)
+                    lg, cache = llm_mod.llm_decode_step_beam_anc(
+                        llm, cfg, emb, step, n_valid, valid, cache, anc, K, "audiovisual",
+                        layers=layers)
+                    tokens.append(lg.argmax(dim=-1))
+                else:
+                    lg, cache = llm_mod.llm_decode_step_beam(
+                        llm, cfg, emb, step, n_valid, valid, cache.reorder_(flat_idx), K,
+                        "audiovisual", layers=layers)
+                out.append(lg)
+            logits[route] = out
+    worst = 0.0
+    for a, b in zip(logits["xla"], logits["kernel"]):
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError("non-finite logits on the reorder route")
+        worst = max(worst, ((a - b).norm() / b.norm()).item())
+    return worst
+
+
+def reorder_and_grid_ms(cfg, B: int, P: int) -> dict:
+    """Device time of one beam step's torch-op pieces of the reference
+    profile at serving shapes: the reorder gather of the split cache's
+    generated K and V ((B*15, L, Hkv, 32, D) bf16 each), the grid
+    selection's top-2K over the (B, 15 * V) log-probabilities, and one
+    layer's three-block attention; each beside its bound (bytes moved)."""
+    import torch
+
+    import omni_avsr_tpu_torch.models.llm as llm_mod
+    from omni_avsr_tpu_torch.decode.decoding import top_k
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    L, H, D_ = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.randn(B * K, L, H, N, D_, device=DEV).to(torch.bfloat16)
+    cache = llm_mod.SplitCache(torch.zeros(L, B, H, P, D_, device=DEV, dtype=torch.bfloat16),
+                               torch.zeros(L, B, H, P, D_, device=DEV, dtype=torch.bfloat16),
+                               gen, gen.clone())
+    flat_idx = torch.randint(0, B * K, (B * K,), device=DEV)
+    gather = time_ms(lambda: cache.reorder_(flat_idx), flush, iters=20)
+    gather_bound, _ = bound_ms(2 * 2 * gen.numel() * 2, 0)
+    grid = torch.randn(B, K * cfg.vocab_size, device=DEV)
+    topk = time_ms(lambda: top_k(grid, 2 * K), flush, iters=20)
+    topk_bound, _ = bound_ms(grid.numel() * 4, 0)
+    q = torch.randn(B * K, 1, cfg.num_heads, D_, device=DEV).to(torch.bfloat16)
+    pk = torch.randn(B, H, P, D_, device=DEV).to(torch.bfloat16)
+    gk = torch.randn(B * K, H, N, D_, device=DEV).to(torch.bfloat16)
+    cur = torch.randn(B * K, H, D_, device=DEV).to(torch.bfloat16)
+    pmask = torch.ones(B, P, dtype=torch.bool, device=DEV)
+    gmask = torch.arange(N, device=DEV) < N // 2
+    attn = time_ms(lambda: llm_mod.merged_beam_attention(q, pk, pk, gk, gk, cur, cur, pmask,
+                                                         gmask, K), flush, iters=20)
+    attn_bound, _ = bound_ms(2 * (pk.numel() + gk.numel()) * 2, 0)
+    del flush, gen, cache, grid
+    torch.cuda.empty_cache()
+    return dict(reorder_gather_ms=gather, reorder_gather_bound_ms=gather_bound,
+                grid_topk_ms=topk, grid_topk_bound_ms=topk_bound,
+                merged_attention_layer_ms=attn, merged_attention_bound_ms=attn_bound,
+                shapes=dict(B=B, beams=K, layers=L, kv_heads=H, new=N, D=D_, P=P,
+                            vocab=cfg.vocab_size))
+
+
+def reference_serving_phase(model_a, items_a, model_b, items_b):
+    """(j): (a)'s three requests on the full-width flagship in bf16 weights
+    (the reference profile's configuration: no quantisation), beam 15, 32
+    new tokens, on the reorder route with grid selection
+    (`attn_route="xla", select_mode="grid"`): one warm and one measured
+    batch, B3 48 and no other launch; the reorder route held against the
+    kernel route on the same tree; the device time of its reorder gather
+    and grid top-k per step; then one (b) batch with
+    `no_repeat_ngram_size=2` on the kernel route, where no output may
+    repeat a bigram. Returns the rows."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.serve import Transcriber, pad_batch
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model_a.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    server = Transcriber(model_a, params, device=DEV, **REF_PROFILE_SERVE)
+    log("reference", f"(j) bf16 flagship tree on the card in {time.perf_counter() - t:.1f} s")
+    tower_b3 = model_a.cfg.whisper.num_layers + model_a.cfg.avhubert.encoder_layers
+    rows = {"j": serve("(j) pad30s bf16 reorder route + grid", server, items_a,
+                       lambda s: counts(B3=tower_b3), repeats=1)}
+    rel = route_agreement(server, items_a[0])
+    if rel > REL_L2_TOL:
+        raise RuntimeError(f"(j) reorder vs kernel route: relative L2 {rel:.3g}")
+    log("reference", f"(j) bf16 tree, prefill + 2 decode steps, reorder route vs kernel route "
+        f"(B1): relative L2 logit difference {rel:.3g} (tol {REL_L2_TOL})")
+    rows["j"]["route_rel_l2"] = rel
+    batch_a, trim_a = pad_batch(items_a, "audiovisual")
+    P_a = model_a.prefix_slots("audiovisual", 4, 2, trim_a, batch_a["video"].shape[1])
+    pieces = reorder_and_grid_ms(model_a.cfg.llm, len(items_a), P_a)
+    rows["j"]["per_step_torch_ops"] = pieces
+    log("reference", f"(j) per beam step at serving shapes: {json.dumps(pieces)}")
+
+    # the n-gram ban on the kernel route, (b)'s batch on the bf16 tree
+    server_b = Transcriber(model_b, params, device=DEV, attn_route="kernel",
+                           no_repeat_ngram_size=2)
+    del params
+    layers = model_b.cfg.llm.num_layers
+    rows["j ngram"] = serve("(j) bucket bf16 kernel route, no_repeat_ngram_size 2", server_b,
+                            items_b, lambda s: counts(B1=layers * s), repeats=1)
+    batch, trim = pad_batch(items_b, "audiovisual")
+    ids = server_b.decode_ids(batch, "audiovisual", 4, 2, trim, K).cpu().tolist()
+    pad = model_b.tok.pad_id
+    for row in ids:
+        toks = [tok for tok in row if tok != pad]
+        grams = [tuple(toks[i:i + 2]) for i in range(len(toks) - 1)]
+        if len(grams) != len(set(grams)):
+            raise RuntimeError(f"(j) no_repeat_ngram_size 2: a repeated bigram in {toks}")
+    rows["j ngram"]["ids"] = ids
+    log("reference", f"(j) n-gram ban: {len(ids)} outputs, no repeated bigram")
+    del server, server_b
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------- (k): the reference profile, training
+
+REMAT_POLICIES = ("off", "dots", "full")
+
+
+def reference_train_phase():
+    """(k): (t)'s batch (B 4 x 320 frames, 30 s window, babble bank, rates
+    (4, 2)) through `OmniEngine(prng="threefry", bn_stats="twopass",
+    augment=True)` at remat "off", "dots" and "full": one step each from
+    the same masters and the same key (a fresh engine each, seed 0), each
+    step's launches held to the count its policy gives, s/step and peak
+    memory, the three losses within 1e-5 relative, and a second "dots"
+    engine's loss bit-equal to the first's. Returns the row."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.config import TrainConfig
+    from omni_avsr_tpu_torch.models.omni import flagship
+    from omni_avsr_tpu_torch.ops.attention import FLASH_MIN_T_TRAIN
+    from omni_avsr_tpu_torch.ops.audio_frontend import whisper_token_len
+    from omni_avsr_tpu_torch.train.engine import OmniEngine
+
+    model = flagship(tiny=False)
+    params = init_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    bank = (np.random.RandomState(1234).randn(10 * 16000) * 0.1).astype(np.float32)
+    batch = train_batch(model.tok, B_TRAIN, FRAMES_TRAIN, TOKENS_TRAIN)
+    trim = -(-int(whisper_token_len(FRAMES_TRAIN * 640)) // 25) * 25
+    lengths = llm_lengths(model, trim, 4, 2, FRAMES_TRAIN, TOKENS_TRAIN)
+    flash = sum(n >= FLASH_MIN_T_TRAIN for n in lengths.values())
+    fns = counters()
+    rows = {}
+    for label, policy in [(p, p) for p in REMAT_POLICIES] + [("dots again", "dots")]:
+        engine = OmniEngine(model, params, TrainConfig(lr=1e-3), noise_bank=bank, seed=0,
+                            device=DEV, prng="threefry", bn_stats="twopass", remat=policy)
+        engine.sample_rates = lambda: (4, 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fns)
+        t = time.perf_counter()
+        loss = float(engine.train_step({**batch, "audio_trim_len": trim}))  # a host sync
+        dt = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in fns.items()}
+        want = train_launches(model, flash, model.last_video_layers, remat=policy)
+        if launches != want or not np.isfinite(loss):
+            raise RuntimeError(f"(k) remat {policy}: loss {loss}, kernel launches {launches}, "
+                               f"expected {want} ({model.last_video_layers} AV-HuBERT layers)")
+        rows[label] = dict(remat=policy, loss=loss, step_s=dt, launches=launches,
+                           avhubert_layers_run=model.last_video_layers,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log("reference", f"(k) threefry, twopass BN, remat {label}: {json.dumps(rows[label])}")
+        del engine
+        torch.cuda.empty_cache()
+    del params
+    base = rows["off"]["loss"]
+    for policy in ("dots", "full"):
+        if abs(rows[policy]["loss"] - base) > 1e-5 * abs(base):
+            raise RuntimeError(f"(k) remat {policy} loss {rows[policy]['loss']} vs off {base}")
+    if rows["dots again"]["loss"] != rows["dots"]["loss"]:
+        raise RuntimeError(f"(k) two threefry steps from one seed: {rows['dots']['loss']} vs "
+                           f"{rows['dots again']['loss']}")
+    row = dict(config=f"(k) train B {B_TRAIN} x {FRAMES_TRAIN} frames, pad30s, threefry, "
+                      f"twopass BN, augment", by_remat=rows, llm_lengths=lengths,
+               launches=rows["dots"]["launches"])
+    log("reference", f"(k) the three losses agree within 1e-5 relative; two runs of the step "
+        f"from one seed give bit-equal losses ({rows['dots']['loss']!r})")
+    return row
+
+
+THREEFRY_SHAPE = (B_TRAIN, FRAMES_TRAIN, 1024)  # AV-HuBERT's dropout shape in (k)
+
+
+def threefry_check() -> dict:
+    """The threefry draws of `utils/prng.py` on the card and on the CPU at
+    AV-HuBERT's dropout shape in (k), bit-equal (the arithmetic is integer
+    arithmetic), with the device time of each draw."""
+    import torch
+
+    from omni_avsr_tpu_torch.utils import prng
+
+    key = prng.split(prng.PRNGKey(20261018), 3)[2]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    draws = {"random_bits": lambda d: prng.random_bits(key, THREEFRY_SHAPE, d),
+             "uniform": lambda d: prng.uniform(key, THREEFRY_SHAPE, d),
+             "bernoulli": lambda d: prng.bernoulli(key, 0.9, THREEFRY_SHAPE, d),
+             "randint": lambda d: prng.randint(key, THREEFRY_SHAPE, 0, 2**31 - 1, d)}
+    row = dict(shape=list(THREEFRY_SHAPE))
+    for name, draw in draws.items():
+        card, host = draw(DEV), draw("cpu")
+        if card.dtype == torch.float32:
+            card, host = card.view(torch.int32), host.view(torch.int32)
+        if not torch.equal(card.cpu(), host):
+            raise RuntimeError(f"threefry {name}: the card's bits differ from the CPU's")
+        row[f"{name}_ms"] = time_ms(lambda: draw(DEV), flush, iters=10)
+    log("threefry", f"card == CPU bit for bit: {json.dumps(row)}")
+    return row
+
+
 # ------------------------------------------------- (f): corpus eval + train
 
 # (f)'s corpus: `generate_corpus` with the JAX function's parameters, clips
@@ -1994,6 +2281,7 @@ def corpus_phase(work: Path):
     from omni_avsr_tpu_torch.train.engine import OmniEngine
     from omni_avsr_tpu_torch.train.state import TrainState
     from omni_avsr_tpu_torch.utils.metrics import WerAccumulator
+    from omni_avsr_tpu_torch.utils.prefetch import device_prefetch
 
     shutil.rmtree(work, ignore_errors=True)
     t = time.perf_counter()
@@ -2075,7 +2363,8 @@ def corpus_phase(work: Path):
     torch.cuda.reset_peak_memory_stats()
     times, launches_each, losses, batch_shapes, save_s, val_losses = [], [], [], [], [], []
     for epoch in range(2):
-        for batch in dm.train_batches(epoch):
+        # as `train_omni` feeds it: the next batches upload on a side stream
+        for batch in device_prefetch(dm.train_batches(epoch), device=DEV):
             reset_counts(fns)
             t = time.perf_counter()
             loss = float(engine.train_step(batch))  # a host sync: the step has ended
@@ -2096,7 +2385,7 @@ def corpus_phase(work: Path):
             losses.append(loss)
             launches_each.append(launches)
             batch_shapes.append(dict(clips=int(batch["video"].shape[0]), video_frames=frames,
-                                     audio_trim=batch["audio_trim_len"], rates=[ra, rv],
+                                     audio_trim=int(batch["audio_trim_len"]), rates=[ra, rv],
                                      llm_lengths=lengths))
         val = [float(engine.eval_step(b)[0]) for b in dm.val_batches()]
         val_losses.append(float(np.mean(val)))
@@ -2139,6 +2428,29 @@ def corpus_phase(work: Path):
     log("corpus", json.dumps(row))
     rows["f train"] = row
     del engine, restored, avg
+    torch.cuda.empty_cache()
+
+    # the same two epochs from the same masters and seed, uploaded
+    # synchronously: the loss sequence must be bit-equal
+    params = init_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    engine = OmniEngine(model, params, TrainConfig(lr=1e-3, max_epochs=2), steps_per_epoch,
+                        noise_bank=load_noise_bank(None), seed=0, device=DEV)
+    del params
+    t = time.perf_counter()
+    sync_losses = []
+    for epoch in range(2):
+        for batch in dm.train_batches(epoch):
+            sync_losses.append(float(engine.train_step(batch)))
+        for b in dm.val_batches():  # the eval steps draw rates too, as above
+            engine.eval_step(b)
+    if sync_losses != losses[:len(sync_losses)] or len(sync_losses) != len(losses):
+        raise RuntimeError(f"(f) device_prefetch changed the losses: {losses} vs synchronous "
+                           f"{sync_losses}")
+    row["synchronous_losses_equal"] = True
+    row["synchronous_run_s"] = time.perf_counter() - t
+    log("corpus", f"(f) {len(losses)} steps through device_prefetch: losses bit-equal to a "
+        f"synchronous upload's ({row['synchronous_run_s']:.1f} s)")
+    del engine
     torch.cuda.empty_cache()
     return rows
 
@@ -2234,10 +2546,12 @@ def cli_phase(work: Path, raw_clip_path: Path):
     for i in range(4):
         raw_clip(corpus, f"spk{i}-clip", 30 + 5 * i, seed=20 + i)
         (corpus / f"spk{i}-clip.txt").write_text(f"Text:  HELLO WORLD {i}\n")
+    # the int8 run also passes the JAX package's --compilation-cache-dir (accepted)
     runs = [(f"eval_omni {q}", ["eval_omni", "--synthetic", "2", "--num-beams", "2",
                                 "--max-dec-tokens", "4", "--quantize-decode", q,
-                                "--print-hyp", "false", "--exp-dir", str(work / f"eval_{q}"),
-                                "--output-json", str(work / f"eval_{q}.json")])
+                                "--print-hyp", "false", "--exp-dir", str(work / f"eval_{q}")]
+             + (["--compilation-cache-dir", str(work / "xla_cache")] if q == "int8" else [])
+             + ["--output-json", str(work / f"eval_{q}.json")])
             for q in ("int8", "int4")]
     runs.append(("train_omni", ["train_omni", "--synthetic", "4", "--max-epochs", "2",
                                 "--exp-dir", str(work / "cli_train")]))
@@ -2274,6 +2588,11 @@ def cli_phase(work: Path, raw_clip_path: Path):
                   "eval_llama_avsr int8": ("B2",), "verify_parity": ("B2", "B6")}.get(label, ())
         if not all(launches[k] for k in kernel):
             raise RuntimeError(f"{label}: no {kernel} launch ({launches})")
+        # the tiny model's head size 16 takes the reorder route: no B1 anywhere
+        if launches["B1"]:
+            raise RuntimeError(f"{label}: B1 launched at the tiny head size ({launches})")
+        if label == "eval_omni int8" and "compiles no XLA program" not in proc.stdout:
+            raise RuntimeError(f"{label}: no --compilation-cache-dir line\n{proc.stdout[-2000:]}")
         if label.startswith("eval_omni"):
             wer = json.loads(Path(argv[-1]).read_text())
             if list(wer) != grid:
@@ -2307,9 +2626,14 @@ def cli_phase(work: Path, raw_clip_path: Path):
                     or golden["modality"] != "audiovisual"
                     or list(golden["transcripts"]) != ["bf16", "int8", "int4"]):
                 raise RuntimeError(f"{label}: report {json.dumps(report)[:2000]}")
+            held = report["profile"]["reference_pins_held"]
+            if (report["profile"]["requested"] != "reference" or len(held) != 8
+                    or report["profile"]["reference_pins_not_held"]
+                    or "8 of 8 reference pins held" not in proc.stdout):
+                raise RuntimeError(f"{label}: profile {json.dumps(report['profile'])}")
             result = dict(statuses=statuses, worst_abs_delta=report["worst_abs_delta"],
                           rows=report["rows"], profile=report["profile"]["requested"],
-                          golden_clip=golden)
+                          reference_pins_held=held, golden_clip=golden)
         elif label == "preprocess_video":
             # `.npy` where OpenCV is not installed or has no mp4 writer
             out = sorted(p.name for p in (work / "pre").iterdir())
@@ -2677,7 +3001,11 @@ def main() -> int:
     del server_e, flush
     torch.cuda.empty_cache()
 
+    # the reference numerics profile: (j) serving, the threefry draws, (k) training
+    rows.update(reference_serving_phase(model_a, items_a, model_b, items_b))
+    threefry_check()
     rows["train"], train_agree, rows["train conv"] = train_phase()
+    rows["k"] = reference_train_phase()
     rows.update(baseline_phase())
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
     rows.update(corpus_phase(work))

@@ -5,8 +5,14 @@ port's configs, and the model, parameter and data builders.
 One flag is the port's own: `--device` (default "cuda"). Without a CUDA
 device the CLIs stop with an error unless given `--device cpu`. The flags
 of work the port does not have yet (multi-host, meshes, FSDP, sequence
-parallelism, MoE, the XLA compile cache) raise `NotImplementedError`
-naming the ROADMAP item, rather than being ignored.
+parallelism, MoE) raise `NotImplementedError` naming the ROADMAP item,
+rather than being ignored. `--compilation-cache-dir` is accepted and
+prints one line: the port compiles no XLA program.
+
+The JAX package's numerics variables (`OMNI_PROFILE`, `OMNI_PRNG`,
+`OMNI_BN_STATS`, `OMNI_BEAM_SELECT`, `OMNI_BEAM_ATTN`, `OMNI_SELECT_KERNEL`,
+`OMNI_CONV_KERNEL`, `OMNI_REMAT`, `OMNI_SP`) are read here, once per CLI
+run (`read_numerics`, `utils/profiles.py`), and passed down as arguments.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from ..config import (
 from ..data.tokenizer import load_hf_tokenizer, synthetic_tokenizer
 from ..models.common import Params
 from ..models.omni import OmniAVSR
-from ..ops.beam_attention import PLAIN_HEAD_DIM
+from ..utils.profiles import Numerics, resolve
 
 
 def str2bool(v: str) -> bool:
@@ -110,7 +116,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--moe-routing", default="balanced", choices=["balanced", "top1"])
     p.add_argument("--moe-capacity-factor", type=float, default=1.25)
     p.add_argument("--compilation-cache-dir", default=None,
-                   help="the JAX package's XLA cache; the port compiles no XLA program")
+                   help="the JAX package's XLA cache: accepted; the port compiles no XLA "
+                        "program (its kernels are cached under build/torch_kernels/)")
     # offline smoke mode
     p.add_argument("--synthetic", type=int, default=0,
                    help="generate N synthetic train clips and run offline with a tiny model")
@@ -130,8 +137,6 @@ UNPORTED = {
     "moe_experts": (0, "A5 (models/moe.py)"),
     "coordinator_address": (None, "A5 (parallelism: multi-host)"),
     "node_rank": (None, "A5 (parallelism: multi-host)"),
-    "compilation_cache_dir": (None, "none: the port compiles no XLA program; its CUDA "
-                                    "kernels are cached under build/torch_kernels/"),
 }
 
 
@@ -157,6 +162,9 @@ def check_args(args) -> torch.device:
             flag = "--" + name.replace("_", "-")
             raise NotImplementedError(f"{flag} is not ported to omni_avsr_tpu_torch "
                                       f"(ROADMAP {item})")
+    if getattr(args, "compilation_cache_dir", None):
+        print(f"--compilation-cache-dir {args.compilation_cache_dir}: the port compiles no XLA "
+              f"program; its CUDA kernels are cached under build/torch_kernels/")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here. The port runs on "
@@ -168,9 +176,30 @@ def tiny_dims() -> Tuple[WhisperEncoderConfig, AVHubertConfig, Dict[str, int]]:
     whisper = WhisperEncoderConfig(hidden_size=64, num_layers=2, num_heads=4, ffn_dim=128)
     avhubert = AVHubertConfig(encoder_embed_dim=64, encoder_layers=2, encoder_heads=4,
                               encoder_ffn_dim=128, audio_feat_dim=26, lora_rank_divisor=16)
+    # head size 16, which B1 lacks: its decode takes the reorder route
     llm_dims = dict(hidden_size=128, intermediate_size=256, num_layers=2,
-                    num_heads=8, num_kv_heads=4, head_dim=PLAIN_HEAD_DIM)
+                    num_heads=8, num_kv_heads=4, head_dim=16)
     return whisper, avhubert, llm_dims
+
+
+def read_numerics(environ=None) -> Numerics:
+    """The JAX package's `OMNI_*` switches of `environ` (the process's
+    environment when None), with `OMNI_PROFILE`'s baseline under them."""
+    return resolve(os.environ if environ is None else environ)
+
+
+def apply_numerics(transcriber, numerics: Numerics):
+    """Set a `Transcriber`'s decode switches from `numerics`; the selection
+    kernel only where the vocabulary allows it, as the JAX package gates
+    its `OMNI_SELECT_KERNEL=1`."""
+    from ..decode.decoding import select_kernel_supported
+
+    transcriber.attn_route = numerics.beam_attn
+    transcriber.select_mode = numerics.beam_select
+    transcriber.conv_kernel = numerics.conv_kernel
+    transcriber.select_kernel = (numerics.select_kernel and select_kernel_supported(
+        transcriber.model.cfg.llm.vocab_size))
+    return transcriber
 
 
 def build_model(args) -> OmniAVSR:

@@ -32,6 +32,7 @@ from .common import (
     build_params,
     check_args,
     maybe_synthetic,
+    read_numerics,
     single_prompt,
     str2bool,
 )
@@ -76,7 +77,7 @@ def main(argv=None):
     noise = load_noise_bank(args.noise_path) if args.decode_snr_target < 999998 else None
     engine = OmniEngine(model, params, TrainConfig(), 1.0, noise_bank=noise,
                         decode_snr_target=args.decode_snr_target, seed=args.seed,
-                        inference_only=True, device=device)
+                        inference_only=True, device=device, **read_numerics().engine_kwargs())
     del params
     merged = decode_tree(engine, args.quantize_decode, llm_only=True)
 

@@ -31,6 +31,7 @@ from .common import (
     build_params,
     check_args,
     maybe_synthetic,
+    read_numerics,
     str2bool,
 )
 
@@ -96,9 +97,12 @@ def decode_tree(engine: OmniEngine, quantize, **quantize_kw):
     return merged
 
 
-def main(argv=None):
+def main(argv=None, environ=None):
+    """`environ`: the `OMNI_*` variables to read (the process's environment
+    when None; `verify_parity` passes its profile's)."""
     args = parse_args(argv)
     device = check_args(args)
+    numerics = read_numerics(environ)
     maybe_synthetic(args)
     os.makedirs(args.exp_dir, exist_ok=True)
 
@@ -109,7 +113,7 @@ def main(argv=None):
     engine = OmniEngine(model, params, TrainConfig(), 1.0,
                         unfrozen_modules=tuple(args.unfrozen_modules), noise_bank=noise,
                         decode_snr_target=args.decode_snr_target, seed=args.seed,
-                        inference_only=True, device=device)
+                        inference_only=True, device=device, **numerics.engine_kwargs())
     del params
     merged = decode_tree(engine, args.quantize_decode)
 

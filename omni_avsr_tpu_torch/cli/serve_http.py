@@ -255,9 +255,10 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     from ..serve import Transcriber
-    from .common import check_args
+    from .common import apply_numerics, check_args, read_numerics
 
     device = check_args(args)
+    numerics = read_numerics()
     if args.synthetic:
         model, params = _tiny_model(device)
         t = Transcriber(model, params, num_beams=args.num_beams or 2, max_new_tokens=4,
@@ -266,6 +267,7 @@ def main(argv=None):
         t = Transcriber.from_pretrained(args.ckpt, llm_model=args.llm_model,
                                         num_beams=args.num_beams,
                                         quantize=args.quantize_decode, device=device)
+    apply_numerics(t, numerics)
     httpd, _ = serve(t, port=args.port, host=args.host, max_batch=args.max_batch,
                      max_wait_ms=args.max_wait_ms)
     print(f"serving on http://{args.host}:{httpd.server_address[1]} "

@@ -34,6 +34,7 @@ from .common import (
     build_params,
     check_args,
     maybe_synthetic,
+    read_numerics,
     single_prompt,
     str2bool,
 )
@@ -81,7 +82,8 @@ def main(argv=None):
                      if m != "lora_avhubert" or args.modality != "audio")
     noise = load_noise_bank(args.noise_path) if args.modality != "video" else None
     engine = OmniEngine(model, params, train_cfg, steps_per_epoch, unfrozen_modules=unfrozen,
-                        noise_bank=noise, seed=args.seed, device=device)
+                        noise_bank=noise, seed=args.seed, device=device,
+                        **read_numerics().engine_kwargs())
     del params
     logger = MetricLogger(args.exp_dir, args.exp_name, use_wandb=args.wandb,
                           project=args.project_wandb, config=vars(args))

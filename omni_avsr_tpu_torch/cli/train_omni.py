@@ -29,6 +29,7 @@ from ..train.engine import OmniEngine
 from ..train.state import TrainState, master_weights
 from ..utils.logging import MetricLogger
 from ..utils.metrics import WerAccumulator
+from ..utils.prefetch import device_prefetch
 from ..utils.profiling import StepTimer, find_nonfinite, trace
 from .common import (
     add_common_args,
@@ -37,6 +38,7 @@ from .common import (
     build_params,
     check_args,
     maybe_synthetic,
+    read_numerics,
     str2bool,
 )
 
@@ -87,7 +89,7 @@ def main(argv=None):
     engine = OmniEngine(model, params, train_cfg, steps_per_epoch,
                         unfrozen_modules=tuple(args.unfrozen_modules),
                         noise_bank=load_noise_bank(args.noise_path), seed=args.seed,
-                        device=device)
+                        device=device, **read_numerics().engine_kwargs())
     del params
     logger = MetricLogger(args.exp_dir, args.exp_name, use_wandb=args.wandb,
                           project=args.project_wandb, config=vars(args))
@@ -103,7 +105,9 @@ def main(argv=None):
     for epoch in range(start_epoch, args.max_epochs):
         t0 = time.time()
         n, loss_sum, loss_n = 0, 0.0, 0
-        for batch in dm.train_batches(epoch):
+        # the next batches upload on a side stream while this step runs
+        # (`omni_avsr_tpu/cli/train_omni.py:120-123`)
+        for batch in device_prefetch(dm.train_batches(epoch), device=device):
             profiled = args.profile_dir if (epoch == start_epoch and 2 <= n <= 4) else None
             with trace(profiled, device):
                 loss = engine.train_step(batch)

@@ -24,9 +24,12 @@ diffed against it. `--convert-only` stops after the conversion and prints
 a census of the converted tree against `bridge.init_params` of the same
 configuration.
 
-`--profile` names the JAX package's numerics profile. The port reads no
-`OMNI_*` variable: the report records which of the reference profile's
-pins the port holds and which it cannot, with the ROADMAP item of each.
+`--profile` names the JAX package's numerics profile (default
+"reference"): its variables go under the environment the `eval_omni` runs
+read (`utils/profiles.py`; an `OMNI_*` variable already set wins and is
+printed), as the JAX package applies it to its own. The report lists each
+pin of the reference profile with the port argument that holds it, and any
+pin an explicit variable overrode as not held.
 `--golden-clip clip.npy` (or an mp4 where OpenCV is installed) also
 preprocesses the reference's bundled clip (the port's RetinaFace + FAN on
 the card with `--retinaface-weights` and `--fan-weights`, the centered
@@ -39,6 +42,7 @@ transcript is VSR-only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -65,26 +69,17 @@ MODE_ARGV = {
     "bucket": ["--whisper-input-mode", "bucket"],
 }
 
-# The JAX package's reference profile (`omni_avsr_tpu/utils/profiles.py`)
-# against the port: the pins the port holds on every run, and those it
-# cannot hold, with the ROADMAP item that would port them.
-REFERENCE_PINS_HELD = {
-    "OMNI_SELECT_KERNEL=0": "beam selection statistics as torch ops (select_kernel=False)",
-    "OMNI_CONV_KERNEL=0": "the ResNet trunk's convs as torch ops (conv_kernel=False)",
-    "OMNI_REMAT=off": "remat numerics: the port's per-layer recompute gives the same values, "
-                      "and evaluation runs none",
-    "OMNI_SP=0": "no sequence parallelism (the port has none)",
-}
-REFERENCE_PINS_NOT_HELD = {
-    "OMNI_BEAM_ATTN=xla": "A2 (decode routes): the einsum+reorder beam attention; the port "
-                          "attends on the ancestor cache (B1)",
-    "OMNI_BEAM_SELECT=grid": "A2 (decode routes): the full (B, K*V) candidate grid; the port "
-                             "selects with topk_chunked",
-    "OMNI_PRNG=threefry": "A1 rest (OMNI_PRNG): the port draws from torch generators, not "
-                          "threefry streams",
-    "OMNI_BN_STATS=twopass": "A1 rest: train-mode BN statistics are one-pass in the port; "
-                             "evaluation uses the running statistics",
-}
+
+
+def profile_environ(profile: str, environ=None) -> dict:
+    """The environment of the `eval_omni` runs: the process's, with
+    `OMNI_PROFILE` set to `profile` unless it is "none"."""
+    import os
+
+    env = dict(os.environ if environ is None else environ)
+    if profile != "none":
+        env["OMNI_PROFILE"] = profile
+    return env
 
 
 def parse_args(argv=None):
@@ -108,12 +103,15 @@ def parse_args(argv=None):
                    help="16 kHz wav for the golden clip (default: sibling .wav of --golden-clip "
                         "if present)")
     p.add_argument("--profile", default="reference", choices=["reference", "tpu", "none"],
-                   help="the JAX package's numerics profile: the report records which of the "
-                        "reference pins the port holds")
+                   help="the JAX package's numerics profile (utils/profiles.py): 'reference' "
+                        "pins every switch to the reference-exact combination (threefry, "
+                        "two-pass BN, grid selection, the reorder beam attention, remat off); "
+                        "'tpu' keeps the defaults")
     return p.parse_known_args(argv)
 
 
-def golden_transcripts(clip, audio_path, eval_argv, modes, detector_weights=(None, None)):
+def golden_transcripts(clip, audio_path, eval_argv, modes, detector_weights=(None, None),
+                       numerics=None):
     """Preprocess --golden-clip on the device and beam-decode it under each
     mode -> {"modality", "transcripts": {mode: text}}."""
     import os
@@ -126,6 +124,7 @@ def golden_transcripts(clip, audio_path, eval_argv, modes, detector_weights=(Non
     from ..preprocess.video_process import extract_mouth_rois
     from ..serve import Transcriber
     from . import common, eval_omni
+    from .common import apply_numerics
 
     device = common.check_args(eval_omni.parse_args(eval_argv + ["--print-hyp", "false"]))
     frames = load_video(clip)
@@ -151,6 +150,8 @@ def golden_transcripts(clip, audio_path, eval_argv, modes, detector_weights=(Non
         t = Transcriber(model, params, num_beams=model.cfg.num_beams,
                         max_new_tokens=model.cfg.max_dec_tokens,
                         quantize=mode if mode in ("int8", "int4") else None, device=device)
+        if numerics is not None:
+            apply_numerics(t, numerics)
         out[mode] = t.transcribe(video=video, audio=audio, modality=modality)
         print(f"golden-clip [{mode}, {modality}]: {out[mode]!r}")
     return {"modality": modality, "transcripts": out}
@@ -197,13 +198,15 @@ def main(argv=None):
               f"{summary['parameters']:,} params in {summary['leaves']} leaves")
         return 0 if ok else 1
 
-    # `--profile` sets nothing in the port: the report says what it holds
-    profile = {"requested": args.profile, "reference_pins_held": REFERENCE_PINS_HELD,
-               "reference_pins_not_held": REFERENCE_PINS_NOT_HELD}
-    if args.profile != "none":
-        print(f"profile {args.profile!r}: the port sets no OMNI_* variable; it holds "
-              f"{', '.join(REFERENCE_PINS_HELD)}; it cannot hold "
-              f"{', '.join(REFERENCE_PINS_NOT_HELD)} (see the report)")
+    from ..utils.profiles import pins_held, resolve
+
+    env = profile_environ(args.profile)
+    numerics = resolve(env)
+    held, not_held = pins_held(numerics)
+    profile = {"requested": args.profile, "numerics": dataclasses.asdict(numerics),
+               "reference_pins_held": held, "reference_pins_not_held": not_held}
+    print(f"profile {args.profile!r}: {len(held)} of {len(held) + len(not_held)} reference pins "
+          f"held: {', '.join(held)}" + (f"; not held: {', '.join(not_held)}" if not_held else ""))
     modes = [m.strip() for m in args.modes.split(",") if m.strip()]
     unknown = [m for m in modes if m not in MODE_ARGV]
     if unknown:
@@ -214,7 +217,7 @@ def main(argv=None):
     mode_results = {}
     for mode in modes:
         print(f"\n--- running decode grid: mode={mode} ---")
-        mode_results[mode] = eval_omni.main(eval_argv + MODE_ARGV[mode])
+        mode_results[mode] = eval_omni.main(eval_argv + MODE_ARGV[mode], environ=env)
     results = mode_results["bf16"]
 
     rows, worst = [], 0.0
@@ -263,7 +266,8 @@ def main(argv=None):
     if args.golden_clip:
         report["golden_clip"] = golden_transcripts(
             args.golden_clip, args.golden_audio, eval_argv, modes,
-            detector_weights=(args.retinaface_weights, args.fan_weights))
+            detector_weights=(args.retinaface_weights, args.fan_weights),
+            numerics=resolve(env, verbose=False))
     with open(args.output_json, "w") as f:
         json.dump(report, f, indent=2)
     print(f"wrote {args.output_json}")

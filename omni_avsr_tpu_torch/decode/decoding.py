@@ -1,12 +1,25 @@
-"""Greedy decoding and beam search on the ancestor route (port of
-`greedy_decode`, `beam_search`, `beam_loop` and `topk_chunked` of
+"""Greedy decoding and beam search (port of `greedy_decode`, `beam_search`,
+`beam_loop`, `ngram_ban_mask` and `topk_chunked` of
 `omni_avsr_tpu/decode/decoding.py`).
 
-Greedy takes the JAX package's kernel route: the split cache with one
-beam, every step through `llm_decode_step_beam_anc` (B1 on the card with
-K = 1), argmax, `pad_id` after EOS, and an early exit once every row has
-emitted EOS (checked per step here, per 8-step chunk there: the tokens
-are the same).
+Two attention routes, the JAX package's two, chosen by `attn_route`
+(`decode_route`, the table of `decoding.py:337-348`):
+  "kernel": the no-reorder ancestor cache, every step's attention through
+    `llm_decode_step_beam_anc` (B1 on the card; a CPU tensor takes B1's
+    plain version);
+  "xla": the reorder route: the generated K/V are gathered by parent beam
+    every step (`SplitCache.reorder_`) and attended with the three-block
+    joint softmax in torch ops (`llm_decode_step_beam`), as the JAX package
+    computes it with XLA.
+`None` takes the kernel route on the card where B1 takes the head size
+(64, 128), else the reorder route; on the CPU it keeps the ancestor route.
+An explicit "xla" also pins the selection statistics to torch ops. Greedy
+decoding is the same machinery with one beam, argmax, `pad_id` after EOS,
+and an early exit once every row has emitted EOS (checked per step here,
+per 8-step chunk there: the tokens are the same).
+
+The prefix is contiguous (`prefix_len`, `llm_prefill`) or gap-tolerant
+(`key_valid`, `llm_prefill_masked`), as `_prefill` dispatches there.
 
 HF `BeamSearchScorer` semantics, as the JAX package reproduces them
 (`modeling_OmniAVSR.py:308-323`, beams 15, 32 new tokens):
@@ -16,13 +29,17 @@ HF `BeamSearchScorer` semantics, as the JAX package reproduces them
     the K best non-EOS candidates run on;
   - at the end the running beams are offered to the hypothesis heap and
     the best normalised hypothesis wins.
-Candidate selection is the JAX package's default "fused" route: the exact
-per-beam top-2K of the raw logits, then the 2K*K survivors are scored. The
-loop stops early once no running beam can beat the worst kept hypothesis,
-which leaves the result unchanged. Ties resolve to the lower index, as
-`jax.lax.top_k` does. With `select_kernel=True` (the JAX package's
-`OMNI_SELECT_KERNEL=1`) each step's row max, normaliser and 128-wide chunk
-maxima come from one pass of the stats kernel B5
+Candidate selection (`select_mode`): "fused", the JAX package's default,
+takes the exact per-beam top-2K of the raw logits, then scores the 2K*K
+survivors; "grid" (its `OMNI_BEAM_SELECT=grid`) takes the top 2K of the
+whole (B, K*V) grid of log-probabilities, and is forced whenever
+`no_repeat_ngram_size > 0`, since the ban mask must land before the
+selection (`ngram_ban_mask`, fairseq's `ngram_repeat_block` as window
+compares). The loop stops early once no running beam can beat the worst
+kept hypothesis, which leaves the result unchanged. Ties resolve to the
+lower index, as `jax.lax.top_k` does. With `select_kernel=True` (the JAX
+package's `OMNI_SELECT_KERNEL=1`) each fused step's row max, normaliser
+and 128-wide chunk maxima come from one pass of the stats kernel B5
 (`ops/select_topk.py::row_stats_chunkmax`) instead of three passes.
 """
 
@@ -37,15 +54,36 @@ from ..models.common import Params
 from ..models.llm import (
     AncSplitCache,
     KVCache,
+    SplitCache,
     embed_tokens,
+    llm_decode_step_beam,
     llm_decode_step_beam_anc,
+    llm_prefill,
     llm_prefill_masked,
     unstack_layers,
     update_ancestors,
 )
+from ..ops.beam_attention import kernel_supported
 from ..ops.select_topk import CHUNK, row_stats_chunkmax, select_stats_supported
 
 NEG = -1e9
+ATTN_ROUTES = (None, "kernel", "xla")
+SELECT_MODES = ("fused", "grid")
+
+
+def decode_route(attn_route: Optional[str], head_dim: int, device) -> str:
+    """The attention route a decode takes, "kernel" or "xla": the caller's,
+    else the kernel where B1 takes the head size on the card, the reorder
+    route where it does not, and the ancestor route on the CPU
+    (`omni_avsr_tpu/decode/decoding.py:337-348`). An explicit "kernel" on
+    the card launches B1 or raises; it never falls back."""
+    if attn_route not in ATTN_ROUTES:
+        raise ValueError(f"attn_route {attn_route!r}: one of {ATTN_ROUTES}")
+    if attn_route is not None:
+        return attn_route
+    if torch.device(device).type == "cuda" and not kernel_supported(head_dim):
+        return "xla"
+    return "kernel"
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -98,12 +136,41 @@ class DecodeOutput(NamedTuple):
     steps: int  # decode steps run (each ran every decoder layer once)
 
 
+def ngram_ban_mask(tokens: torch.Tensor, t: int, n: int, vocab_size: int) -> torch.Tensor:
+    """(B, K, V) additive mask that bans every token which would complete an
+    n-gram the beam has already generated: the (n-1)-token suffix ending
+    at slot t-1 compared with every window of the token buffer at once,
+    then one scatter-add of -1e9 at each hit's next token
+    (`omni_avsr_tpu/decode/decoding.py:458-484`)."""
+    B, K, max_new = tokens.shape
+    dev = tokens.device
+    nm1 = n - 1
+    W = max_new - nm1
+    suf_idx = torch.clamp(t - nm1 + torch.arange(nm1, device=dev), 0, max_new - 1)
+    suffix = tokens[:, :, suf_idx]  # (B, K, nm1)
+    win_idx = torch.arange(W, device=dev)[:, None] + torch.arange(nm1, device=dev)[None, :]
+    windows = tokens[:, :, win_idx]  # (B, K, W, nm1)
+    j = torch.arange(W, device=dev)
+    targets = tokens[:, :, j + nm1]  # (B, K, W)
+    hit = (torch.all(windows == suffix[:, :, None, :], dim=-1)
+           & ((j + nm1)[None, None] <= t - 1) & (t >= nm1))
+    vals = torch.where(hit, NEG, 0.0)
+    ban = torch.zeros((B, K, vocab_size), dtype=torch.float32, device=dev)
+    return ban.scatter_add_(2, targets, vals)
+
+
 def beam_loop(*, init_logits: torch.Tensor, state, step_fn, num_beams: int,
               vocab_size: int, max_new: int, eos_id: int, pad_id: int,
-              length_penalty: float = 1.0, select_kernel: bool = False) -> DecodeOutput:
+              length_penalty: float = 1.0, select_kernel: bool = False,
+              no_repeat_ngram_size: int = 0, select_mode: str = "fused") -> DecodeOutput:
     """Decoder-agnostic beam loop. step_fn(state, new_tok (B,K), flat_idx
     (B*K,), t) -> ((B, K, V) logits, state). `select_kernel` takes each
-    step's selection statistics from B5 (V % 128 == 0)."""
+    fused step's selection statistics from B5 (V % 128 == 0);
+    `select_mode="grid"`, or a positive `no_repeat_ngram_size`, selects on
+    the full candidate grid."""
+    if select_mode not in SELECT_MODES:
+        raise ValueError(f"select_mode {select_mode!r}: one of {SELECT_MODES}")
+    grid = no_repeat_ngram_size > 0 or select_mode == "grid"
     B = init_logits.shape[0]
     K, V = num_beams, vocab_size
     dev = init_logits.device
@@ -133,19 +200,26 @@ def beam_loop(*, init_logits: torch.Tensor, state, step_fn, num_beams: int,
     t = 0
     while t < max_new and not done():
         x = logits.float()
-        if select_kernel:  # one pass: chunk maxima, row max, normaliser (`decoding.py:510-523`)
-            cm, mx, se = row_stats_chunkmax(x.reshape(B * K, V))
-            mx = mx.reshape(B, K, 1)
-            lse = torch.log(se).reshape(B, K, 1)
-            vals, vidx = topk_chunked(x, 2 * K, chunk_maxima=cm.reshape(B, K, -1))
+        if grid:  # the (B, K*V) grid of log-probabilities (`decoding.py:486-495`)
+            shifted = x - x.amax(dim=-1, keepdim=True)
+            logp = shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+            if no_repeat_ngram_size > 0:
+                logp = logp + ngram_ban_mask(tokens, t, no_repeat_ngram_size, V)
+            scores2k, idx2k = top_k((cum[:, :, None] + logp).reshape(B, K * V), 2 * K)
         else:
-            mx = x.amax(dim=-1, keepdim=True)
-            lse = torch.log(torch.exp(x - mx).sum(dim=-1, keepdim=True))
-            vals, vidx = topk_chunked(x, 2 * K)  # (B, K, 2K) per beam
-        cand_sel = cum[:, :, None] + ((vals - mx) - lse)
-        scores2k, sel = top_k(cand_sel.reshape(B, K * 2 * K), 2 * K)
-        v_sel = torch.gather(vidx.reshape(B, K * 2 * K), 1, sel)
-        idx2k = torch.div(sel, 2 * K, rounding_mode="floor") * V + v_sel
+            if select_kernel:  # one pass: chunk maxima, row max, normaliser (`:510-523`)
+                cm, mx, se = row_stats_chunkmax(x.reshape(B * K, V))
+                mx = mx.reshape(B, K, 1)
+                lse = torch.log(se).reshape(B, K, 1)
+                vals, vidx = topk_chunked(x, 2 * K, chunk_maxima=cm.reshape(B, K, -1))
+            else:
+                mx = x.amax(dim=-1, keepdim=True)
+                lse = torch.log(torch.exp(x - mx).sum(dim=-1, keepdim=True))
+                vals, vidx = topk_chunked(x, 2 * K)  # (B, K, 2K) per beam
+            cand_sel = cum[:, :, None] + ((vals - mx) - lse)
+            scores2k, sel = top_k(cand_sel.reshape(B, K * 2 * K), 2 * K)
+            v_sel = torch.gather(vidx.reshape(B, K * 2 * K), 1, sel)
+            idx2k = torch.div(sel, 2 * K, rounding_mode="floor") * V + v_sel
         parent = torch.div(idx2k, V, rounding_mode="floor")
         tok = idx2k % V
         is_eos = tok == eos_id
@@ -180,42 +254,69 @@ def beam_loop(*, init_logits: torch.Tensor, state, step_fn, num_beams: int,
 
 
 def _prefill(params: Params, cfg: LLMConfig, prefix_embeds: torch.Tensor,
-             key_valid: torch.Tensor, modality: Optional[str], cache_dtype, layers):
-    """Gap-tolerant prefill of the (B, P) prefix: the (B, V) logits at each
-    row's last valid slot, the prefill cache and the (B,) number of valid
-    prefix tokens (the rope position of the first generated token)."""
+             prefix_len: Optional[torch.Tensor], key_valid: Optional[torch.Tensor],
+             modality: Optional[str], cache_dtype, layers):
+    """The prefill of the (B, P) prefix, contiguous (`prefix_len`) or
+    gap-tolerant (`key_valid`) (`omni_avsr_tpu/decode/decoding.py:170-187`):
+    the (B, V) logits at each row's last valid slot, the prefill cache, the
+    (B,) number of valid prefix tokens (the rope position of the first
+    generated token) and the (B, P) mask of valid prefix slots."""
+    if (prefix_len is None) == (key_valid is None):
+        raise ValueError("decode needs prefix_len (contiguous prefix) or key_valid "
+                         "(gap-tolerant), one of them")
     B, P, _ = prefix_embeds.shape
+    dev = prefix_embeds.device
+    cache0 = KVCache.create(cfg, B, P, dtype=cache_dtype, device=dev)
+    if key_valid is None:
+        prefix_len = prefix_len.to(dev)
+        logits0, cache0 = llm_prefill(params, cfg, prefix_embeds, prefix_len, cache0, modality,
+                                      layers=layers)
+        return logits0, cache0, prefix_len, torch.arange(P, device=dev)[None] < prefix_len[:, None]
     n_valid = key_valid.sum(dim=1)
     positions = torch.cumsum(key_valid.long(), dim=1) - 1
     last_idx = P - 1 - torch.argmax(key_valid.flip(1).int(), dim=1)
-    cache0 = KVCache.create(cfg, B, P, dtype=cache_dtype, device=prefix_embeds.device)
     logits0, cache0 = llm_prefill_masked(params, cfg, prefix_embeds, key_valid, positions,
                                          last_idx, cache0, modality, layers=layers)
-    return logits0, cache0, n_valid
+    return logits0, cache0, n_valid, key_valid
 
 
 def greedy_decode(
     params: Params,
     cfg: LLMConfig,
     prefix_embeds: torch.Tensor,  # (B, P, H)
+    prefix_len: Optional[torch.Tensor] = None,  # (B,) contiguous-prefix lengths
     *,
-    key_valid: torch.Tensor,  # (B, P) bool gap-tolerant validity
     max_new: int,
     eos_id: int,
     pad_id: int,
     modality: Optional[str] = None,
+    key_valid: Optional[torch.Tensor] = None,  # (B, P) bool gap-tolerant validity
     cache_dtype=torch.bfloat16,
+    attn_route: Optional[str] = None,
 ) -> DecodeOutput:
     """(B, max_new) argmax ids, `pad_id` after each row's EOS (the EOS
     itself is kept). The decode step of the last token is not run: its
-    logits would pick nothing."""
+    logits would pick nothing. `attn_route` as `decode_route`."""
     B, P, _ = prefix_embeds.shape
     dev = prefix_embeds.device
+    route = decode_route(attn_route, cfg.head_dim, dev)
     layers = unstack_layers(params, cfg)
-    logits, cache0, n_valid = _prefill(params, cfg, prefix_embeds, key_valid, modality,
-                                       cache_dtype, layers)
-    cache = AncSplitCache.from_prefill(cache0, P, 1, max_new)
-    anc = torch.zeros((B, 1, max_new), dtype=torch.int32, device=dev)  # K = 1: row 0 always
+    logits, cache0, n_valid, prefix_mask = _prefill(params, cfg, prefix_embeds, prefix_len,
+                                                    key_valid, modality, cache_dtype, layers)
+    if route == "kernel":
+        cache = AncSplitCache.from_prefill(cache0, P, 1, max_new)
+        anc = torch.zeros((B, 1, max_new), dtype=torch.int32, device=dev)  # K = 1: row 0 always
+
+        def decode_step(emb, t):
+            return llm_decode_step_beam_anc(params, cfg, emb, t, n_valid, prefix_mask, cache,
+                                            anc, 1, modality, layers=layers)[0]
+    else:
+        cache = SplitCache.from_prefill(cache0, P, 1, max_new)
+
+        def decode_step(emb, t):  # K = 1: no parents, no reorder
+            return llm_decode_step_beam(params, cfg, emb, t, n_valid, prefix_mask, cache, 1,
+                                        modality, layers=layers)[0]
+    del cache0
     tokens = torch.full((B, max_new), pad_id, dtype=torch.long, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     steps = 0
@@ -226,9 +327,7 @@ def greedy_decode(
         tokens[:, t] = tok
         if t == max_new - 1 or bool(done.all()):
             break
-        emb = embed_tokens(params, tok[:, None], prefix_embeds.dtype)
-        logits, cache = llm_decode_step_beam_anc(params, cfg, emb, t, n_valid, key_valid,
-                                                 cache, anc, 1, modality, layers=layers)
+        logits = decode_step(embed_tokens(params, tok[:, None], prefix_embeds.dtype), t)
         steps += 1
     return DecodeOutput(tokens, steps)
 
@@ -237,48 +336,69 @@ def beam_search(
     params: Params,
     cfg: LLMConfig,
     prefix_embeds: torch.Tensor,  # (B, P, H)
+    prefix_len: Optional[torch.Tensor] = None,  # (B,) contiguous-prefix lengths
     *,
-    key_valid: torch.Tensor,  # (B, P) bool gap-tolerant validity
     num_beams: int,
     max_new: int,
     eos_id: int,
     pad_id: int,
     modality: Optional[str] = None,
     length_penalty: float = 1.0,
+    no_repeat_ngram_size: int = 0,
+    key_valid: Optional[torch.Tensor] = None,  # (B, P) bool gap-tolerant validity
     cache_dtype=torch.bfloat16,
     select_kernel: bool = False,
+    attn_route: Optional[str] = None,
+    select_mode: str = "fused",
 ) -> DecodeOutput:
     """Prefill once per batch item (the prefix K/V is shared by all beams),
-    then run the beam loop on the ancestor cache: no per-step reorder of
-    the generated K/V, only of the (B, K, N) ancestor table.
-    `select_kernel` takes the selection statistics from B5; it needs a
-    vocabulary that the JAX package's opt-in takes the kernel for
-    (`select_kernel_supported`), else it raises."""
+    then the beam loop on the route `decode_route` picks: the ancestor
+    cache (no per-step reorder of the generated K/V, only of the (B, K, N)
+    ancestor table) or the reorder route. `select_kernel` takes the
+    selection statistics from B5; it needs a vocabulary that the JAX
+    package's opt-in takes the kernel for (`select_kernel_supported`), else
+    it raises; an explicit `attn_route="xla"` turns it off, as there.
+    `no_repeat_ngram_size > 0` bans repeated n-grams (on the grid)."""
     B, P, _ = prefix_embeds.shape
     K = num_beams
     V = cfg.vocab_size
+    dev = prefix_embeds.device
+    route = decode_route(attn_route, cfg.head_dim, dev)
+    if attn_route == "xla":
+        select_kernel = False
     if select_kernel and not select_kernel_supported(V):
         raise ValueError(f"select_kernel: vocabulary {V} is not supported by the selection "
                          f"stats kernel (needs V % {CHUNK} == 0 and 16384 <= V <= 212992)")
     dtype = prefix_embeds.dtype
-    dev = prefix_embeds.device
     layers = unstack_layers(params, cfg)
-    logits0, cache0, n_valid = _prefill(params, cfg, prefix_embeds, key_valid, modality,
-                                        cache_dtype, layers)
+    logits0, cache0, n_valid, prefix_mask = _prefill(params, cfg, prefix_embeds, prefix_len,
+                                                     key_valid, modality, cache_dtype, layers)
     n_valid_bk = n_valid.repeat_interleave(K)
-    cache = AncSplitCache.from_prefill(cache0, P, K, max_new)
-    anc0 = torch.arange(K, dtype=torch.int32, device=dev)[None, :, None].expand(B, K, max_new)
+    if route == "kernel":
+        cache = AncSplitCache.from_prefill(cache0, P, K, max_new)
+        anc0 = torch.arange(K, dtype=torch.int32, device=dev)[None, :, None].expand(B, K, max_new)
+        state0 = (cache, anc0.contiguous())
 
-    def step_fn(state, new_tok, flat_idx, t):
-        cache, anc = state
-        anc = update_ancestors(anc, flat_idx, t, K)
-        emb = embed_tokens(params, new_tok.reshape(B * K, 1), dtype)
-        logits, cache = llm_decode_step_beam_anc(
-            params, cfg, emb, t, n_valid_bk, key_valid, cache, anc, K, modality,
-            layers=layers)
-        return logits.reshape(B, K, V), (cache, anc)
+        def step_fn(state, new_tok, flat_idx, t):
+            cache, anc = state
+            anc = update_ancestors(anc, flat_idx, t, K)
+            emb = embed_tokens(params, new_tok.reshape(B * K, 1), dtype)
+            logits, cache = llm_decode_step_beam_anc(
+                params, cfg, emb, t, n_valid_bk, prefix_mask, cache, anc, K, modality,
+                layers=layers)
+            return logits.reshape(B, K, V), (cache, anc)
+    else:
+        state0 = SplitCache.from_prefill(cache0, P, K, max_new)
 
-    return beam_loop(init_logits=logits0, state=(cache, anc0.contiguous()), step_fn=step_fn,
-                     num_beams=K, vocab_size=V, max_new=max_new, eos_id=eos_id,
-                     pad_id=pad_id, length_penalty=length_penalty,
-                     select_kernel=select_kernel)
+        def step_fn(cache, new_tok, flat_idx, t):
+            cache = cache.reorder_(flat_idx)
+            emb = embed_tokens(params, new_tok.reshape(B * K, 1), dtype)
+            logits, cache = llm_decode_step_beam(params, cfg, emb, t, n_valid_bk, prefix_mask,
+                                                 cache, K, modality, layers=layers)
+            return logits.reshape(B, K, V), cache
+    del cache0
+
+    return beam_loop(init_logits=logits0, state=state0, step_fn=step_fn, num_beams=K,
+                     vocab_size=V, max_new=max_new, eos_id=eos_id, pad_id=pad_id,
+                     length_penalty=length_penalty, select_kernel=select_kernel,
+                     no_repeat_ngram_size=no_repeat_ngram_size, select_mode=select_mode)

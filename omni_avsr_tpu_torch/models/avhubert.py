@@ -12,33 +12,52 @@ Serving passes no lengths, as the reference's `extract_finetune` call
 keys past each clip's length are masked.
 
 Train mode (`train_mode=True`, `:111-250`) runs the ResNet's BatchNorms on
-batch statistics; a `generator` adds fairseq's train()-mode stochastics,
-all drawn from it: input dropout, dropout after the attention and the
-second FFN linear, and layerdrop (layer i runs iff its uniform draw
-u_i > layerdrop; a dropped layer is skipped, which is fairseq's behaviour
-and gives what the JAX package's select gives). Attention: on the card, at
-T >= FLASH_MIN_T_TRAIN with head dim 64 or 128, the trainable flash
-kernels (B3 forward, B4 backward) with the lengths as `kv_lengths` and the
-attention dropout inside the kernels under an int32 seed drawn from the
-generator, as the JAX package routes it on the TPU (`:146-164`); otherwise,
-and on the CPU, the plain `dot_product_attention` with a padding mask and
-generator dropout.
+batch statistics (`bn_stats`, one pass or two); a random source `rng` adds
+fairseq's train()-mode stochastics: input dropout, dropout after the
+attention and the second FFN linear, and layerdrop (layer i runs iff its
+uniform draw u_i > layerdrop; a dropped layer is skipped, which is
+fairseq's behaviour and gives what the JAX package's select gives). The
+source is a threefry key (`utils/prng.py`), split as the JAX package
+splits it (`:110-225`: the input dropout's key, then `k_in, k_layers =
+split(rng)`, the layer keys `split(k_layers, L)`, layerdrop's draws
+`uniform(fold_in(rng, 7), (L,))`, and in each layer `k_attn, k_d1, k_d2,
+k_d3 = split(key, 4)`), which draws the JAX package's masks bit for bit;
+or a torch.Generator, from which one host draw takes layerdrop's uniforms,
+the flash seeds and one seed per layer for a generator of the layer's own.
+Either way every layer's draws are fixed before it runs, so a layer under
+a remat policy (`remat`, `models/llm.py::maybe_remat`, as the JAX package
+scans its layers under `maybe_remat`, `:222-225`) replays them when its
+forward runs again in the backward. Attention: on the card, at T >=
+FLASH_MIN_T_TRAIN with head dim 64 or 128, the trainable flash kernels (B3
+forward, B4 backward) with the lengths as `kv_lengths` and the attention
+dropout inside the kernels under an int32 seed (with a key
+`randint(k_attn, (), 0, 2**31 - 1)`, as the JAX package routes it on the
+TPU, `:146-164`); otherwise, and on the CPU, the plain
+`dot_product_attention` with a padding mask and its dropout drawn from
+the layer's key or generator.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from ..config import AVHubertConfig
 from ..ops.attention import FLASH_MIN_T_TRAIN, dot_product_attention, padding_mask_from_lengths
+from ..ops.augment import is_key, subkeys
 from ..ops.flash_attention_bwd import flash_attention_trainable
 from ..ops.norms import layer_norm
+from ..utils import prng
 from .common import Params, layer_slice, linear
+from .llm import maybe_remat
 from .resnet3d import resnet3d_forward
 from .whisper import conv1d_nwc
+
+# a layer's random source: a threefry key, the seed of a torch.Generator of
+# its own, or None (no dropout)
+LayerRng = Union[torch.Tensor, int, None]
 
 
 def _pos_conv(x: torch.Tensor, p: Params, cfg: AVHubertConfig) -> torch.Tensor:
@@ -48,37 +67,50 @@ def _pos_conv(x: torch.Tensor, p: Params, cfg: AVHubertConfig) -> torch.Tensor:
     return F.gelu(y[:, :-1])
 
 
-def _dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float) -> torch.Tensor:
-    """x * Bernoulli(1 - rate) / (1 - rate), the mask drawn from `generator`;
-    the identity without one."""
-    if generator is None or rate <= 0.0:
+def _dropout(rng, x: torch.Tensor, rate: float) -> torch.Tensor:
+    """x * Bernoulli(1 - rate) / (1 - rate), the mask drawn from `rng` (a
+    threefry key: `bernoulli(key, 1 - rate, x.shape)`, or a
+    torch.Generator); the identity without one."""
+    if rng is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=generator.device) < 1.0 - rate
-    return x * keep.to(device=x.device, dtype=x.dtype) / (1.0 - rate)
+    if is_key(rng):
+        keep = prng.bernoulli(rng, 1.0 - rate, x.shape, x.device)
+    else:
+        keep = torch.rand(x.shape, generator=rng, device=rng.device).to(x.device) < 1.0 - rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
+def _flash_path(q: torch.Tensor) -> bool:
+    return q.is_cuda and q.shape[1] >= FLASH_MIN_T_TRAIN and q.shape[3] in (64, 128)
 
 
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: Optional[torch.Tensor],
-               cfg: AVHubertConfig, generator: Optional[torch.Generator],
-               seed: Optional[int]) -> torch.Tensor:
-    T, hd = q.shape[1], q.shape[3]
-    rate = cfg.attention_dropout if generator is not None else 0.0
-    if q.is_cuda and T >= FLASH_MIN_T_TRAIN and hd in (64, 128):
+               cfg: AVHubertConfig, rng, seed: Optional[int]) -> torch.Tensor:
+    rate = cfg.attention_dropout if rng is not None else 0.0
+    if _flash_path(q):
         lens = lengths.to(torch.int32).contiguous() if lengths is not None else None
+        if rate > 0.0 and seed is None:  # a key: the JAX package's seed draw
+            seed = int(prng.randint(rng, (), 0, 2**31 - 1))
         return flash_attention_trainable(q, k, v, kv_lengths=lens, dropout_rate=rate,
                                          dropout_seed=seed if rate > 0.0 else None)
     mask = None
     if lengths is not None:
         mask = padding_mask_from_lengths(lengths, k.shape[1])[:, None, None, :]
-    return dot_product_attention(q, k, v, mask=mask, dropout_rate=rate, generator=generator)
+    return dot_product_attention(q, k, v, mask=mask, dropout_rate=rate, generator=rng)
 
 
 def _encoder_layer(layer: Params, cfg: AVHubertConfig, x: torch.Tensor,
-                   lengths: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None,
+                   lengths: Optional[torch.Tensor] = None, rng: LayerRng = None,
                    seed: Optional[int] = None) -> torch.Tensor:
+    """One pre-LN layer; `rng` is the layer's key (split in four, JAX's
+    order) or its generator's seed, `seed` the flash dropout seed drawn
+    with a generator."""
     B, T, D = x.shape
     H = cfg.encoder_heads
     hd = D // H
+    if isinstance(rng, int):
+        rng = torch.Generator(device=x.device).manual_seed(rng)
+    k_attn, k_d1, k_d2, k_d3 = subkeys(rng, 4) if rng is not None else (None,) * 4
     h = layer_norm(x, layer["attn_norm"]["scale"], layer["attn_norm"]["bias"])
     attn = layer["attn"]
     q = linear(h, attn["q"])
@@ -89,18 +121,20 @@ def _encoder_layer(layer: Params, cfg: AVHubertConfig, x: torch.Tensor,
         q = q + linear(linear(h, lora["down_q"]), lora["up_q"]) * cfg.lora_scaling
         v = v + linear(linear(h, lora["down_v"]), lora["up_v"]) * cfg.lora_scaling
     out = _attention(q.reshape(B, T, H, hd), k.reshape(B, T, H, hd), v.reshape(B, T, H, hd),
-                     lengths, cfg, generator, seed)
-    x = x + _dropout(generator, linear(out.reshape(B, T, D), attn["o"]), cfg.dropout)
+                     lengths, cfg, k_attn, seed)
+    x = x + _dropout(k_d1, linear(out.reshape(B, T, D), attn["o"]), cfg.dropout)
     h = layer_norm(x, layer["final_norm"]["scale"], layer["final_norm"]["bias"])
-    h = _dropout(generator, F.gelu(linear(h, layer["fc1"])), cfg.activation_dropout)
-    return x + _dropout(generator, linear(h, layer["fc2"]), cfg.dropout)
+    h = _dropout(k_d2, F.gelu(linear(h, layer["fc1"])), cfg.activation_dropout)
+    return x + _dropout(k_d3, linear(h, layer["fc2"]), cfg.dropout)
 
 
 def avhubert_extract_features(params: Params, cfg: AVHubertConfig, video: torch.Tensor,
-                              train_mode: bool = False, conv_kernel: bool = False) -> torch.Tensor:
+                              train_mode: bool = False, conv_kernel: bool = False,
+                              bn_stats: str = "onepass") -> torch.Tensor:
     """Video features, zero-filled audio half, concat fuse (`hubert.py:695-728`);
-    `conv_kernel` runs the ResNet trunk's convs through B7."""
-    vf = resnet3d_forward(params["video_frontend"], video, train_mode, conv_kernel)
+    `conv_kernel` runs the ResNet trunk's convs through B7, `bn_stats` is
+    its train-mode BN variance."""
+    vf = resnet3d_forward(params["video_frontend"], video, train_mode, conv_kernel, bn_stats)
     vfeat = linear(vf, params["video_proj"])
     afeat = torch.zeros_like(vfeat)
     if cfg.modality_fuse == "concat":
@@ -112,36 +146,66 @@ def avhubert_extract_features(params: Params, cfg: AVHubertConfig, video: torch.
     return linear(feats, params["post_extract_proj"])
 
 
-def layers_to_run(cfg: AVHubertConfig, generator: Optional[torch.Generator]):
-    """(indices of the encoder layers to run, one int32 attention-dropout
-    seed per layer): every layer and no seeds without a generator; else
-    layerdrop's uniform draws and the seeds, from one draw of the
-    generator (one host sync)."""
+def _key_streams(cfg: AVHubertConfig, key: torch.Tensor):
+    """A key's streams in the JAX package's order (`avhubert_encode` and
+    `avhubert_encoder`, `:183-292`): (input dropout's key or None, the
+    pos-conv output's dropout key, the encoder's key, whose fold_in 7 draws
+    layerdrop, the (L, 2) layer keys)."""
+    k_input = None
+    if cfg.dropout_input > 0.0:
+        k_input, key = prng.split(key)
+    k_in, k_layers = prng.split(key)
+    return k_input, k_in, key, prng.split(k_layers, cfg.encoder_layers)
+
+
+Plan = Tuple[List[int], List[LayerRng], List[Optional[int]]]
+
+
+def layers_to_run(cfg: AVHubertConfig, rng) -> Plan:
+    """(indices of the encoder layers to run, each layer's random source,
+    each layer's flash dropout seed). Without `rng`: every layer, no draws.
+    With a key: layerdrop's `uniform(fold_in(rng, 7), (L,))` and the layer
+    keys, on the host (no sync); the seeds come from each layer's key in
+    the layer. With a generator: one draw of (3, L) int32s (one host sync):
+    layerdrop's uniforms, the flash seeds, and each layer's generator seed."""
     L = cfg.encoder_layers
-    if generator is None:
-        return list(range(L)), [None] * L
-    draws = torch.randint(0, 2**31 - 1, (2, L), generator=generator,
-                          device=generator.device).tolist()
+    if rng is None:
+        return list(range(L)), [None] * L, [None] * L
+    if is_key(rng):
+        _, _, key, layer_keys = _key_streams(cfg, rng)
+        keep = list(range(L))
+        if cfg.layerdrop > 0.0:
+            u = prng.uniform(prng.fold_in(key, 7), (L,)).tolist()
+            keep = [i for i in keep if u[i] > cfg.layerdrop]
+        return keep, list(layer_keys), [None] * L
+    draws = torch.randint(0, 2**31 - 1, (3, L), generator=rng, device=rng.device).tolist()
     keep = [i for i in range(L) if draws[0][i] / 2**31 > cfg.layerdrop]
-    return keep, draws[1]
+    return keep, draws[2], draws[1]
 
 
 def avhubert_encode(params: Params, cfg: AVHubertConfig, video: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None, train_mode: bool = False,
-                    generator: Optional[torch.Generator] = None,
-                    plan: Optional[Tuple[List[int], List[Optional[int]]]] = None,
-                    conv_kernel: bool = False) -> torch.Tensor:
+                    generator=None, plan: Optional[Plan] = None, conv_kernel: bool = False,
+                    bn_stats: str = "onepass", remat: str = "off") -> torch.Tensor:
     """`extract_finetune` over video only: (B, T, D); `lengths` (B,) masks
-    each clip's padded frames as keys. `plan` is `layers_to_run`'s (layers,
-    seeds), drawn here from `generator` when not given. `conv_kernel` runs
-    the ResNet trunk's convs through B7."""
+    each clip's padded frames as keys. `generator` is the random source (a
+    threefry key or a torch.Generator; none in eval); `plan` is
+    `layers_to_run`'s, drawn here when not given. `conv_kernel` runs the
+    ResNet trunk's convs through B7, `bn_stats` is its train-mode BN
+    variance, `remat` the encoder layers' remat policy."""
     assert cfg.layer_norm_first, "the post-LN variant is not ported"
-    keep, seeds = plan if plan is not None else layers_to_run(cfg, generator)
-    feats = avhubert_extract_features(params, cfg, video, train_mode, conv_kernel)
-    feats = _dropout(generator, feats, cfg.dropout_input)
+    rng = generator
+    keep, layer_rngs, seeds = plan if plan is not None else layers_to_run(cfg, rng)
+    feats = avhubert_extract_features(params, cfg, video, train_mode, conv_kernel, bn_stats)
+    if is_key(rng):
+        k_input, k_in, _, _ = _key_streams(cfg, rng)
+    else:
+        k_input = k_in = rng
+    feats = _dropout(k_input, feats, cfg.dropout_input)
     x = feats + _pos_conv(feats, params["pos_conv"], cfg)
-    x = _dropout(generator, x, cfg.dropout)
+    x = _dropout(k_in, x, cfg.dropout)
     for i in keep:
-        x = _encoder_layer(layer_slice(params["layers"], i), cfg, x, lengths, generator, seeds[i])
+        x = maybe_remat(_encoder_layer, remat, layer_slice(params["layers"], i), cfg, x, lengths,
+                        layer_rngs[i], seeds[i])
     tn = params["top_norm"]
     return layer_norm(x, tn["scale"], tn["bias"])

@@ -2,17 +2,23 @@
 `omni_avsr_tpu/models/llm.py` (reference `Omni_AVSR/Llama_LoRA.py`).
 
   - `llm_backbone` runs the causal stack for training, each layer under
-    `torch.utils.checkpoint` when `remat` (the JAX package's "full" remat
-    policy); on the card, at T >= FLASH_MIN_T_TRAIN and head dim 64 or
-    128, its attention is the trainable flash kernel (B3 causal forward,
-    B4 backward), else dense with a causal mask; `llm_span_stats` puts
-    only the label-active span through the lm_head and the CE;
+    the remat policy `remat` (`maybe_remat`: "dots", "off" or "full", the
+    JAX package's `OMNI_REMAT`); on the card, at T >= FLASH_MIN_T_TRAIN
+    and head dim 64 or 128, its attention is the trainable flash kernel
+    (B3 causal forward, B4 backward), else dense with a causal mask;
+    `llm_span_stats` puts only the label-active span through the lm_head
+    and the CE;
   - `llm_prefill_masked` runs the gap-tolerant prefix once and fills a
-    static KV cache;
+    static KV cache; `llm_prefill` is its contiguous-prefix form;
   - `llm_decode_step_beam_anc` is one beam step on the no-reorder ancestor
     cache: the generated K/V stay in the row that wrote them, an ancestor
     table says which row holds each beam's token at each slot, and the
-    attention runs in `ops/beam_attention.py` (the kernel on the card).
+    attention runs in `ops/beam_attention.py` (the kernel on the card);
+  - `llm_decode_step_beam` is the JAX package's other route, its "xla"
+    one: the generated K/V are reordered by parent beam every step
+    (`SplitCache.reorder_`, one row gather) and the attention is the
+    three-block joint softmax of `_merged_beam_attention` in torch ops;
+  - `llm_decode_step` is one step on the contiguous KV cache.
 
 LoRA (`Llama_LoRA.py:246-262`): q += s * up_q(down_q(x)), v += s * up_v(down_v(x))
 with s = alpha / rank_divisor and the task's own adapter; with the modality
@@ -24,17 +30,18 @@ Unlike the JAX package, the generated-token cache is updated in place
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..config import MODALITIES, LLMConfig
 from ..data.tokenizer import IGNORE_INDEX
 from ..ops.attention import FLASH_MIN_T_TRAIN, NEG_INF, causal_mask, dot_product_attention
-from ..ops.beam_attention import (PLAIN_HEAD_DIM, beam_decode_attention,
-                                  beam_decode_attention_plain)
+from ..ops.beam_attention import beam_decode_attention
 from ..ops.flash_attention_bwd import flash_attention_trainable
 from ..ops.norms import rms_norm
 from ..ops.quant import quantized_matmul, quantized_matmul4
@@ -146,27 +153,61 @@ def _decoder_layer(layer: Params, cfg: LLMConfig, x: torch.Tensor, cos: torch.Te
     return x + _mlp_block(layer, h)
 
 
+REMAT_POLICIES = ("dots", "off", "full")
+
+# the products `checkpoint_dots_with_no_batch_dims` saves: matrix products
+# without batch dimensions (every linear; not the attention's batched ones)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def check_remat(remat: str) -> str:
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r}: one of {REMAT_POLICIES}")
+    return remat
+
+
+def maybe_remat(fn, remat: str, *args):
+    """`fn(*args)` under a remat policy, the JAX package's `maybe_remat`
+    (`omni_avsr_tpu/models/llm.py:390-408`, its `OMNI_REMAT`):
+      "dots" (the default there) keeps the outputs of the matrix products
+        without batch dimensions and recomputes the rest in the backward
+        (`checkpoint_dots_with_no_batch_dims`, here a selective checkpoint
+        whose policy saves `aten.mm` / `aten.addmm`);
+      "off"  checkpoints nothing;
+      "full" recomputes the whole of `fn` in the backward.
+    Under "dots" and "full" a kernel inside `fn` (the flash forward B3)
+    runs again in the backward. Nothing is checkpointed without grad."""
+    check_remat(remat)
+    if remat == "off" or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                   _dots_policy))
+
+
 def llm_backbone(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                  positions: torch.Tensor, modality: Optional[str] = None,
-                 remat: bool = True) -> torch.Tensor:
+                 remat: str = "dots") -> torch.Tensor:
     """The causal decoder stack over (B, T, H) embeddings at (B, T) rope
     positions; returns the final hidden states before the final norm
     (`omni_avsr_tpu/models/llm.py:316-372`, without its pipeline route).
-    With `remat` and grad enabled, each layer runs under
-    `torch.utils.checkpoint` (non-reentrant): its forward runs again in the
-    backward, flash kernel included (`maybe_remat`'s "full" policy,
-    `:390-409`)."""
+    Each layer runs under the remat policy `remat` (`maybe_remat`); the
+    values are the same under every policy."""
+    check_remat(remat)
     B, T, _ = inputs_embeds.shape
     cos, sin = rope_cos_sin(cfg, positions)
     flash_causal = inputs_embeds.is_cuda and cfg.head_dim in (64, 128) and T >= FLASH_MIN_T_TRAIN
     mask = None if flash_causal else causal_mask(T, T, device=inputs_embeds.device)
     x = inputs_embeds
     for layer in unstack_layers(params, cfg):
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(_decoder_layer, layer, cfg, x, cos, sin, mask, modality, flash_causal,
-                           use_reentrant=False)
-        else:
-            x = _decoder_layer(layer, cfg, x, cos, sin, mask, modality, flash_causal)
+        x = maybe_remat(_decoder_layer, remat, layer, cfg, x, cos, sin, mask, modality,
+                        flash_causal)
     return x
 
 
@@ -184,7 +225,7 @@ def token_ce_stats(logits: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.T
 
 def llm_span_stats(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                    labels: torch.Tensor, span: Tuple[int, int], modality: Optional[str] = None,
-                   remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                   remat: str = "dots") -> Tuple[torch.Tensor, torch.Tensor]:
     """Shifted-CE stats over the label-active logits positions [t0, t1)
     only: the backbone runs the whole sequence, the final norm, lm_head and
     CE only the span (`:451-475`; exact, since the other positions' labels
@@ -246,6 +287,199 @@ def llm_prefill_masked(
         x = x + _mlp_block(layer, h)
     x_last = x[torch.arange(B, device=x.device), last_idx][:, None]  # (B, 1, H)
     return lm_head(params, cfg, x_last)[:, 0], cache
+
+
+def llm_prefill(
+    params: Params,
+    cfg: LLMConfig,
+    inputs_embeds: torch.Tensor,  # (B, P, H) padded prefix
+    prefix_len: torch.Tensor,  # (B,) valid lengths (<= P)
+    cache: KVCache,
+    modality: Optional[str] = None,
+    layers: Optional[List[Params]] = None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Contiguous-prefix prefill: the valid tokens fill slots [0,
+    prefix_len) (`omni_avsr_tpu/models/llm.py:528-546`). Returns the (B, V)
+    logits at each row's last valid slot."""
+    B, P, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    key_valid = torch.arange(P, device=dev)[None] < prefix_len[:, None]
+    positions = torch.arange(P, device=dev)[None].expand(B, P)
+    last_idx = torch.clamp(prefix_len - 1, 0, P - 1)
+    return llm_prefill_masked(params, cfg, inputs_embeds, key_valid, positions, last_idx, cache,
+                              modality, layers=layers)
+
+
+def llm_decode_step(
+    params: Params,
+    cfg: LLMConfig,
+    token_embeds: torch.Tensor,  # (B, 1, H)
+    step: int,  # index of this generated token (0-based)
+    prefix_len: torch.Tensor,  # (B,) valid prefix tokens
+    prefill_pad: int,  # P: the prefix slots of the cache
+    cache: KVCache,
+    modality: Optional[str] = None,
+    key_valid: Optional[torch.Tensor] = None,  # (B, P) for a gap-tolerant prefix
+    layers: Optional[List[Params]] = None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step on the contiguous cache (`omni_avsr_tpu/models/llm.py:
+    857-`): this token's K/V land in slot P + step (in place), its rope
+    position is prefix_len + step, and it attends to the valid prefix slots
+    and the generated slots up to itself. Returns ((B, V) f32 logits,
+    cache)."""
+    B = token_embeds.shape[0]
+    dev = token_embeds.device
+    layers = layers if layers is not None else unstack_layers(params, cfg)
+    cos, sin = rope_cos_sin(cfg, (prefix_len + step)[:, None])
+    S = cache.k.shape[2]
+    key_pos = torch.arange(S, device=dev)[None]
+    gen_valid = (key_pos >= prefill_pad) & (key_pos <= prefill_pad + step)
+    if key_valid is not None:
+        kv_mask = F.pad(key_valid, (0, S - prefill_pad)) | gen_valid
+    else:
+        kv_mask = (key_pos < prefix_len[:, None]) | gen_valid
+    mask = kv_mask[:, None, None, :]
+    slot = prefill_pad + step
+    x = token_embeds
+    for i, layer in enumerate(layers):
+        h = rms_norm(x, layer["input_norm"]["scale"], cfg.rms_norm_eps)
+        q, k, v = _qkv_with_lora(layer, cfg, h, modality)
+        q = q.reshape(B, 1, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
+        q, k = apply_rope(q, k, cos, sin)
+        cache.k[i, :, slot] = k[:, 0].to(cache.k.dtype)
+        cache.v[i, :, slot] = v[:, 0].to(cache.v.dtype)
+        out = dot_product_attention(q, cache.k[i].to(q.dtype), cache.v[i].to(q.dtype), mask=mask)
+        x = x + linear(out.reshape(B, 1, cfg.q_dim), layer["attn"]["o"])
+        h2 = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
+        x = x + _mlp_block(layer, h2)
+    return lm_head(params, cfg, x)[:, 0], cache
+
+
+class SplitCache:
+    """Beam cache of the reorder route (`omni_avsr_tpu/models/llm.py:
+    589-645`): the prefix once per batch item, (L, B, Hkv, P, D), and the
+    generated tokens per beam, BEAM-LEADING (B*K, L, Hkv, N, D), so that
+    the per-step reorder by parent beam is one gather of whole rows of a
+    flattened (B*K, L*Hkv*N*D) view. The gather writes into a second
+    buffer made once, and the two swap: no allocation per step. Unlike the
+    JAX package's, this cache is updated in place."""
+
+    def __init__(self, prefix_k: torch.Tensor, prefix_v: torch.Tensor, gen_k: torch.Tensor,
+                 gen_v: torch.Tensor):
+        self.prefix_k, self.prefix_v = prefix_k, prefix_v
+        self.gen_k, self.gen_v = gen_k, gen_v
+        self._spare_k, self._spare_v = torch.empty_like(gen_k), torch.empty_like(gen_v)
+
+    @classmethod
+    def from_prefill(cls, cache: KVCache, prefix_pad: int, num_beams: int,
+                     max_new: int) -> "SplitCache":
+        L, B, S, H, D = cache.k.shape
+        zeros = cache.k.new_zeros((B * num_beams, L, H, max_new, D))
+        pk = cache.k[:, :, :prefix_pad].permute(0, 1, 3, 2, 4).contiguous()
+        pv = cache.v[:, :, :prefix_pad].permute(0, 1, 3, 2, 4).contiguous()
+        return cls(pk, pv, zeros, torch.zeros_like(zeros))
+
+    def reorder_(self, flat_idx: torch.Tensor) -> "SplitCache":
+        """Permute the generated region by parent row: row r becomes old row
+        flat_idx[r]."""
+        BK = self.gen_k.shape[0]
+        torch.index_select(self.gen_k.view(BK, -1), 0, flat_idx, out=self._spare_k.view(BK, -1))
+        torch.index_select(self.gen_v.view(BK, -1), 0, flat_idx, out=self._spare_v.view(BK, -1))
+        self.gen_k, self._spare_k = self._spare_k, self.gen_k
+        self.gen_v, self._spare_v = self._spare_v, self.gen_v
+        return self
+
+    def append_(self, layer: int, k: torch.Tensor, v: torch.Tensor, step: int) -> None:
+        """Write one layer's (B*K, Hkv, D) token K/V at slot `step`."""
+        self.gen_k[:, layer, :, step] = k.to(self.gen_k.dtype)
+        self.gen_v[:, layer, :, step] = v.to(self.gen_v.dtype)
+
+
+def merged_beam_attention(
+    q: torch.Tensor,  # (B*K, 1, Hq, D)
+    pk: torch.Tensor,  # (B, Hkv, P, D) shared prefix keys
+    pv: torch.Tensor,
+    gk: torch.Tensor,  # (B*K, Hkv, N, D) per-beam generated keys
+    gv: torch.Tensor,
+    k_cur: torch.Tensor,  # (B*K, Hkv, D) this step's key (not yet in the cache)
+    v_cur: torch.Tensor,
+    prefix_mask: torch.Tensor,  # (B, P) bool
+    gen_mask: torch.Tensor,  # (N,) bool: slots < step
+    num_beams: int,
+) -> torch.Tensor:
+    """Exact attention over [shared prefix | per-beam generated | current
+    token]: three logit blocks in f32 (the bf16 products of the JAX einsums
+    are exact in f32, so their f32 accumulation is this f32 einsum), one
+    joint softmax, the value products in the cache's dtype
+    (`omni_avsr_tpu/models/llm.py:701-749`). Torch ops: the JAX package
+    computes this route with XLA, outside any Pallas kernel."""
+    BK, _, Hq, D = q.shape
+    K = num_beams
+    B = BK // K
+    Hkv = pk.shape[1]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    qf = q.float()
+    qg = qf.reshape(B, K, Hkv, G, D)
+    lp = torch.einsum("bkhgd,bhpd->bkhgp", qg, pk.float()) * scale
+    lp = lp + torch.where(prefix_mask, 0.0, NEG_INF)[:, None, None, None, :]
+    qg2 = qf.reshape(BK, Hkv, G, D)
+    lg = (torch.einsum("khgd,khnd->khgn", qg2, gk.float()) * scale).reshape(B, K, Hkv, G, -1)
+    lg = lg + torch.where(gen_mask, 0.0, NEG_INF)[None, None, None, None, :]
+    lc = torch.einsum("khgd,khd->khg", qg2, k_cur.float()) * scale
+    lc = lc.reshape(B, K, Hkv, G)[..., None]
+    m = torch.maximum(torch.maximum(lp.amax(dim=-1), lg.amax(dim=-1)), lc[..., 0])[..., None]
+    ep, eg, ec = torch.exp(lp - m), torch.exp(lg - m), torch.exp(lc - m)
+    denom = ep.sum(dim=-1) + eg.sum(dim=-1) + ec[..., 0]  # (B, K, Hkv, G)
+    dt = pv.dtype
+    op = torch.einsum("bkhgp,bhpd->bkhgd", ep.to(dt), pv)
+    og = torch.einsum("khgn,khnd->khgd", eg.reshape(BK, Hkv, G, -1).to(dt), gv)
+    oc = ec.reshape(BK, Hkv, G, 1).to(v_cur.dtype) * v_cur[:, :, None, :]
+    out = (op + og.reshape(B, K, Hkv, G, D) + oc.reshape(B, K, Hkv, G, D)) / denom[..., None].to(dt)
+    return out.reshape(BK, 1, Hq, D)
+
+
+def llm_decode_step_beam(
+    params: Params,
+    cfg: LLMConfig,
+    token_embeds: torch.Tensor,  # (B*K, 1, H)
+    step: int,
+    n_valid: torch.Tensor,  # (B*K,) valid prefix tokens (rope positions)
+    prefix_mask: torch.Tensor,  # (B, P) bool
+    cache: SplitCache,  # already reordered for this step
+    num_beams: int,
+    modality: Optional[str] = None,
+    layers: Optional[List[Params]] = None,
+) -> Tuple[torch.Tensor, SplitCache]:
+    """One beam step of the reorder route (`omni_avsr_tpu/models/llm.py:
+    751-801`): every layer's attention is `merged_beam_attention` over the
+    reordered cache; this step's K/V land in slot `step` after the layer's
+    attention. Returns ((B*K, V) f32 logits, cache)."""
+    BK = token_embeds.shape[0]
+    layers = layers if layers is not None else unstack_layers(params, cfg)
+    cos, sin = rope_cos_sin(cfg, (n_valid + step)[:, None])
+    N = cache.gen_k.shape[3]
+    gen_mask = torch.arange(N, device=token_embeds.device) < step
+    x = token_embeds
+    for i, layer in enumerate(layers):
+        h = rms_norm(x, layer["input_norm"]["scale"], cfg.rms_norm_eps)
+        q, k, v = _qkv_with_lora(layer, cfg, h, modality)
+        q = q.reshape(BK, 1, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(BK, 1, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(BK, 1, cfg.num_kv_heads, cfg.head_dim)
+        q, k = apply_rope(q, k, cos, sin)
+        k_cur, v_cur = k[:, 0], v[:, 0]
+        out = merged_beam_attention(
+            q, cache.prefix_k[i].to(q.dtype), cache.prefix_v[i].to(q.dtype),
+            cache.gen_k[:, i].to(q.dtype), cache.gen_v[:, i].to(q.dtype), k_cur, v_cur,
+            prefix_mask, gen_mask, num_beams)
+        cache.append_(i, k_cur, v_cur, step)
+        x = x + linear(out.reshape(BK, 1, cfg.q_dim), layer["attn"]["o"])
+        h2 = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
+        x = x + _mlp_block(layer, h2)
+    return lm_head(params, cfg, x)[:, 0], cache
 
 
 class AncSplitCache(NamedTuple):
@@ -318,13 +552,7 @@ def llm_decode_step_beam_anc(
         v = v.reshape(BK, 1, cfg.num_kv_heads, cfg.head_dim)
         q, k = apply_rope(q, k, cos, sin)
         k_cur, v_cur = k[:, 0].contiguous(), v[:, 0].contiguous()
-        # the CLIs' tiny test model alone runs the same attention as torch
-        # ops, on the card too, where the JAX package leaves its kernel for
-        # its XLA route (`omni_avsr_tpu/decode/decoding.py:337-348`); B1
-        # raises on the card at any other head size it lacks
-        attend = (beam_decode_attention_plain if cfg.head_dim == PLAIN_HEAD_DIM
-                  else beam_decode_attention)
-        out = attend(
+        out = beam_decode_attention(
             q.contiguous(), cache.prefix_k[i].to(q.dtype), cache.prefix_v[i].to(q.dtype),
             cache.gen_k[i].to(q.dtype), cache.gen_v[i].to(q.dtype), k_cur, v_cur,
             prefix_bias, anc, step, num_beams)

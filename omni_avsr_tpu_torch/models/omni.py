@@ -9,10 +9,11 @@ prompt), per task, with the task's subset of A and V:
   infer  : [BOS][<audio> A </audio>][<video> V </video>][prompt]
 `infer_prefix_masked` keeps a static layout and masks each sample's feature
 slots past its own token count, so a batched decode keeps the reference's
-batch-size-1 semantics. `train_losses` runs the three tasks one after the
-other, or stacked in one decoder forward when `cfg.fused_task_forward`
-(`_fused_train_losses`); `single_task_loss` is the Llama-AVSR baseline's
-one-task loss.
+batch-size-1 semantics; `infer_prefix` is the contiguous prefix, every
+sample at the batch's padded token counts. `train_losses` runs the three
+tasks one after the other, or stacked in one decoder forward when
+`cfg.fused_task_forward` (`_fused_train_losses`); `single_task_loss` is
+the Llama-AVSR baseline's one-task loss.
 """
 
 from __future__ import annotations
@@ -68,11 +69,17 @@ class OmniAVSR:
         """Path predicate of the trainable/frozen split (`_unfreeze_PETF`,
         `modeling_OmniAVSR.py:234-260`; `omni_avsr_tpu/models/omni.py:87-118`):
         projectors always train; the LLM's LoRA iff "peft_llm"; AV-HuBERT's
-        LoRA iff "lora_avhubert". (The JAX package's "full_llm" and
-        "full_towers", for its WER probe, are not ported.)"""
+        LoRA iff "lora_avhubert"; the whole decoder iff "full_llm" and the
+        whole of both towers iff "full_towers" (not reference recipes: the
+        JAX package's WER probe trains them so that a tiny model can
+        memorise its clips)."""
 
         def pred(path: str) -> bool:
             if path.startswith(("audio_proj", "video_proj")):
+                return True
+            if "full_llm" in unfrozen_modules and path.startswith("llm."):
+                return True
+            if "full_towers" in unfrozen_modules and path.startswith(("whisper.", "avhubert.")):
                 return True
             if "peft_llm" in unfrozen_modules and path.startswith("llm.") and ".lora" in path:
                 return True
@@ -109,17 +116,19 @@ class OmniAVSR:
                                                               trim_len), rate)
 
     def video_features(self, params: Params, video: torch.Tensor, train_mode: bool = False,
-                       generator: Optional[torch.Generator] = None,
-                       conv_kernel: bool = False) -> torch.Tensor:
+                       generator=None, conv_kernel: bool = False, bn_stats: str = "onepass",
+                       remat: str = "off") -> torch.Tensor:
         """(B, T, d_avhubert): AV-HuBERT over the preprocessed video;
-        `train_mode` runs the ResNet's BN on batch statistics, `generator`
-        AV-HuBERT's dropouts and layerdrop (`models/avhubert.py`),
-        `conv_kernel` the ResNet trunk's convs through B7."""
+        `train_mode` runs the ResNet's BN on batch statistics (`bn_stats`:
+        "onepass" or "twopass"), `generator` (a torch.Generator or a
+        threefry key) AV-HuBERT's dropouts and layerdrop
+        (`models/avhubert.py`), `conv_kernel` the ResNet trunk's convs
+        through B7, `remat` the encoder layers' remat policy."""
         plan = layers_to_run(self.cfg.avhubert, generator)
         self.last_video_layers = len(plan[0])
         return avhubert_encode(params["avhubert"], self.cfg.avhubert, video.to(self.dtype),
                                train_mode=train_mode, generator=generator, plan=plan,
-                               conv_kernel=conv_kernel)
+                               conv_kernel=conv_kernel, bn_stats=bn_stats, remat=remat)
 
     def project_video(self, params: Params, enc: torch.Tensor, rate: int) -> torch.Tensor:
         """(B, T//rate, d_llm): AV-HuBERT features compressed at `rate` and
@@ -128,12 +137,15 @@ class OmniAVSR:
         return project(params["video_proj"], enc, rate if self._per_rate else None)
 
     def encode_video(self, params: Params, video: torch.Tensor, rate: int,
-                     train_mode: bool = False,
-                     generator: Optional[torch.Generator] = None,
-                     conv_kernel: bool = False) -> torch.Tensor:
-        """(B, T//rate, d_llm) projected video tokens (`video_features`)."""
-        return self.project_video(params, self.video_features(params, video, train_mode,
-                                                              generator, conv_kernel), rate)
+                     train_mode: bool = False, generator=None, conv_kernel: bool = False,
+                     dropout_rng: Optional[torch.Tensor] = None, bn_stats: str = "onepass",
+                     remat: str = "off") -> torch.Tensor:
+        """(B, T//rate, d_llm) projected video tokens (`video_features`);
+        `dropout_rng`, a threefry key, takes the place of `generator`
+        (`omni_avsr_tpu/models/omni.py:141-154`)."""
+        rng = dropout_rng if dropout_rng is not None else generator
+        return self.project_video(params, self.video_features(
+            params, video, train_mode, rng, conv_kernel, bn_stats, remat), rate)
 
     def prefix_slots(self, modality: str, rate_audio: int, rate_video: int, trim: int,
                      video_frames: int) -> int:
@@ -148,6 +160,34 @@ class OmniAVSR:
         if modality in ("video", "audiovisual"):
             n += 2 + video_frames // rate_video
         return -(-n // 16) * 16
+
+    def infer_prefix(self, params: Params, batch: Dict[str, torch.Tensor], modality: str,
+                     rate_audio: Optional[int] = None, rate_video: Optional[int] = None,
+                     audio_trim_len: Optional[int] = None,
+                     conv_kernel: bool = False) -> torch.Tensor:
+        """The contiguous decode prefix [BOS][<audio> A </audio>][<video> V
+        </video>][prompt] (B, P, D), every sample at the batch's padded
+        token counts (`omni_avsr_tpu/models/omni.py:376-407`; reference
+        `modeling_OmniAVSR.py:397-458`). Its length goes to the decoder as
+        `prefix_len`."""
+        key = "audio" if "audio" in batch else "video"
+        B, dev = batch[key].shape[0], batch[key].device
+        tok = self.tok
+        blocks = []
+        if self.cfg.llm.family == "llama":
+            blocks.append(self._embed_id(params, tok.bos_id, B, dev))
+        if modality in ("audio", "audiovisual"):
+            a = self.encode_audio(params, batch["audio"], batch["audio_len"], rate_audio,
+                                  audio_trim_len).to(self.dtype)
+            blocks += [self._embed_id(params, tok.audio_sos_id, B, dev), a,
+                       self._embed_id(params, tok.audio_eos_id, B, dev)]
+        if modality in ("video", "audiovisual"):
+            v = self.encode_video(params, batch["video"], rate_video,
+                                  conv_kernel=conv_kernel).to(self.dtype)
+            blocks += [self._embed_id(params, tok.video_sos_id, B, dev), v,
+                       self._embed_id(params, tok.video_eos_id, B, dev)]
+        blocks.append(self._prompt_embeds(params, modality, B, dev))
+        return torch.cat(blocks, dim=1)
 
     def _embed_id(self, params: Params, tid: int, B: int, device) -> torch.Tensor:
         ids = torch.full((B, 1), tid, dtype=torch.long, device=device)
@@ -234,22 +274,25 @@ class OmniAVSR:
 
     def train_losses(self, params: Params, batch: Dict[str, torch.Tensor], rate_audio: int,
                      rate_video: int, audio_trim_len: int, train_mode: bool = True,
-                     remat: bool = True, generator: Optional[torch.Generator] = None,
-                     conv_kernel: bool = False) -> Dict[str, torch.Tensor]:
+                     remat: str = "dots", generator: Optional[torch.Generator] = None,
+                     conv_kernel: bool = False, dropout_rng: Optional[torch.Tensor] = None,
+                     bn_stats: str = "onepass") -> Dict[str, torch.Tensor]:
         """Three-task training forward: the matryoshka-weighted CE of each
         task (`modeling_OmniAVSR.py:263-306`;
         `omni_avsr_tpu/models/omni.py:233-280`, its unfused route). Batch:
         preprocessed audio/audio_len/video, tokens and labels (B, Tt).
-        `train_mode` runs the ResNet's BN on batch statistics; `generator`
-        AV-HuBERT's dropouts and layerdrop; `conv_kernel` the ResNet trunk's
-        convs through B7."""
+        `train_mode` runs the ResNet's BN on batch statistics (`bn_stats`);
+        `generator`, or the threefry key `dropout_rng`, AV-HuBERT's dropouts
+        and layerdrop; `conv_kernel` the ResNet trunk's convs through B7;
+        `remat` is the remat policy of the LLM's and AV-HuBERT's layers
+        ("dots", "off" or "full": the same values)."""
         cfg, dtype = self.cfg, self.dtype
         text_emb = embed_tokens(params["llm"], batch["tokens"].long(), dtype)
         labels = batch["labels"]
-        # video first: its layer plan is a host sync (`layers_to_run`), which
-        # then waits for the preprocessing only, not for Whisper too
+        # video first: with a generator its layer plan is a host sync
+        # (`layers_to_run`), which then waits for the preprocessing only
         v = self.encode_video(params, batch["video"], rate_video, train_mode, generator,
-                              conv_kernel).to(dtype)
+                              conv_kernel, dropout_rng, bn_stats, remat).to(dtype)
         a = self.encode_audio(params, batch["audio"], batch["audio_len"], rate_audio,
                               audio_trim_len).to(dtype)
         task_specific = bool(cfg.llm.lora and cfg.llm.lora.task_specific)
@@ -269,7 +312,7 @@ class OmniAVSR:
 
     def _fused_train_losses(self, params: Params, a: torch.Tensor, v: torch.Tensor,
                             text_emb: torch.Tensor, labels: torch.Tensor, task_specific: bool,
-                            remat: bool) -> Dict[str, torch.Tensor]:
+                            remat: str) -> Dict[str, torch.Tensor]:
         """The three tasks in one LLM forward, stacked on the batch axis
         (`omni_avsr_tpu/models/omni.py:282-335`): each task's sequence is
         right-padded to the longest (the audiovisual one), the decoder runs
@@ -302,13 +345,16 @@ class OmniAVSR:
     def task_features(self, params: Params, batch: Dict[str, torch.Tensor], modality: str,
                       audio_trim_len: Optional[int], train_mode: bool = True,
                       generator: Optional[torch.Generator] = None,
-                      conv_kernel: bool = False) -> Dict[str, torch.Tensor]:
+                      conv_kernel: bool = False, dropout_rng: Optional[torch.Tensor] = None,
+                      bn_stats: str = "onepass", remat: str = "off") -> Dict[str, torch.Tensor]:
         """The encoder features a task reads, before compression: "audio"
-        (Whisper, trimmed) and/or "video" (AV-HuBERT), in the compute dtype."""
+        (Whisper, trimmed) and/or "video" (AV-HuBERT, its random source
+        `dropout_rng` or `generator`), in the compute dtype."""
         feats = {}
         if modality in ("video", "audiovisual"):  # first: its layer plan is a host sync
-            feats["video"] = self.video_features(params, batch["video"], train_mode, generator,
-                                                 conv_kernel).to(self.dtype)
+            rng = dropout_rng if dropout_rng is not None else generator
+            feats["video"] = self.video_features(params, batch["video"], train_mode, rng,
+                                                 conv_kernel, bn_stats, remat).to(self.dtype)
         if modality in ("audio", "audiovisual"):
             feats["audio"] = self.audio_features(params, batch["audio"], batch["audio_len"],
                                                  audio_trim_len).to(self.dtype)
@@ -316,12 +362,13 @@ class OmniAVSR:
 
     def single_task_loss(self, params: Params, batch: Dict[str, torch.Tensor], modality: str,
                          features: Dict[str, torch.Tensor], rate_audio: Optional[int] = None,
-                         rate_video: Optional[int] = None, remat: bool = True) -> torch.Tensor:
+                         rate_video: Optional[int] = None, remat: str = "dots") -> torch.Tensor:
         """The Llama-AVSR baseline's loss: one task's CE at one pair of rates
         (`omni_avsr_tpu/models/omni.py:337-374`; reference
         `modeling_LlamaAVSR.py`), on `features`, the `task_features` of the
         same batch: the Llama-MTSK step encodes once for all its rate
-        combos."""
+        combos, and the encoders' random draws (`dropout_rng` or
+        `generator`) are taken there."""
         cfg, dtype = self.cfg, self.dtype
         text_emb = embed_tokens(params["llm"], batch["tokens"].long(), dtype)
         parts = []

@@ -6,8 +6,11 @@ s=(1,2,2)) -> ResNet-18 trunk (BasicBlock x [2,2,2,2], PReLU) -> global
 average pool -> (B, T, 512). Channel-last layouts as in the JAX package.
 Eval mode folds the BatchNorms' running statistics into the convs; train
 mode (`train_mode=True`, the reference's frozen encoder in train()) runs
-them on batch statistics, one pass E[x^2] - E[x]^2 in f32 clamped at 0
-(`:34-53`), and, as there, does not update the running statistics.
+them on batch statistics, and, as there, does not update the running
+statistics: `bn_stats="onepass"` (the JAX package's default) takes the
+variance in one pass, E[x^2] - E[x]^2 in f32 clamped at 0, "twopass" (its
+`OMNI_BN_STATS=twopass`) as `jnp.var` does, the mean of (x - mean)^2
+(`:34-53`).
 `conv_kernel=True` routes every trunk conv through the fused conv B7
 (`ops/conv_block.py::fused_conv`), as `OMNI_CONV_KERNEL=1` does in the JAX
 package: in eval mode with the folded BN, the residual and PReLU in its
@@ -36,18 +39,29 @@ def prelu(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + a * torch.clamp(x, max=0)
 
 
-def batch_norm_train(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
-    """BatchNorm over every axis but the last with the batch's statistics."""
+BN_STATS = ("onepass", "twopass")
+
+
+def batch_norm_train(x: torch.Tensor, p: Params, eps: float = 1e-5,
+                     stats: str = "onepass") -> torch.Tensor:
+    """BatchNorm over every axis but the last with the batch's statistics,
+    its variance in one pass or two (`stats`)."""
     axes = tuple(range(x.dim() - 1))
     xf = x.float()
     mean = xf.mean(dim=axes)
-    var = torch.clamp(xf.square().mean(dim=axes) - mean.square(), min=0.0)
+    if stats == "onepass":
+        var = torch.clamp(xf.square().mean(dim=axes) - mean.square(), min=0.0)
+    elif stats == "twopass":
+        n = xf.numel() // xf.shape[-1]
+        var = (xf - xf.mean(dim=axes, keepdim=True)).square().sum(dim=axes) / n
+    else:
+        raise ValueError(f"bn stats {stats!r}: one of {BN_STATS}")
     y = (xf - mean) * torch.rsqrt(var + eps) * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
 
 
 def _basic_block(p: Params, x: torch.Tensor, stride: int, train_mode: bool = False,
-                 conv_kernel: bool = False) -> torch.Tensor:
+                 conv_kernel: bool = False, bn_stats: str = "onepass") -> torch.Tensor:
     cout = p["conv1"]["w"].shape[-1]
     a1 = _prelu_vec(p, "prelu1", cout, x.device)
     a2 = _prelu_vec(p, "prelu2", cout, x.device)
@@ -56,10 +70,11 @@ def _basic_block(p: Params, x: torch.Tensor, stride: int, train_mode: bool = Fal
         residual = x
         if "downsample" in p:
             r = fused_conv(x, p["downsample"]["conv"]["w"], stride, 0, **kw)
-            residual = batch_norm_train(r, p["downsample"]["bn"])
+            residual = batch_norm_train(r, p["downsample"]["bn"], stats=bn_stats)
         h = fused_conv(x, p["conv1"]["w"], stride, 1, **kw)
-        h = prelu(batch_norm_train(h, p["bn1"]), a1)
-        h = batch_norm_train(fused_conv(h, p["conv2"]["w"], 1, 1, **kw), p["bn2"])
+        h = prelu(batch_norm_train(h, p["bn1"], stats=bn_stats), a1)
+        h = batch_norm_train(fused_conv(h, p["conv2"]["w"], 1, 1, **kw), p["bn2"],
+                             stats=bn_stats)
         return prelu(h + residual, a2)
     residual = x
     if "downsample" in p:
@@ -72,7 +87,8 @@ def _basic_block(p: Params, x: torch.Tensor, stride: int, train_mode: bool = Fal
                       residual=residual, **kw)
 
 
-def stem_pool(params: Params, video: torch.Tensor, train_mode: bool = False) -> torch.Tensor:
+def stem_pool(params: Params, video: torch.Tensor, train_mode: bool = False,
+              bn_stats: str = "onepass") -> torch.Tensor:
     """3D stem conv + BN + PReLU + MaxPool over (B, T, H, W, 1) frames;
     returns (B*T, H/4, W/4, 64). The stem is a Conv3d with "same" time
     padding, run in NCDHW."""
@@ -84,7 +100,7 @@ def stem_pool(params: Params, video: torch.Tensor, train_mode: bool = False) -> 
     x = x.permute(0, 2, 3, 4, 1)  # (B, T, H/2, W/2, 64)
     bn = stem["bn"]
     if train_mode:
-        x = batch_norm_train(x, bn)
+        x = batch_norm_train(x, bn, stats=bn_stats)
     else:
         x = batch_norm_inference(x, bn["scale"], bn["bias"], bn["mean"], bn["var"])
     x = prelu(x, stem["prelu"]) if "prelu" in stem else torch.relu(x)
@@ -95,19 +111,20 @@ def stem_pool(params: Params, video: torch.Tensor, train_mode: bool = False) -> 
 
 
 def trunk_layer(params: Params, name: str, x: torch.Tensor, train_mode: bool = False,
-                conv_kernel: bool = False) -> torch.Tensor:
+                conv_kernel: bool = False, bn_stats: str = "onepass") -> torch.Tensor:
     """One ResNet-18 layer (two BasicBlocks) over (B*T, H, W, C) frames."""
     stride = 1 if name == "layer1" else 2
-    x = _basic_block(params[name]["b0"], x, stride, train_mode, conv_kernel)
-    return _basic_block(params[name]["b1"], x, 1, train_mode, conv_kernel)
+    x = _basic_block(params[name]["b0"], x, stride, train_mode, conv_kernel, bn_stats)
+    return _basic_block(params[name]["b1"], x, 1, train_mode, conv_kernel, bn_stats)
 
 
 def resnet3d_forward(params: Params, video: torch.Tensor, train_mode: bool = False,
-                     conv_kernel: bool = False) -> torch.Tensor:
-    """(B, T, H, W, 1) -> per-frame features (B, T, 512)."""
+                     conv_kernel: bool = False, bn_stats: str = "onepass") -> torch.Tensor:
+    """(B, T, H, W, 1) -> per-frame features (B, T, 512); `bn_stats` is the
+    train-mode BatchNorms' variance, "onepass" or "twopass"."""
     B, T = video.shape[:2]
-    x = stem_pool(params, video, train_mode)
+    x = stem_pool(params, video, train_mode, bn_stats)
     for name in ("layer1", "layer2", "layer3", "layer4"):
-        x = trunk_layer(params, name, x, train_mode, conv_kernel)
+        x = trunk_layer(params, name, x, train_mode, conv_kernel, bn_stats)
     x = x.float().mean(dim=(1, 2)).to(x.dtype)  # AdaptiveAvgPool2d(1)
     return x.reshape(B, T, -1)

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import prng
+
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 # `omni_avsr_tpu/ops/attention.py:33` (its default; the JAX package reads
@@ -25,13 +27,14 @@ def dot_product_attention(
     v: torch.Tensor,  # (B, S, Hkv, D)
     mask: Optional[torch.Tensor] = None,  # bool (B, 1|Hq, T, S), True = attend; or additive
     dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    generator=None,  # a torch.Generator, or a threefry key (utils/prng.py)
 ) -> torch.Tensor:
     """Returns (B, T, Hq, D). Logits and softmax in f32; probabilities are
     cast to q's dtype before the value contraction, as in the JAX route.
     With a generator and a positive rate, the probabilities are dropped
     with a Bernoulli mask drawn from it and the kept ones scaled by
-    1 / (1 - rate) (`omni_avsr_tpu/ops/attention.py:94-96`)."""
+    1 / (1 - rate) (`omni_avsr_tpu/ops/attention.py:94-96`); a threefry key
+    draws JAX's mask, `bernoulli(key, 1 - rate, probs.shape)`."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -47,9 +50,12 @@ def dot_product_attention(
             logits = logits + m.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     if generator is not None and dropout_rate > 0.0:
-        keep = torch.rand(probs.shape, generator=generator, device=generator.device)
-        keep = (keep < 1.0 - dropout_rate).to(device=probs.device, dtype=probs.dtype)
-        probs = probs * keep / (1.0 - dropout_rate)
+        if isinstance(generator, torch.Tensor):
+            keep = prng.bernoulli(generator, 1.0 - dropout_rate, probs.shape, probs.device)
+        else:
+            keep = torch.rand(probs.shape, generator=generator, device=generator.device)
+            keep = keep.to(probs.device) < 1.0 - dropout_rate
+        probs = probs * keep.to(probs.dtype) / (1.0 - dropout_rate)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v)
     return out.reshape(B, T, Hq, D)
 

@@ -8,27 +8,50 @@
                -> per-utterance layer_norm(eps 1e-8)
   audio eval : [AddNoise(babble, fixed SNR)] -> per-utterance layer_norm
 
-Every random draw comes from an explicit `torch.Generator` and lands on
-its device. `jax.random` and torch draw different bits from the same seed,
-so the train branches agree with the JAX package in distribution, not
-value for value.
+Every random draw comes from an explicit source, `rng`: a threefry key
+(`utils/prng.py`), split at every site in the JAX package's order (e.g.
+`k_t, k_e, k_s = split(rng, 3)` in `adaptive_time_mask`), which draws
+the JAX package's bits under its `OMNI_PRNG=threefry`; or a
+`torch.Generator`, whose draws land on its device and agree with the JAX
+package in distribution, not value for value (its default hardware-PRNG
+streams are no more reproducible across implementations).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 
+from ..utils import prng
+
 SNR_CHOICES = (-5.0, 0.0, 5.0, 10.0, 15.0, 20.0, 999999.0)
 
+# a threefry key ((2,) tensor, `utils/prng.py`) or a torch.Generator
+Rng = Union[torch.Tensor, torch.Generator]
 
-def _randint(generator: torch.Generator, low: int, high: int, shape, device) -> torch.Tensor:
-    return torch.randint(low, high, shape, generator=generator, device=generator.device).to(device)
+
+def is_key(rng) -> bool:
+    """Whether `rng` is a threefry key rather than a torch.Generator."""
+    return isinstance(rng, torch.Tensor)
 
 
-def _rand(generator: torch.Generator, shape, device) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+def subkeys(rng: Rng, n: int) -> List[Rng]:
+    """`jax.random.split(rng, n)` for a key; a generator n times, which
+    then draws in the same order."""
+    return list(prng.split(rng, n)) if is_key(rng) else [rng] * n
+
+
+def _randint(rng: Rng, low: int, high: int, shape, device) -> torch.Tensor:
+    if is_key(rng):
+        return prng.randint(rng, shape, low, high, device).long()
+    return torch.randint(low, high, shape, generator=rng, device=rng.device).to(device)
+
+
+def _rand(rng: Rng, shape, device) -> torch.Tensor:
+    if is_key(rng):
+        return prng.uniform(rng, shape, device)
+    return torch.rand(shape, generator=rng, device=rng.device).to(device)
 
 
 def utterance_layer_norm(x: torch.Tensor, lengths: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -41,7 +64,7 @@ def utterance_layer_norm(x: torch.Tensor, lengths: torch.Tensor, eps: float = 1e
     return ((xf - mean) * torch.rsqrt(var + eps) * valid).to(x.dtype)
 
 
-def adaptive_time_mask(generator: torch.Generator, x: torch.Tensor, lengths: torch.Tensor,
+def adaptive_time_mask(rng: Rng, x: torch.Tensor, lengths: torch.Tensor,
                        window: int, stride: int, max_masks: int) -> torch.Tensor:
     """Batched AdaptiveTimeMask (`transforms.py:37-57`): n = int((len +
     stride - 0.1) // stride) masks per sample, each of width ~U[0, window)
@@ -50,10 +73,11 @@ def adaptive_time_mask(generator: torch.Generator, x: torch.Tensor, lengths: tor
     `max_masks` must be >= (T + stride) / stride."""
     B, T = x.shape[:2]
     dev = x.device
+    k_t, k_e, k_s = subkeys(rng, 3)
     n_mask = torch.floor((lengths.float() + stride - 0.1) / stride).long()
-    bounds = _randint(generator, 0, window, (B, max_masks), dev)
-    widths = _randint(generator, 0, window, (B, max_masks), dev)
-    u = _rand(generator, (B, max_masks), dev)
+    bounds = _randint(k_t, 0, window, (B, max_masks), dev)
+    widths = _randint(k_e, 0, window, (B, max_masks), dev)
+    u = _rand(k_s, (B, max_masks), dev)
     span = torch.clamp(lengths[:, None].long() - bounds, min=1)
     starts = (u * span.float()).long()
     active = torch.arange(max_masks, device=dev)[None, :] < n_mask[:, None]
@@ -64,7 +88,7 @@ def adaptive_time_mask(generator: torch.Generator, x: torch.Tensor, lengths: tor
     return x * keep.reshape(B, T, *([1] * (x.dim() - 2))).to(x.dtype)
 
 
-def add_noise_snr(generator: torch.Generator, speech: torch.Tensor, lengths: torch.Tensor,
+def add_noise_snr(rng: Rng, speech: torch.Tensor, lengths: torch.Tensor,
                   noise_bank: torch.Tensor, snr_db: torch.Tensor) -> torch.Tensor:
     """Mix a random segment of `noise_bank` (N,) into the valid region of
     each (B, S) waveform at the per-sample SNR `snr_db` (B,): scaled so that
@@ -72,7 +96,7 @@ def add_noise_snr(generator: torch.Generator, speech: torch.Tensor, lengths: tor
     B, S = speech.shape
     N = noise_bank.shape[0]
     dev = speech.device
-    offsets = _randint(generator, 0, max(N - S, 1), (B,), dev)
+    offsets = _randint(subkeys(rng, 1)[0], 0, max(N - S, 1), (B,), dev)
     idx = offsets[:, None] + torch.arange(S, device=dev)[None, :]
     noise = noise_bank.to(dev)[torch.clamp(idx, 0, N - 1)]
     valid = (torch.arange(S, device=dev)[None, :] < lengths[:, None]).float()
@@ -84,7 +108,7 @@ def add_noise_snr(generator: torch.Generator, speech: torch.Tensor, lengths: tor
     return (sp + scale[:, None] * nz).to(speech.dtype) * valid
 
 
-def crop_video(generator: Optional[torch.Generator], video: torch.Tensor, out_size: int = 88,
+def crop_video(rng: Optional[Rng], video: torch.Tensor, out_size: int = 88,
                train: bool = False) -> torch.Tensor:
     """(B, T, H, W, C) -> (B, T, out, out, C): RandomCrop with one offset per
     sample (train) or CenterCrop (eval)."""
@@ -93,8 +117,9 @@ def crop_video(generator: Optional[torch.Generator], video: torch.Tensor, out_si
         oh, ow = (H - out_size) // 2, (W - out_size) // 2
         return video[:, :, oh:oh + out_size, ow:ow + out_size]
     dev = video.device
-    oh = _randint(generator, 0, H - out_size + 1, (B,), dev)
-    ow = _randint(generator, 0, W - out_size + 1, (B,), dev)
+    kh, kw = subkeys(rng, 2)
+    oh = _randint(kh, 0, H - out_size + 1, (B,), dev)
+    ow = _randint(kw, 0, W - out_size + 1, (B,), dev)
     rows = oh[:, None] + torch.arange(out_size, device=dev)[None, :]  # (B, out)
     cols = ow[:, None] + torch.arange(out_size, device=dev)[None, :]
     b = torch.arange(B, device=dev)[:, None, None]
@@ -110,52 +135,58 @@ def grayscale_luma(video: torch.Tensor) -> torch.Tensor:
     return (video @ w)[..., None]
 
 
-def horizontal_flip(generator: torch.Generator, video: torch.Tensor, p: float = 0.5) -> torch.Tensor:
+def horizontal_flip(rng: Rng, video: torch.Tensor, p: float = 0.5) -> torch.Tensor:
     """Whole-clip horizontal flip of each sample with probability p
     (`av_hubert/avhubert/utils.py:122-139`); the pre-training pipeline's."""
-    flip = _rand(generator, (video.shape[0],), video.device) < p
+    flip = _rand(rng, (video.shape[0],), video.device) < p
     return torch.where(flip[:, None, None, None, None], video.flip(3), video)
 
 
 def video_pipeline(video_u8: torch.Tensor, lengths: torch.Tensor, train: bool = False,
-                   generator: Optional[torch.Generator] = None, mean: float = 0.421,
+                   generator: Optional[Rng] = None, mean: float = 0.421,
                    std: float = 0.165, mask_window: int = 10,
                    mask_stride: int = 25) -> torch.Tensor:
     """(B, T, H, W, C) uint8 -> (B, T, 88, 88, 1) f32. Train mode draws the
     crop offsets and the time masks (over each clip's `lengths`) from
-    `generator`."""
+    `generator`, a torch.Generator or a threefry key (`k_crop, k_mask =
+    split(key)`)."""
+    k_crop, k_mask = subkeys(generator, 2) if train else (None, None)
     x = video_u8.float() / 255.0
-    x = grayscale_luma(crop_video(generator, x, 88, train))
+    x = grayscale_luma(crop_video(k_crop, x, 88, train))
     if train:
         T = x.shape[1]
         max_masks = (T + mask_stride) // mask_stride + 1
-        x = adaptive_time_mask(generator, x, lengths, mask_window, mask_stride, max_masks)
+        x = adaptive_time_mask(k_mask, x, lengths, mask_window, mask_stride, max_masks)
     return (x - mean) / std
 
 
 def audio_pipeline(audio: torch.Tensor, lengths: torch.Tensor, train: bool = False,
-                   generator: Optional[torch.Generator] = None,
+                   generator: Optional[Rng] = None,
                    noise_bank: Optional[torch.Tensor] = None,
                    snr_target: Optional[float] = None,
                    snr_choices: Sequence[float] = SNR_CHOICES, mask_window: int = 6400,
                    mask_stride: int = 16000) -> torch.Tensor:
     """(B, S) -> per-utterance standardised waveform. Train mode masks time
     spans and, given a noise bank, mixes babble at an SNR drawn from
-    `snr_choices` per sample, all from `generator`. Eval mode with a noise
-    bank and `snr_target` below 999998 (the clean choice) mixes it at that
-    fixed SNR, the reference's noise-robustness evaluation, its offsets
-    drawn from `generator`."""
+    `snr_choices` per sample, all from `generator` (a torch.Generator, or a
+    threefry key: `k_mask, k_snr, k_noise = split(key, 3)`). Eval mode with
+    a noise bank and `snr_target` below 999998 (the clean choice) mixes it
+    at that fixed SNR, the reference's noise-robustness evaluation, its
+    offsets drawn from `generator` (the key `PRNGKey(0)` without one, as
+    the JAX package draws them)."""
     B, S = audio.shape
     x = audio
     if train:
+        k_mask, k_snr, k_noise = subkeys(generator, 3)
         max_masks = (S + mask_stride) // mask_stride + 1
-        x = adaptive_time_mask(generator, x[..., None], lengths, mask_window, mask_stride,
+        x = adaptive_time_mask(k_mask, x[..., None], lengths, mask_window, mask_stride,
                                max_masks)[..., 0]
         if noise_bank is not None:
-            pick = _randint(generator, 0, len(snr_choices), (B,), x.device)
+            pick = _randint(k_snr, 0, len(snr_choices), (B,), x.device)
             snr = torch.tensor(snr_choices, device=x.device)[pick]
-            x = add_noise_snr(generator, x, lengths, noise_bank, snr)
+            x = add_noise_snr(k_noise, x, lengths, noise_bank, snr)
     elif snr_target is not None and snr_target < 999998 and noise_bank is not None:
         snr = torch.full((B,), float(snr_target), device=x.device)
-        x = add_noise_snr(generator, x, lengths, noise_bank, snr)
+        x = add_noise_snr(generator if generator is not None else prng.PRNGKey(0), x, lengths,
+                          noise_bank, snr)
     return utterance_layer_norm(x, lengths)

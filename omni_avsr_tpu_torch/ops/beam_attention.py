@@ -37,15 +37,11 @@ _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctype
                                                           ctypes.c_void_p]
 
 
-# The head size of the CLIs' tiny test model (`cli/common.py::tiny_dims`),
-# which the kernel lacks: its decode step takes the plain version, on the
-# card too (`models/llm.py::llm_decode_step_beam_anc`).
-PLAIN_HEAD_DIM = 16
-
-
 def kernel_supported(head_dim: int) -> bool:
     """Whether the kernel takes this head size (64 or 128), the JAX
-    package's `beam_attn_supported`."""
+    package's `beam_attn_supported`. At any other head size the decoder
+    takes the reorder route (`decode/decoding.py`), as the JAX package does
+    on the TPU; a direct call on the card raises."""
     return head_dim in (64, 128)
 
 

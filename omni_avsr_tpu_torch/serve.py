@@ -14,16 +14,20 @@ and of the decode half of `train/engine.py`).
 name (Llama-3.x, Qwen2.5) with Whisper-medium and AV-HuBERT-Large.
 
 Per request: eval-mode preprocessing, the gap-tolerant multimodal prefix,
-one prefill, then beam search on the ancestor cache (greedy decoding on
-the same cache with one beam when `num_beams <= 1`, as the JAX engine
-routes it). On the card the
+one prefill, then beam search (greedy decoding with one beam when
+`num_beams <= 1`, as the JAX engine routes it). On the card the
 hand-written kernels carry it: beam-decode attention (B1) in every decode
 step, the int8 or packed-int4 matmul (B2, B6) in every quantised linear,
 and flash attention (B3) in the towers at long windows. Two opt-in
 switches mirror the JAX package's: `select_kernel=True` (its
 `OMNI_SELECT_KERNEL=1`) takes each beam step's selection statistics from
 the stats kernel B5, and `conv_kernel=True` (its `OMNI_CONV_KERNEL=1`)
-runs the ResNet trunk's 19 convs through the fused conv B7.
+runs the ResNet trunk's 19 convs through the fused conv B7. The decode's
+numerics switches are arguments too: `attn_route="xla"` takes the JAX
+package's reorder route (its `OMNI_BEAM_ATTN=xla`; also the route at a
+head size B1 lacks), `select_mode="grid"` its full candidate grid
+(`OMNI_BEAM_SELECT=grid`), and `no_repeat_ngram_size` bans repeated
+n-grams.
 """
 
 from __future__ import annotations
@@ -123,14 +127,18 @@ def decode_padded(model: OmniAVSR, params: Params, batch: Dict[str, np.ndarray],
                   rate_audio: int, rate_video: int, trim: int, num_beams: int, max_new: int,
                   device, *, select_kernel: bool = False, conv_kernel: bool = False,
                   noise_bank: Optional[torch.Tensor] = None, snr_target: Optional[float] = None,
-                  generator: Optional[torch.Generator] = None) -> DecodeOutput:
+                  generator=None, attn_route: Optional[str] = None,
+                  select_mode: str = "fused", no_repeat_ngram_size: int = 0) -> DecodeOutput:
     """The decode body that `Transcriber` and `OmniEngine.decode_batch`
     share (`omni_avsr_tpu/train/engine.py::_decode_fn`): eval preprocessing
     of the modality's streams (babble from `noise_bank` mixed at
-    `snr_target`, its offsets from `generator`, when both are given), the
-    gap-tolerant prefix padded to a multiple of 16 slots, one prefill, then
-    beam search, or greedy decoding when `num_beams <= 1`. Returns the
-    (B, max_new) ids and the decode steps run."""
+    `snr_target`, its offsets from `generator`, a torch.Generator or a
+    threefry key, when both are given), the gap-tolerant prefix padded to a
+    multiple of 16 slots, one prefill, then beam search, or greedy decoding
+    when `num_beams <= 1`, on the attention route `attn_route`
+    (`decode/decoding.py::decode_route`) with the candidate selection
+    `select_mode` and the n-gram ban `no_repeat_ngram_size` (beam search
+    only). Returns the (B, max_new) ids and the decode steps run."""
     tok, cfg = model.tok, model.cfg
     use_a = modality in ("audio", "audiovisual")
     use_v = modality in ("video", "audiovisual")
@@ -153,11 +161,13 @@ def decode_padded(model: OmniAVSR, params: Params, batch: Dict[str, np.ndarray],
         key_valid = torch.nn.functional.pad(key_valid, (0, P - P0))
         lora_mod = modality if (cfg.llm.lora and cfg.llm.lora.task_specific) else None
         common = dict(key_valid=key_valid, max_new=max_new, eos_id=tok.eos_id,
-                      pad_id=tok.pad_id, modality=lora_mod, cache_dtype=model.dtype)
+                      pad_id=tok.pad_id, modality=lora_mod, cache_dtype=model.dtype,
+                      attn_route=attn_route)
         if num_beams <= 1:  # `omni_avsr_tpu/train/engine.py:311-318`
             return greedy_decode(params["llm"], cfg.llm, prefix, **common)
         return beam_search(params["llm"], cfg.llm, prefix, num_beams=num_beams,
-                           select_kernel=select_kernel, **common)
+                           select_kernel=select_kernel, select_mode=select_mode,
+                           no_repeat_ngram_size=no_repeat_ngram_size, **common)
 
 
 def ids_to_texts(tok, ids: torch.Tensor) -> List[str]:
@@ -183,9 +193,15 @@ class Transcriber:
         select_kernel: bool = False,  # beam selection statistics through B5
         conv_kernel: bool = False,  # the ResNet trunk's convs through B7
         video_pad_multiple: int = VIDEO_PAD_MULTIPLE,  # frames: the ladder's base class
+        attn_route: Optional[str] = None,  # decode attention: None (auto), "kernel", "xla"
+        select_mode: str = "fused",  # beam candidate selection: "fused" or "grid"
+        no_repeat_ngram_size: int = 0,  # > 0: ban repeated n-grams (on the grid)
     ):
         self.model = model
         self.select_kernel = select_kernel
+        self.attn_route = attn_route
+        self.select_mode = select_mode
+        self.no_repeat_ngram_size = no_repeat_ngram_size
         self.conv_kernel = conv_kernel
         self.video_pad_multiple = video_pad_multiple
         self.device = torch.device(device)
@@ -255,7 +271,9 @@ class Transcriber:
         or the greedy ids when `num_beams <= 1`."""
         out = decode_padded(self.model, self.params, batch, modality, rate_audio, rate_video,
                             trim, num_beams, self.max_new, self.device,
-                            select_kernel=self.select_kernel, conv_kernel=self.conv_kernel)
+                            select_kernel=self.select_kernel, conv_kernel=self.conv_kernel,
+                            attn_route=self.attn_route, select_mode=self.select_mode,
+                            no_repeat_ngram_size=self.no_repeat_ngram_size)
         self.last_decode_steps = out.steps
         return out.tokens
 

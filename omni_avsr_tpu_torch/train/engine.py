@@ -24,6 +24,25 @@ evaluation).
 `conv_kernel=True` runs the ResNet trunk's convs through the fused conv
 B7, as the JAX package's `OMNI_CONV_KERNEL=1` does in its train step too
 (the raw convs of train-mode BN; the frozen trunk takes no grad).
+
+The JAX package's numerics switches are arguments here (the CLIs read its
+`OMNI_*` variables through `utils/profiles.py`):
+  - `prng`: "threefry" keeps a threefry key, `PRNGKey(seed)`, split per
+    train, eval and decode call as the JAX engine splits it (`_next_rng`,
+    then `k_aug, k_drop = split(rng)` in a train step and `kv, ka =
+    split(k_aug)` in the preprocessing), so the step draws the JAX
+    package's masks, crops and noise under its `OMNI_PRNG=threefry`;
+    "torch" (the default) draws from a `torch.Generator`, the counterpart
+    of the JAX package's default "rbg" streams: the same distributions,
+    not the same bits;
+  - `bn_stats`: the ResNet's train-mode BN variance, "onepass" (default)
+    or "twopass" (`OMNI_BN_STATS`);
+  - `remat`: the remat policy of the LLM's and AV-HuBERT's layers, "dots"
+    (default), "off" or "full" (`OMNI_REMAT`);
+  - `decode_attn_route` and `decode_select_mode`: `decode_batch`'s
+    attention route and candidate selection (`OMNI_BEAM_ATTN`,
+    `OMNI_BEAM_SELECT`); `select_kernel` its selection statistics through
+    B5 where the vocabulary allows (`OMNI_SELECT_KERNEL=1`).
 """
 
 from __future__ import annotations
@@ -35,8 +54,12 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig
+from ..decode.decoding import select_kernel_supported
+from ..models.llm import check_remat
 from ..models.omni import OmniAVSR
+from ..models.resnet3d import BN_STATS
 from ..ops.augment import audio_pipeline, video_pipeline
+from ..utils import prng as threefry
 from .optim import make_optimizer
 from .state import (
     TrainState,
@@ -64,9 +87,26 @@ class OmniEngine:
         augment: bool = True,
         device="cuda",
         conv_kernel: bool = False,
+        prng: str = "torch",
+        bn_stats: str = "onepass",
+        remat: str = "dots",
+        decode_attn_route: Optional[str] = None,
+        decode_select_mode: str = "fused",
+        select_kernel: bool = False,
     ):
+        if prng not in ("torch", "threefry"):
+            raise ValueError(f"prng {prng!r}: 'torch' or 'threefry'")
+        if bn_stats not in BN_STATS:
+            raise ValueError(f"bn_stats {bn_stats!r}: one of {BN_STATS}")
         self.model = model
         self.conv_kernel = conv_kernel
+        self.bn_stats = bn_stats
+        self.remat = check_remat(remat)
+        self.decode_attn_route = decode_attn_route
+        self.decode_select_mode = decode_select_mode
+        # decode_batch's selection statistics through B5 where the vocabulary
+        # allows it, as the JAX package gates its OMNI_SELECT_KERNEL=1
+        self.select_kernel = select_kernel and select_kernel_supported(model.cfg.llm.vocab_size)
         self.cfg = model.cfg
         self.train_cfg = train_cfg
         self.device = torch.device(device)
@@ -77,8 +117,10 @@ class OmniEngine:
         self.decode_snr_target = decode_snr_target
         self.last_decode_steps = 0  # decode steps of the last decode_batch
         self._py_rng = random.Random(seed)
-        # augmentation, dropout and layerdrop draws (on the device)
+        # augmentation, dropout and layerdrop draws: a generator on the
+        # device, or the JAX engine's threefry key (`train/engine.py:72-81`)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._rng_key = threefry.PRNGKey(seed) if prng == "threefry" else None
         trainable, frozen = split_params(params, model.trainable_predicate(unfrozen_modules))
         self.frozen = tree_map(lambda x: x.detach().to(self.device), frozen)
         if inference_only:
@@ -96,32 +138,59 @@ class OmniEngine:
         """The merged tree: masters cast to the compute dtype (in the graph)."""
         return merge_params(cast_trainable(self.state.trainable, self.model.dtype), self.frozen)
 
-    def _preprocess(self, batch: Dict[str, torch.Tensor], train: bool) -> Dict[str, torch.Tensor]:
+    def _next_rng(self) -> Optional[torch.Tensor]:
+        """The call's key, `self._rng_key, k = split(self._rng_key)` (the JAX
+        engine's `_next_rng`); None with torch generators."""
+        if self._rng_key is None:
+            return None
+        self._rng_key, key = threefry.split(self._rng_key)
+        return key
+
+    def _preprocess(self, batch: Dict[str, torch.Tensor], train: bool,
+                    key: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The pipelines of `ops/augment.py` (`omni_avsr_tpu/train/engine.py:
+        131-145`): train mode when `train` and `augment`, else eval mode
+        with babble at `decode_snr_target` when the engine has a noise bank;
+        the draws from `key` (`kv, ka = split(key)`) or the generator."""
         out = dict(batch)
         train = train and self.augment
-        g = self.generator if train else None
+        if key is not None:
+            kv, ka = threefry.split(key)
+        else:
+            kv = ka = self.generator
         if "video" in batch:
             out["video"] = video_pipeline(batch["video"], batch["video_len"], train=train,
-                                          generator=g)
+                                          generator=kv if train else None)
         if "audio" in batch:
             out["audio"] = audio_pipeline(batch["audio"], batch["audio_len"], train=train,
-                                          generator=g, noise_bank=self.noise_bank)
+                                          generator=ka, noise_bank=self.noise_bank,
+                                          snr_target=None if train else self.decode_snr_target)
         return out
 
     def _loss(self, batch: Dict[str, torch.Tensor], rate_a: int, rate_v: int, trim_len: int,
-             is_train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              is_train: bool, key: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(mean of the three task losses, each task's loss) on a batch
-        already on the device (`omni_avsr_tpu/train/engine.py:151-163`)."""
-        proc = self._preprocess(batch, train=is_train)
+        already on the device (`omni_avsr_tpu/train/engine.py:151-163`);
+        with a threefry `key`, `k_aug, k_drop = split(key)` draw the
+        augmentation and AV-HuBERT's dropout."""
+        k_aug = k_drop = None
+        if key is not None:
+            k_aug, k_drop = threefry.split(key)
+        proc = self._preprocess(batch, train=is_train, key=k_aug)
         mode = is_train and self.augment
-        losses = self.model.train_losses(self._params(), proc, rate_a, rate_v, trim_len,
-                                         train_mode=mode,
-                                         generator=self.generator if mode else None,
-                                         conv_kernel=self.conv_kernel)
+        losses = self.model.train_losses(
+            self._params(), proc, rate_a, rate_v, trim_len, train_mode=mode, remat=self.remat,
+            generator=self.generator if mode and key is None else None,
+            conv_kernel=self.conv_kernel, dropout_rng=k_drop if mode else None,
+            bn_stats=self.bn_stats)
         total = (losses["audio"] + losses["video"] + losses["audiovisual"]) / 3.0
         return total, losses
 
     def _arrays(self, batch: Dict[str, Any]) -> Tuple[Dict[str, torch.Tensor], int]:
+        """The batch's arrays on the device (numpy arrays, or tensors on the
+        host or already on the device, e.g. from `utils/prefetch.py`) and
+        its Whisper trim."""
         batch = dict(batch)
         trim = int(batch.pop("audio_trim_len", 1500))
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
@@ -149,14 +218,14 @@ class OmniEngine:
         """One optimizer step; returns the loss (a device scalar)."""
         rate_a, rate_v = self.sample_rates()
         arrays, trim = self._arrays(batch)
-        total, _ = self._loss(arrays, rate_a, rate_v, trim, is_train=True)
+        total, _ = self._loss(arrays, rate_a, rate_v, trim, is_train=True, key=self._next_rng())
         return self._update(total)
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         rate_a, rate_v = self.sample_rates()
         arrays, trim = self._arrays(batch)
-        return self._loss(arrays, rate_a, rate_v, trim, is_train=False)
+        return self._loss(arrays, rate_a, rate_v, trim, is_train=False, key=self._next_rng())
 
     def _rate_combos(self, modality: str) -> List[Tuple[Optional[int], Optional[int]]]:
         """The rate pairs of the baseline's loss: every rate of the task's
@@ -173,22 +242,26 @@ class OmniEngine:
         return [(ra, rv) for rv in cfg.video_rates for ra in cfg.audio_rates]
 
     def _single_loss(self, batch: Dict[str, torch.Tensor], modality: str, trim_len: int,
-                     is_train: bool) -> torch.Tensor:
+                     is_train: bool, key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The Llama-AVSR / Llama-MTSK loss of one batch: the mean of
         `single_task_loss` over every rate combo (`omni_avsr_tpu/train/
         engine.py:197-214`). The encoders run once for all the combos (each
         combo compresses the same features at its rates), and their BN runs
-        on batch statistics when `is_train`, as there; dropout, layerdrop
-        and augmentation draw from the engine's generator when `is_train`
-        and `augment` (the JAX step runs AV-HuBERT without dropout here)."""
-        draw = is_train and self.augment
-        proc = self._preprocess(batch, train=is_train)
+        on batch statistics when `is_train`, as there. With a threefry
+        `key` the preprocessing draws from it whole and AV-HuBERT runs
+        without dropout, as the JAX step does; with the generator, dropout,
+        layerdrop and augmentation draw from it when `is_train` and
+        `augment`."""
+        draw = is_train and self.augment and key is None
+        proc = self._preprocess(batch, train=is_train, key=key)
         params = self._params()
         feats = self.model.task_features(params, proc, modality, trim_len, train_mode=is_train,
                                          generator=self.generator if draw else None,
-                                         conv_kernel=self.conv_kernel)
+                                         conv_kernel=self.conv_kernel, bn_stats=self.bn_stats,
+                                         remat=self.remat)
         combos = self._rate_combos(modality)
-        total = sum(self.model.single_task_loss(params, proc, modality, feats, ra, rv)
+        total = sum(self.model.single_task_loss(params, proc, modality, feats, ra, rv,
+                                                remat=self.remat)
                     for ra, rv in combos)
         return total / len(combos)
 
@@ -196,34 +269,46 @@ class OmniEngine:
         """One optimizer step of the single-task baseline on `modality`;
         returns the loss (a device scalar)."""
         arrays, trim = self._arrays(batch)
-        return self._update(self._single_loss(arrays, modality, trim, is_train=True))
+        return self._update(self._single_loss(arrays, modality, trim, is_train=True,
+                                              key=self._next_rng()))
 
     @torch.no_grad()
     def single_eval_step(self, batch: Dict[str, Any], modality: str) -> torch.Tensor:
         arrays, trim = self._arrays(batch)
-        return self._single_loss(arrays, modality, trim, is_train=False)
+        return self._single_loss(arrays, modality, trim, is_train=False, key=self._next_rng())
 
     def decode_batch(self, params: Dict[str, Any], batch: Dict[str, Any], modality: str,
                      rate_a: Optional[int] = None, rate_v: Optional[int] = None,
-                     num_beams: Optional[int] = None, max_new: Optional[int] = None) -> List[str]:
+                     num_beams: Optional[int] = None, max_new: Optional[int] = None,
+                     attn_route: Optional[str] = None, select_mode: Optional[str] = None,
+                     no_repeat_ngram_size: int = 0) -> List[str]:
         """Decoded transcripts of a padded (test) batch
         (`omni_avsr_tpu/train/engine.py:330-356`): eval preprocessing with
         the engine's noise bank mixed at `decode_snr_target` (its offsets
-        from the engine's generator), then `Transcriber`'s decode body on
-        `params` (e.g. `merged_params()`, or a quantised serving tree).
-        `batch` holds numpy arrays and may carry "audio_trim_len" (else
-        1500) and "gold_text"; rates default to each modality's first."""
+        from the engine's generator, or with threefry from the call's key
+        `ka` of `kv, ka = split(key)`, the JAX engine's segment), then
+        `Transcriber`'s decode body on `params` (e.g. `merged_params()`, or
+        a quantised serving tree), on the attention route and selection of
+        the arguments, else the engine's `decode_attn_route` and
+        `decode_select_mode`. `batch` holds numpy arrays and may carry
+        "audio_trim_len" (else 1500) and "gold_text"; rates default to each
+        modality's first."""
         from ..serve import decode_padded, ids_to_texts
 
         trim = int(batch.get("audio_trim_len", 1500))
         arrays = {k: v for k, v in batch.items() if k not in ("gold_text", "audio_trim_len")}
+        key = self._next_rng()
+        rng = threefry.split(key)[1] if key is not None else self.generator
         out = decode_padded(
             self.model, params, arrays, modality, rate_a or self.cfg.audio_rates[0],
             rate_v or self.cfg.video_rates[0], trim,
             self.cfg.num_beams if num_beams is None else num_beams,
             self.cfg.max_dec_tokens if max_new is None else max_new, self.device,
-            conv_kernel=self.conv_kernel, noise_bank=self.noise_bank,
-            snr_target=self.decode_snr_target, generator=self.generator)
+            select_kernel=self.select_kernel, conv_kernel=self.conv_kernel,
+            noise_bank=self.noise_bank, snr_target=self.decode_snr_target, generator=rng,
+            attn_route=attn_route if attn_route is not None else self.decode_attn_route,
+            select_mode=select_mode if select_mode is not None else self.decode_select_mode,
+            no_repeat_ngram_size=no_repeat_ngram_size)
         self.last_decode_steps = out.steps
         return ids_to_texts(self.model.tok, out.tokens)
 

@@ -243,7 +243,7 @@ def test_cli_refuses_to_run_without_a_card(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--num-nodes", "2"], ["--mesh-tp", "2"], ["--mesh-pp", "2"], ["--mesh-ep", "2"],
     ["--fsdp", "true"], ["--sequence-parallel", "true"], ["--moe-experts", "4"],
-    ["--coordinator-address", "10.0.0.1:1234"], ["--compilation-cache-dir", "cache"],
+    ["--coordinator-address", "10.0.0.1:1234"],
 ])
 def test_unported_flags_raise(tmp_path, flag):
     from omni_avsr_tpu_torch.cli import eval_llama_avsr, eval_omni, train_llama_avsr, train_omni
@@ -252,3 +252,21 @@ def test_unported_flags_raise(tmp_path, flag):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(["--synthetic", "1", "--device", "cpu", "--exp-dir", str(tmp_path)] + flag)
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("cli_name", ["eval_omni", "train_omni", "eval_llama_avsr",
+                                      "train_llama_avsr"])
+def test_compilation_cache_dir_accepted(tmp_path, capsys, cli_name):
+    """The JAX package's `--compilation-cache-dir` is accepted (a command
+    line that JAX runs runs on the port) and prints its one line."""
+    import importlib
+
+    from omni_avsr_tpu_torch.cli.common import check_args
+
+    cli = importlib.import_module(f"omni_avsr_tpu_torch.cli.{cli_name}")
+    args = cli.parse_args(["--synthetic", "1", "--device", "cpu", "--exp-dir", str(tmp_path),
+                           "--compilation-cache-dir", str(tmp_path / "cache")])
+    assert check_args(args) == torch.device("cpu")
+    out = capsys.readouterr().out
+    assert out.count("\n") == 1 and "compiles no XLA program" in out
+    assert "build/torch_kernels/" in out and not os.listdir(tmp_path)

@@ -608,3 +608,49 @@ def test_face_crop_on_the_card_matches_cpu(cuda_device):
     hm = torch.rand(16, 64, 64, 68, generator=torch.Generator().manual_seed(1))
     np.testing.assert_array_equal(heatmaps_to_landmarks(hm.to(cuda_device), centers, sides),
                                   heatmaps_to_landmarks(hm, centers, sides))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw", ["random_bits", "uniform", "bernoulli", "randint"])
+def test_threefry_draws_on_card_equal_cpu(cuda_device, draw):
+    """The threefry draws of `utils/prng.py` are integer arithmetic: the
+    card gives the CPU's bits, here at AV-HuBERT's training dropout shape."""
+    from omni_avsr_tpu_torch.utils import prng
+
+    key = prng.split(prng.PRNGKey(7), 4)[3]
+    fn = {"random_bits": lambda d: prng.random_bits(key, (4, 320, 1024), d),
+          "uniform": lambda d: prng.uniform(key, (4, 320, 1024), d),
+          "bernoulli": lambda d: prng.bernoulli(key, 0.9, (4, 320, 1024), d),
+          "randint": lambda d: prng.randint(key, (4, 320, 1024), 0, 2**31 - 1, d)}[draw]
+    card, host = fn(cuda_device), fn("cpu")
+    assert card.is_cuda and card.dtype == host.dtype
+    if card.dtype == torch.float32:
+        card, host = card.view(torch.int32), host.view(torch.int32)
+    assert torch.equal(card.cpu(), host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,Hq,Hkv,D,P,N,step", [
+    (3, 15, 32, 8, 64, 176, 32, 17),   # serving shapes
+    (2, 4, 28, 4, 128, 96, 16, 9),     # Qwen2.5-7B's heads
+    (1, 1, 32, 8, 64, 40, 8, 5),       # greedy: one beam
+])
+def test_reorder_route_agrees_with_b1(cuda_device, B, K, Hq, Hkv, D, P, N, step):
+    """The reorder route's three-block attention (`merged_beam_attention`)
+    on the cache physically reordered by the ancestor table equals B1 on
+    the unpermuted cache."""
+    from omni_avsr_tpu_torch.models.llm import merged_beam_attention
+
+    c = _beam_case(B, K, Hq, Hkv, D, P, N, cuda_device, seed=step)
+    out = beam_decode_attention(**c, step=step, num_beams=K)
+    assert beam_decode_attention.launches > 0
+    rows = c["anc"].long()  # (B, K, N): the row holding beam k's slot n
+
+    def reorder(g):  # (B, Hkv, K, N, D) -> (B*K, Hkv, N, D)
+        idx = rows[:, None, :, :, None].expand(B, Hkv, K, N, D)
+        return torch.gather(g, 2, idx).permute(0, 2, 1, 3, 4).reshape(B * K, Hkv, N, D)
+
+    want = merged_beam_attention(c["q"], c["pk"], c["pv"], reorder(c["gk"]), reorder(c["gv"]),
+                                 c["k_cur"], c["v_cur"], c["prefix_bias"] == 0.0,
+                                 torch.arange(N, device=cuda_device) < step, K)
+    torch.testing.assert_close(out, want, atol=2e-2, rtol=2e-2)

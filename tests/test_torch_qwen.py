@@ -186,6 +186,6 @@ def test_qwen_train_losses_match_jax(monkeypatch, qwen):
     tb["audio"] = audio_pipeline(tb["audio"], tb["audio_len"])
     with torch.no_grad():
         ours = pm.train_losses(params_from_numpy(params, "cpu"), tb, 4, 2, trim,
-                               train_mode=False, remat=False)
+                               train_mode=False, remat="off")
     for m in ours:
         np.testing.assert_allclose(float(ours[m]), float(ref[m]), rtol=1e-4, atol=1e-5)

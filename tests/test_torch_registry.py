@@ -49,15 +49,21 @@ def test_registry_entry_matches_jax(name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_registry_entry_decodes_through_b1(name):
-    """The beam step runs B1 at every head size but the CLIs' tiny test
-    model's, and B1 raises on the card at a head size it lacks: so every
-    registry model must have one that it takes, or it would fail there."""
+    """On the card the decode takes B1 where B1 takes the head size and the
+    reorder route where it does not (`decode_route`, as the JAX package
+    routes it on the TPU): every registry model takes B1, the CLIs' tiny
+    test model (head size 16) the reorder route, and on the CPU both keep
+    the ancestor route (B1's plain version)."""
     from omni_avsr_tpu_torch.cli.common import tiny_dims
-    from omni_avsr_tpu_torch.ops.beam_attention import PLAIN_HEAD_DIM, kernel_supported
+    from omni_avsr_tpu_torch.decode.decoding import decode_route
+    from omni_avsr_tpu_torch.ops.beam_attention import kernel_supported
 
     head_dim = pcfg.LLM_REGISTRY[name]().head_dim
-    assert kernel_supported(head_dim) and head_dim != PLAIN_HEAD_DIM
-    assert tiny_dims()[2]["head_dim"] == PLAIN_HEAD_DIM and not kernel_supported(PLAIN_HEAD_DIM)
+    assert kernel_supported(head_dim) and decode_route(None, head_dim, "cuda") == "kernel"
+    tiny = tiny_dims()[2]["head_dim"]
+    assert not kernel_supported(tiny) and decode_route(None, tiny, "cuda") == "xla"
+    assert decode_route(None, tiny, "cpu") == decode_route(None, head_dim, "cpu") == "kernel"
+    assert decode_route("xla", head_dim, "cuda") == "xla"
 
 
 @pytest.mark.parametrize("ctor", ["whisper_medium_en", "whisper_small_en", "whisper_base_en",

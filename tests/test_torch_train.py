@@ -285,17 +285,24 @@ def test_augmented_step_is_seeded_and_moves_the_masters(tiny):
 
 
 def test_layerdrop_draws():
-    """AV-HuBERT's layer plan: without a generator every layer and no seeds;
-    with one, each layer dropped at the config's rate (0.05 over 400 draws
-    of 24 layers: 3.5-6.5%) and int32 attention-dropout seeds."""
+    """AV-HuBERT's layer plan: without a random source every layer and no
+    draws; with a generator, each layer dropped at the config's rate (0.05
+    over 400 draws of 24 layers: 3.5-6.5%), int32 attention-dropout seeds
+    and int32 seeds of each layer's own generator; with threefry keys the
+    same rate, and each layer's key."""
     from omni_avsr_tpu_torch.config import avhubert_large
     from omni_avsr_tpu_torch.models.avhubert import layers_to_run
+    from omni_avsr_tpu_torch.utils import prng
 
     cfg = avhubert_large()
-    assert layers_to_run(cfg, None) == (list(range(24)), [None] * 24)
+    assert layers_to_run(cfg, None) == (list(range(24)), [None] * 24, [None] * 24)
     g = torch.Generator().manual_seed(0)
     plans = [layers_to_run(cfg, g) for _ in range(400)]
-    dropped = sum(24 - len(keep) for keep, _ in plans) / (400 * 24)
+    dropped = sum(24 - len(keep) for keep, _, _ in plans) / (400 * 24)
     assert 0.035 < dropped < 0.065, dropped
-    assert all(0 <= s < 2**31 for _, seeds in plans for s in seeds)
-    assert all(keep == sorted(set(keep)) for keep, _ in plans)
+    assert all(0 <= s < 2**31 for _, gens, seeds in plans for s in gens + seeds)
+    assert all(keep == sorted(set(keep)) for keep, _, _ in plans)
+    key_plans = [layers_to_run(cfg, k) for k in prng.split(prng.PRNGKey(0), 400)]
+    dropped = sum(24 - len(keep) for keep, _, _ in key_plans) / (400 * 24)
+    assert 0.035 < dropped < 0.065, dropped
+    assert all(len(keys) == 24 and keys[0].shape == (2,) for _, keys, _ in key_plans)

@@ -44,7 +44,6 @@ def test_report_matches_jax(monkeypatch, tmp_path, capsys):
 
     import omni_avsr_tpu_torch.cli.eval_omni as port_eval
     from omni_avsr_tpu_torch.bridge import params_from_numpy
-    from omni_avsr_tpu_torch.cli.verify_parity import REFERENCE_PINS_NOT_HELD
     from omni_avsr_tpu_torch.cli.verify_parity import main as port_main
     from omni_avsr_tpu_torch.models.omni import OmniAVSR
 
@@ -71,7 +70,10 @@ def test_report_matches_jax(monkeypatch, tmp_path, capsys):
     ours = json.load(open(tmp_path / "port.json"))
     assert list(ours) == list(theirs) + ["profile"]
     assert ours["profile"]["requested"] == "none"
-    assert set(ours["profile"]["reference_pins_not_held"]) == set(REFERENCE_PINS_NOT_HELD)
+    # no profile: the defaults and the explicit OMNI_BEAM_ATTN=kernel
+    assert set(ours["profile"]["reference_pins_not_held"]) == {
+        "OMNI_PRNG=threefry", "OMNI_BN_STATS=twopass", "OMNI_BEAM_SELECT=grid",
+        "OMNI_BEAM_ATTN=xla", "OMNI_REMAT=off"}
     assert ours["rows"] == theirs["rows"]
     assert [r["status"] for r in ours["rows"]] == ["FAIL"] + ["MISSING"] * 7
     for key in ("modes", "avg_reference", "avg_ours", "worst_abs_delta", "passed"):
@@ -84,15 +86,13 @@ def test_report_matches_jax(monkeypatch, tmp_path, capsys):
 
 def test_full_grid_three_modes(tmp_path, capsys):
     """The port alone, `--modes bf16,int8,int4` at `--synthetic 2` on the
-    CPU: all eight settings measured in every mode, exit 1, and the
-    reference profile's pins recorded (the port sets no variable)."""
+    CPU: all eight settings measured in every mode, exit 1, and all eight
+    pins of the reference profile held, each with its port argument,
+    without a change to the process's environment."""
     import os
 
-    from omni_avsr_tpu_torch.cli.verify_parity import (
-        BASELINE_WER,
-        REFERENCE_PINS_HELD,
-        main,
-    )
+    from omni_avsr_tpu_torch.cli.verify_parity import BASELINE_WER, main
+    from omni_avsr_tpu_torch.utils.profiles import REFERENCE_PROFILE
 
     env_before = {k: v for k, v in os.environ.items() if k.startswith("OMNI_")}
     out_json = tmp_path / "parity.json"
@@ -110,8 +110,11 @@ def test_full_grid_three_modes(tmp_path, capsys):
             assert np.isfinite(row[mode]) and np.isfinite(row[f"{mode}_vs_bf16"])
     assert report["worst_abs_delta"] is not None
     assert report["profile"]["requested"] == "reference"
-    assert set(report["profile"]["reference_pins_held"]) == set(REFERENCE_PINS_HELD)
-    assert "it cannot hold OMNI_BEAM_ATTN=xla" in capsys.readouterr().out
+    assert set(report["profile"]["reference_pins_held"]) == {
+        f"{k}={v}" for k, v in REFERENCE_PROFILE.items()}
+    assert report["profile"]["reference_pins_not_held"] == {}
+    assert all(report["profile"]["reference_pins_held"].values())
+    assert "8 of 8 reference pins held" in capsys.readouterr().out
 
 
 def _census(out: str) -> dict:
