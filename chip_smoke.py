@@ -58,8 +58,7 @@ Phases, each printing lines with the elapsed seconds:
            151643-token vocabulary plus the specials), int8; then one
            request through `Transcriber.transcribe`, its transcript
            printed.
-     For each, one warm batch and 5 measured ones (3 for greedy; the
-     median reported); every kernel counter is set to 0 just before each
+     For each, one warm batch and 3 measured ones (the median reported); every kernel counter is set to 0 just before each
      measured batch, read just after, and held to the count the path must
      give. Then (g): `cli/serve_http.py::serve` in front of (a)'s
      Transcriber, eight client threads posting at once (4 audiovisual
@@ -127,7 +126,21 @@ Phases, each printing lines with the elapsed seconds:
      run bit-equal), each step's launches held to its policy's count;
      (f)'s two train epochs run through `utils/prefetch.py::device_prefetch`
      and their losses must be bit-equal to a synchronous upload's;
-  9. the CLIs as a user runs them, as subprocesses on the card:
+  8b. the AV-HuBERT family at full width (AV-HuBERT Large without LoRA,
+     random weights from a seed, (t)'s 4 clips of 320 frames with the
+     stacked filterbanks of their waveforms): (l) `train_avhubert_s2s`'s
+     step (`S2STrainer`) with the seq2seq decoder of `S2SDecoderConfig()`
+     (remat "dots": B3 48, B4 24 a step), with the CTC head (remat "off":
+     B3 24, B4 24) and with a frozen encoder (B3 24, B4 0, the encoder
+     bit-equal after it), 64-token targets; one step's grads through
+     B3/B4, through their plain versions and in f32; `eval_avhubert_s2s`'s
+     bf16 decode, greedy and beam 15, 64 steps (B3 24 a batch) and its first
+     two steps' logits on both routes; (m) `pretrain_avhubert`'s step at its
+     defaults (B3 48, B4 24) with the same three-way grad check, the encoder
+     saved in the port's checkpoint format, `cluster_units`' layer-12 dump
+     of one clip from it (B3 12) and a k-means of 100 over its frames;
+  9. the CLIs as a user runs them, as subprocesses on the card, three at a
+     time after the first:
      `serve_http --synthetic` (/healthz, one audio request, then stopped),
      `eval_omni --synthetic 2 --num-beams 2 --max-dec-tokens 4` with
      `--quantize-decode int8` and with `int4`, `train_omni --synthetic 4
@@ -139,7 +152,13 @@ Phases, each printing lines with the elapsed seconds:
      `model_avg_4`; B2 in the int8 runs, B6 in the int4 ones, B1 in none
      (the tiny head size 16 takes the reorder route); verify_parity under
      its default `--profile reference` must report all eight pins held,
-     and the int8 eval_omni run passes `--compilation-cache-dir`.
+     and the int8 eval_omni run passes `--compilation-cache-dir`; then the
+     AV-HuBERT family's (`OMNI_REMAT=off`): `train_avhubert_s2s --synthetic
+     4` with the s2s head on video and the CTC head on audiovisual with a
+     frozen encoder, `eval_avhubert_s2s` on a synthetic fairseq checkpoint
+     and dictionary (beam 3), `pretrain_avhubert --synthetic 4` for 2
+     steps, and `cluster_units` on its corpus with `--features mfcc` and
+     with `--features avhubert` on its checkpoint.
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -150,11 +169,14 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -942,8 +964,8 @@ def make_items(frames, seed: int):
              "video": rng.randint(0, 255, (f, 96, 96, 3)).astype("uint8")} for f in frames]
 
 
-SERVE_REPEATS = 5  # measured batches per configuration: the host-bound wall time varies
-SERVE_REPEATS_E = 5  # (e)'s measured batches
+SERVE_REPEATS = 3  # measured batches per configuration: the host-bound wall time varies
+SERVE_REPEATS_E = 3  # (e)'s measured batches
 # (e): the registry's Qwen2.5-7B with Qwen2.5's 151643-token BPE vocabulary
 QWEN_E, QWEN_BASE_VOCAB = "Qwen/Qwen2.5-7B", 151643
 # babble for the noisy evaluation: 10 s of seeded Gaussian noise at 16 kHz
@@ -2210,6 +2232,347 @@ def threefry_check() -> dict:
     return row
 
 
+# ------------------------------- (l), (m): the AV-HuBERT family at full width
+
+S2S_TOKENS, S2S_BEAMS = 64, 15  # (l)'s target length, decode length and beams
+
+
+def av_clips(B: int, frames: int, seed: int):
+    """B clips of `frames` raw 96x96 RGB frames with their 16 kHz waveforms
+    (640 samples per frame), from numpy."""
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 255, (B, frames, 96, 96, 3)).astype(np.uint8),
+            (rng.randn(B, frames * 640) * 0.05).astype(np.float32))
+
+
+def launches_now(fns) -> dict:
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def family_steps(label: str, step, n: int, want, fns):
+    """One warm call of `step(i)` (a loss) and n measured ones, each call's
+    launches held to `want`; (s per call, losses, launches)."""
+    import torch
+
+    times, losses = [], []
+    for i in range(n + 1):
+        torch.cuda.synchronize()
+        reset_counts(fns)
+        t = time.perf_counter()
+        loss = float(step(i))  # a host sync: the step has ended on the device
+        dt = time.perf_counter() - t
+        launches = launches_now(fns)
+        if launches != want or not np.isfinite(loss):
+            raise RuntimeError(f"{label}: loss {loss}, kernel launches {launches}, expected {want}")
+        if i:
+            times.append(dt)
+            losses.append(loss)
+    return times, losses, launches
+
+
+GRAD_FLOOR_MARGIN = 1.25  # the kernel route's error over the bf16 plain route's, at most
+
+
+def route_grads(label: str, loss_and_grads, fns) -> dict:
+    """One step's loss and grads of every master leaf, the same draws,
+    three ways: in bf16 through B3/B4, in bf16 through their plain versions,
+    and in f32 through the plain versions, the reference. A step that
+    trains the whole encoder and decoder carries the bf16 rounding of every
+    layer into every grad (the decoder's, which no kernel touches, move as
+    much as the encoder's), ~3% relative L2 against the f32 step, above
+    REL_L2_TOL; so the kernels are held to add no error of their own: the
+    kernel route's distance to the f32 grads at most GRAD_FLOOR_MARGIN times
+    the plain bf16 route's, and the two bf16 losses within REL_L2_TOL.
+    `loss_and_grads(dtype)` returns (loss, grads) in that compute dtype."""
+    import torch
+
+    result = {}
+    for route, dtype in (("kernel", torch.bfloat16), ("plain", torch.bfloat16),
+                         ("plain f32", torch.float32)):
+        with plain_train_route() if route != "kernel" else contextlib.nullcontext():
+            reset_counts(fns)
+            loss, grads = loss_and_grads(dtype)
+            check_route_launches("plain" if route != "kernel" else route, launches_now(fns))
+            result[route] = (float(loss), torch.cat([g.float().reshape(-1) for g in grads]))
+            del grads
+    (lk, gk), (lp, gp), (lf, gf) = result["kernel"], result["plain"], result["plain f32"]
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    agree = dict(loss_kernel=lk, loss_plain=lp, loss_f32=lf, grad_rel_l2=rel(gk, gp),
+                 kernel_vs_f32=rel(gk, gf), plain_vs_f32=rel(gp, gf), grad_norm=gf.norm().item())
+    if not (np.isfinite(lk) and bool(torch.isfinite(gk).all())):
+        raise RuntimeError(f"{label}: non-finite loss or grads on the kernel route")
+    if (agree["kernel_vs_f32"] > GRAD_FLOOR_MARGIN * agree["plain_vs_f32"]
+            or abs(lk - lp) > REL_L2_TOL * abs(lp)):
+        raise RuntimeError(f"{label}, kernel vs plain vs f32: {json.dumps(agree)}")
+    log("reference", f"{label}, B3/B4 vs plain (bf16) vs plain f32, same draws: "
+        f"{json.dumps(agree)} (kernel_vs_f32 <= {GRAD_FLOOR_MARGIN} x plain_vs_f32; bf16 "
+        f"losses within {REL_L2_TOL})")
+    return agree
+
+
+def s2s_phase(enc_cfg=None, dec_cfg=None, B: int = B_TRAIN, frames: int = FRAMES_TRAIN):
+    """(l): AV-HuBERT Large (no LoRA) with the seq2seq decoder of
+    `S2SDecoderConfig()` (6 post-LN layers of 768, FFN 3072, 4 heads at 192,
+    1000 tokens, tied embedding) and with the CTC head, random weights from a
+    seed, B clips of `frames` frames, audiovisual (the stacked filterbanks
+    of each clip's waveform): `train_avhubert_s2s`'s step (`S2STrainer`,
+    bf16 compute on f32 masters, threefry keys) for the s2s head under remat
+    "dots" (B3 2 x 24, B4 24 a step), the CTC head under "off" (B3 24, B4
+    24) and the s2s head with `--freeze-encoder` (B3 24, B4 0; every encoder
+    master bit-equal after the step), 64-token targets; one s2s step's loss
+    and grads on the kernel and on the plain route; then
+    `eval_avhubert_s2s`'s decode in bf16: greedy and beam 15 at max_len 64
+    (B3 24 a batch), and the first two decode steps' logits on both
+    routes (EOS's embedding row zeroed, so that the decodes of random
+    weights run all 64 steps). Returns the rows."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_avhubert, init_ctc_head, init_s2s_decoder
+    from omni_avsr_tpu_torch.cli.train_avhubert_s2s import S2STrainer
+    from omni_avsr_tpu_torch.config import avhubert_large
+    from omni_avsr_tpu_torch.data.audio_features import batch_stacked_fbank
+    from omni_avsr_tpu_torch.models.avhubert import avhubert_encode
+    from omni_avsr_tpu_torch.models.avhubert_s2s import (
+        S2SDecoderConfig,
+        _decode_setup,
+        _s2s_decode_step,
+        s2s_beam_decode,
+        s2s_greedy_decode,
+    )
+    from omni_avsr_tpu_torch.ops.augment import video_pipeline
+    from omni_avsr_tpu_torch.train.state import tree_map
+    from omni_avsr_tpu_torch.utils import prng
+
+    enc_cfg = enc_cfg or avhubert_large(use_lora=False)
+    dec_cfg = dec_cfg or S2SDecoderConfig()
+    L = enc_cfg.encoder_layers
+    t = time.perf_counter()
+    video_np, audio_np = av_clips(B, frames, seed=5)
+    afe = batch_stacked_fbank(audio_np, np.full(B, frames * 640), frames)
+    fbank_s = time.perf_counter() - t
+    video = torch.from_numpy(video_np).to(DEV)
+    afeats = torch.from_numpy(afe).to(DEV)
+    video_len = torch.full((B,), frames, dtype=torch.int32, device=DEV)
+    rng = np.random.RandomState(6)
+    tgt_np = rng.randint(4, dec_cfg.vocab_size, (B, S2S_TOKENS)).astype(np.int32)
+    tgt_np[:, -1] = dec_cfg.eos_id
+    tgt = torch.from_numpy(tgt_np).to(DEV)
+    tgt_len = torch.full((B,), S2S_TOKENS, dtype=torch.int32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    enc = init_avhubert(enc_cfg, gen, DEV)
+    heads = {"s2s": init_s2s_decoder(dec_cfg, gen, DEV),
+             "ctc": init_ctc_head(enc_cfg.encoder_embed_dim, dec_cfg.vocab_size, gen, DEV)}
+    key = prng.PRNGKey(17)
+    fns = counters()
+    clip_s = B * frames / 25.0
+    rows = {}
+    log("s2s", f"(l) AV-HuBERT Large, {L} layers x {enc_cfg.encoder_embed_dim}, decoder "
+        f"{dec_cfg.layers} x {dec_cfg.embed_dim} ({dec_cfg.heads} heads, {dec_cfg.vocab_size} "
+        f"tokens); batch {B} x {frames} frames audiovisual, stacked filterbanks on the host "
+        f"in {fbank_s:.2f} s")
+
+    def trainer_for(head, freeze, remat):
+        return S2STrainer(enc_cfg, dec_cfg, head, {"enc": enc, "head": heads[head]}, 1e-4, 1,
+                          freeze, DEV, blank_id=0, remat=remat)
+
+    def batch_step(trainer):
+        return lambda i: trainer.step(video, afeats, video_len, tgt, tgt_len,
+                                      prng.fold_in(key, i))
+
+    trainer = None
+    for label, head, freeze, remat, n, want in (
+            ("s2s", "s2s", False, "dots", 2, counts(B3=2 * L, B4=L)),
+            ("ctc", "ctc", False, "off", 1, counts(B3=L, B4=L)),
+            ("s2s frozen encoder", "s2s", True, "dots", 1, counts(B3=L))):
+        del trainer
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = trainer_for(head, freeze, remat)
+        enc_before = [p.detach().clone() for p, d in zip(trainer.leaves, trainer.decay) if not d]
+        times, losses, launches = family_steps(f"(l) {label} step", batch_step(trainer), n, want,
+                                               fns)
+        if freeze:
+            enc_after = [p for p, d in zip(trainer.leaves, trainer.decay) if not d]
+            if not enc_before or not all(torch.equal(a, b) for a, b in zip(enc_before, enc_after)):
+                raise RuntimeError("(l) --freeze-encoder: an encoder master moved")
+        dt = float(np.median(times))
+        rows[label] = dict(head=head, freeze_encoder=freeze, remat=remat, s_per_step=dt,
+                           s_per_step_each=times, train_audio_s_per_s=clip_s / dt, losses=losses,
+                           launches=launches, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log("s2s", f"(l) {label} train step: {json.dumps(rows[label])}")
+        del enc_before
+        if label == "s2s":
+            def s2s_grads(dtype):
+                trainer.dtype = dtype
+                try:
+                    return trainer.loss_and_grads(video, afeats, video_len, tgt, tgt_len,
+                                                  prng.fold_in(key, 99))
+                finally:
+                    trainer.dtype = torch.bfloat16
+
+            agree = route_grads("(l) one s2s train step", s2s_grads, fns)
+            rows[label]["route_agreement"] = agree
+            dec_bf = tree_map(lambda x: x.detach().to(torch.bfloat16), trainer.masters["head"])
+            # random weights end a decode at its first step; with EOS's embedding
+            # row zeroed (its tied logit 0, below the top 2K of 1000) every
+            # decode runs all S2S_TOKENS steps
+            dec_bf["embed"]["w"][dec_cfg.eos_id] = 0.0
+            enc_bf = tree_map(lambda x: x.detach().to(torch.bfloat16), trainer.masters["enc"])
+    del trainer
+    torch.cuda.empty_cache()
+
+    # eval_avhubert_s2s's decode path in bf16
+    @torch.no_grad()
+    def encode():
+        v = video_pipeline(video, video_len, train=False)
+        return avhubert_encode(enc_bf, enc_cfg, v.to(torch.bfloat16),
+                               audio=afeats.to(torch.bfloat16), lengths=video_len)
+
+    torch.cuda.reset_peak_memory_stats()
+    for label, run in (
+            ("greedy", lambda: s2s_greedy_decode(dec_bf, dec_cfg, encode(), video_len,
+                                                 S2S_TOKENS)),
+            (f"beam {S2S_BEAMS}", lambda: s2s_beam_decode(dec_bf, dec_cfg, encode(), video_len,
+                                                          S2S_TOKENS, S2S_BEAMS))):
+        out = {}
+        times, _, launches = family_steps(f"(l) {label} decode", lambda i: out.setdefault(
+            i, run()).tokens.float().mean(), 1, counts(B3=L), fns)
+        toks = out[1].tokens
+        if tuple(toks.shape) != (B, S2S_TOKENS) or not bool(((toks >= 0) & (
+                toks < dec_cfg.vocab_size)).all()):
+            raise RuntimeError(f"(l) {label}: tokens {tuple(toks.shape)}")
+        rows[label] = dict(s_per_batch=times[0], audio_s_per_s=clip_s / times[0],
+                           decode_steps=out[1].steps, launches=launches,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           first_tokens=toks[0, :8].tolist())
+        log("s2s", f"(l) {label} decode (bf16, max_len {S2S_TOKENS}): {json.dumps(rows[label])}")
+
+    # the first two decode steps' logits, encoder through B3 and through plain
+    steps = {}
+    tok1 = None
+    for route in ("kernel", "plain"):
+        with plain_train_route() if route == "plain" else contextlib.nullcontext():
+            reset_counts(fns)
+            enc_out = encode()
+            check_route_launches(route, launches_now(fns))
+        with torch.no_grad():
+            ck, cv, cm, sk, sv, layers = _decode_setup(dec_bf, dec_cfg, enc_out, video_len, 2)
+            bos = torch.full((B,), dec_cfg.eos_id, dtype=torch.long, device=DEV)
+            l0, sk, sv = _s2s_decode_step(dec_bf, dec_cfg, bos, 0, sk, sv, ck, cv, cm,
+                                          layers=layers)
+            tok1 = l0.argmax(-1) if tok1 is None else tok1  # both routes take the same tokens
+            l1, _, _ = _s2s_decode_step(dec_bf, dec_cfg, tok1, 1, sk, sv, ck, cv, cm,
+                                        layers=layers)
+        steps[route] = torch.cat([l0, l1]).float()
+    rel = ((steps["kernel"] - steps["plain"]).norm() / steps["plain"].norm()).item()
+    if rel > REL_L2_TOL or not bool(torch.isfinite(steps["kernel"]).all()):
+        raise RuntimeError(f"(l) decode logits, kernel vs plain: relative L2 {rel:.3g}")
+    rows["greedy"]["decode_rel_l2"] = rel
+    log("reference", f"(l) encoder + the first two decode steps, B3 vs plain: relative L2 logit "
+        f"difference {rel:.3g} (tol {REL_L2_TOL})")
+    del enc, heads, enc_bf, dec_bf
+    torch.cuda.empty_cache()
+    return {f"l {k}": dict(config=f"(l) AV-HuBERT s2s B {B} x {frames} {k}", **v)
+            for k, v in rows.items()}
+
+
+def pretrain_phase(work: Path, cfg=None, n_units: int = 100, final_dim: int = 256,
+                   B: int = B_TRAIN, frames: int = FRAMES_TRAIN, dump_layer: int = 12,
+                   clusters: int = 100):
+    """(m): `pretrain_avhubert`'s step at its defaults (100 units, final_dim
+    256, mask prob 0.8, length 10, modality dropout 0.5, audio dropout 0.5)
+    on AV-HuBERT Large, random weights from a seed, B clips of `frames`
+    frames with the CLI's demo targets: one warm and one measured step
+    (remat "dots": B3 2 x 24, B4 24), its loss and grads on the kernel and
+    the plain route; the encoder and head saved in the port's checkpoint
+    format; then `cluster_units`' layer-12 dump of one clip from that
+    checkpoint (`make_avhubert_reader`, B3 12) and a `kmeans_fit` of 100
+    clusters over the dumped frames (numpy, on the host). Returns the rows."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_avhubert, init_pretrain_head
+    from omni_avsr_tpu_torch.cli.cluster_units import (kmeans_assign, kmeans_fit,
+                                                       make_avhubert_reader)
+    from omni_avsr_tpu_torch.cli.pretrain_avhubert import demo_targets, pretrain_loss
+    from omni_avsr_tpu_torch.config import TrainConfig, avhubert_large
+    from omni_avsr_tpu_torch.data.audio_features import stacked_fbank
+    from omni_avsr_tpu_torch.train.checkpoint import save_checkpoint
+    from omni_avsr_tpu_torch.train.optim import make_optimizer
+    from omni_avsr_tpu_torch.train.state import TrainState, master_weights, tree_leaves, tree_map
+    from omni_avsr_tpu_torch.utils import prng
+
+    cfg = cfg or avhubert_large(use_lora=False)
+    L = cfg.encoder_layers
+    video_np, audio_np = av_clips(B, frames, seed=8)
+    afe = np.stack([stacked_fbank(audio_np[i], frames) for i in range(B)])
+    video = torch.from_numpy(video_np).to(DEV)
+    afeats = torch.from_numpy(afe).to(DEV)
+    targets = torch.from_numpy(demo_targets(audio_np, frames, n_units)).to(DEV)
+    lengths = torch.full((B,), frames, dtype=torch.int32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    masters = master_weights({"enc": init_avhubert(cfg, gen, DEV),
+                              "head": init_pretrain_head(cfg, n_units, final_dim, gen, DEV)}, DEV)
+    leaves = list(tree_leaves(masters))
+    tx, _ = make_optimizer(TrainConfig(lr=2e-4, max_epochs=1), 100)
+    state = [tx.init(leaves)]
+    key = prng.PRNGKey(23)
+    kw = dict(mask_prob=0.8, mask_length=10, modality_dropout=0.5, audio_dropout=0.5)
+    aux_last = {}
+
+    def loss_and_grads(k, dtype=torch.bfloat16):
+        params = tree_map(lambda x: x.to(dtype), masters)
+        loss, aux = pretrain_loss(params, cfg, video, afeats, targets, lengths, k, dtype, "dots",
+                                  **kw)
+        aux_last.update({n: float(v.detach()) for n, v in aux.items()})
+        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+    def step(i):
+        loss, grads = loss_and_grads(prng.fold_in(key, i))
+        state[0] = tx.update_(leaves, grads, state[0])
+        return loss
+
+    fns = counters()
+    times, losses, launches = family_steps("(m) pretrain step", step, 1, counts(B3=2 * L, B4=L),
+                                           fns)
+    dt = times[0]
+    rows = {"pretrain": dict(s_per_step=dt, train_audio_s_per_s=B * frames / 25.0 / dt,
+                             losses=losses, aux=dict(aux_last), launches=launches,
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30)}
+    log("pretrain", f"(m) pretrain step: {json.dumps(rows['pretrain'])}")
+    rows["pretrain"]["route_agreement"] = route_grads(
+        "(m) one pretrain step", lambda dtype: loss_and_grads(prng.fold_in(key, 99), dtype), fns)
+
+    out = work / "pretrain"
+    ckpt = save_checkpoint(str(out / "checkpoints"), 1, TrainState(1, masters, state[0]))
+    (out / "config.json").write_text(json.dumps({"avhubert": dataclasses.asdict(cfg),
+                                                 "n_units": n_units, "final_dim": final_dim}))
+    del masters, leaves, state
+    torch.cuda.empty_cache()
+    reader = make_avhubert_reader(ckpt, str(out / "config.json"), dump_layer, DEV)
+    feats = {}
+    times, _, launches = family_steps(f"(m) layer-{dump_layer} dump", lambda i: float(
+        feats.setdefault(i, reader(video_np[0], audio_np[0])).mean()), 1,
+        counts(B3=dump_layer), fns)
+    f = feats[1]
+    if f.shape != (frames, cfg.encoder_embed_dim) or not np.isfinite(f).all():
+        raise RuntimeError(f"(m) layer-{dump_layer} features {f.shape}")
+    t = time.perf_counter()
+    C = kmeans_fit(f, clusters)
+    km_s = time.perf_counter() - t
+    labels = kmeans_assign(f, C)
+    rows["dump"] = dict(layer=dump_layer, frames=frames, s_per_clip=times[0],
+                        audio_s_per_s=frames / 25.0 / times[0], launches=launches,
+                        kmeans_s=km_s, clusters=int(C.shape[0]),
+                        distinct_labels=int(len(np.unique(labels))))
+    log("pretrain", f"(m) layer-{dump_layer} dump of one clip + k-means of {clusters}: "
+        f"{json.dumps(rows['dump'])}")
+    del reader
+    torch.cuda.empty_cache()
+    return {f"m {k}": dict(config=f"(m) AV-HuBERT pretrain B {B} x {frames} {k}", **v)
+            for k, v in rows.items()}
+
+
 # ------------------------------------------------- (f): corpus eval + train
 
 # (f)'s corpus: `generate_corpus` with the JAX function's parameters, clips
@@ -2524,6 +2887,107 @@ def serve_http_cli(root: Path):
     return row
 
 
+def s2s_eval_files(root: Path) -> list:
+    """`eval_avhubert_s2s`'s inputs at the tiny widths: a corpus of 2 test
+    clips (`generate_corpus`), a fairseq AVHubertSeq2Seq checkpoint of
+    random trees (`avhubert_s2s_state_dict`) and its word dictionary; the
+    flags that point the CLI at them."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_avhubert, init_s2s_decoder
+    from omni_avsr_tpu_torch.config import AVHubertConfig
+    from omni_avsr_tpu_torch.convert.avhubert_s2s_torch import avhubert_s2s_state_dict
+    from omni_avsr_tpu_torch.data.synthetic import WORDS, generate_corpus
+    from omni_avsr_tpu_torch.models.avhubert_s2s import S2SDecoderConfig
+
+    root.mkdir(parents=True)
+    _, _, test_csv = generate_corpus(str(root), n_train=1, n_val=1, n_test=2, min_frames=24,
+                                     max_frames=32)
+    words = sorted(set(WORDS))
+    g = torch.Generator().manual_seed(0)
+    enc = init_avhubert(AVHubertConfig(encoder_embed_dim=64, encoder_layers=2, encoder_heads=4,
+                                       encoder_ffn_dim=128), g, "cpu")
+    dec = init_s2s_decoder(S2SDecoderConfig(vocab_size=4 + len(words), embed_dim=32, ffn_dim=64,
+                                            layers=2, heads=4, encoder_dim=64), g, "cpu")
+    sd = {k: torch.from_numpy(v) for k, v in avhubert_s2s_state_dict(enc, dec).items()}
+    torch.save({"model": sd}, root / "s2s.pt")
+    (root / "dict.wrd.txt").write_text("".join(f"{w.upper()} 1\n" for w in words))
+    return ["--ckpt", str(root / "s2s.pt"), "--dict", str(root / "dict.wrd.txt"), "--root-dir",
+            str(root), "--test-file", test_csv, "--encoder-layers", "2", "--encoder-dim", "64",
+            "--encoder-heads", "4", "--encoder-ffn-dim", "128", "--decoder-layers", "2",
+            "--decoder-embed-dim", "32", "--decoder-ffn-dim", "64", "--decoder-heads", "4"]
+
+
+FAMILY_CLIS = ("train_avhubert_s2s s2s video", "train_avhubert_s2s ctc audiovisual",
+               "eval_avhubert_s2s", "pretrain_avhubert", "cluster_units mfcc",
+               "cluster_units avhubert")
+
+
+def family_cli_runs(work: Path) -> list:
+    """The AV-HuBERT family's CLIs at the tiny `--synthetic` widths (head
+    size 12: no flash, so no kernel launch), in FAMILY_CLIS' order:
+    `train_avhubert_s2s` with each head (video, audiovisual; the CTC run
+    with a frozen encoder), `eval_avhubert_s2s` on a synthetic fairseq
+    checkpoint (beam 3, audiovisual), `pretrain_avhubert --synthetic 4`
+    for 2 steps, and `cluster_units` on its corpus with MFCC units and
+    with the layer-2 features of its checkpoint."""
+    runs = []
+    for head, modality, freeze in (("s2s", "video", "false"), ("ctc", "audiovisual", "true")):
+        runs.append((f"train_avhubert_s2s {head} {modality}", [
+            "train_avhubert_s2s", "--synthetic", "4", "--head", head, "--modality", modality,
+            "--freeze-encoder", freeze, "--max-epochs", "1", "--max-dec-len", "8", "--exp-dir",
+            str(work / f"s2s_{head}")]))
+    runs.append(("eval_avhubert_s2s", ["eval_avhubert_s2s"] + s2s_eval_files(work / "s2s_eval")
+                 + ["--modality", "audiovisual", "--num-beams", "3", "--max-len", "6"]))
+    pre = work / "pretrain_cli"
+    runs.append(("pretrain_avhubert", ["pretrain_avhubert", "--synthetic", "4", "--max-steps",
+                                       "2", "--exp-dir", str(pre)]))
+    for features in ("mfcc", "avhubert"):
+        runs.append((f"cluster_units {features}", [
+            "cluster_units", "--root-dir", str(pre / "synthetic_data"), "--manifest",
+            str(pre / "synthetic_data" / "train.csv"), "--out-dir", str(work / f"units_{features}"),
+            "--n-clusters", "4", "--iters", "3", "--features", features]
+            + (["--layer", "2", "--ckpt", str(pre / "checkpoints")] if features == "avhubert"
+               else [])))
+    assert [label for label, _ in runs] == list(FAMILY_CLIS)
+    return runs
+
+
+def family_cli_result(label: str, stdout: str, work: Path) -> dict:
+    """The checks of one FAMILY_CLIS run's output and files; its result row."""
+    if label.startswith("train_avhubert_s2s"):
+        wants_wer = " s2s " in f" {label} "
+        if "epoch 0: loss=" not in stdout or ("WER:" in stdout) != wants_wer:
+            raise RuntimeError(f"{label}: output\n{stdout[-2000:]}")
+        result = dict(lines=[ln for ln in stdout.splitlines()
+                             if ln.startswith(("epoch", "WER"))])
+    elif label == "eval_avhubert_s2s":
+        hyps = [ln for ln in stdout.splitlines() if ln.startswith("HYP :")]
+        wer = [ln for ln in stdout.splitlines() if ln.startswith("WER:")]
+        if len(hyps) != 2 or len(wer) != 1:
+            raise RuntimeError(f"{label}: output\n{stdout[-2000:]}")
+        result = dict(hyps=hyps, wer=wer[0])
+    elif label == "pretrain_avhubert":
+        ckpts = sorted(p.name for p in (work / "pretrain_cli" / "checkpoints").glob("step_*"))
+        if (ckpts != ["step_00000002.pt"] or "step 1: loss=" not in stdout
+                or not (work / "pretrain_cli" / "config.json").exists()):
+            raise RuntimeError(f"{label}: checkpoints {ckpts}\n{stdout[-2000:]}")
+        result = dict(checkpoints=ckpts)
+    elif label.startswith("cluster_units"):
+        units = work / f"units_{label.split()[-1]}"
+        km = sorted((units / "labels").glob("*.km"))
+        rate = (units / "label_rate.txt").read_text()
+        if (len(km) != 4 or np.load(units / "kmeans.npy").shape[0] != 4
+                or rate != ("25" if label.endswith("avhubert") else "100")):
+            raise RuntimeError(f"{label}: {len(km)} label files, rate {rate}")
+        result = dict(label_files=len(km), label_rate=int(rate),
+                      frames=[len(p.read_text().split()) for p in km])
+    return result
+
+
+CLI_WORKERS = 3  # CLI subprocesses at once on the card
+
+
 def cli_phase(work: Path, raw_clip_path: Path):
     """The CLIs as a user runs them, as subprocesses on the card
     (`--synthetic` runs at the JAX CLI's tiny widths): `serve_http` (one
@@ -2536,7 +3000,10 @@ def cli_phase(work: Path, raw_clip_path: Path):
     ROI chain on the card). Each must exit 0 (verify_parity 1: random
     weights fail BASELINE.md, with all 8 settings measured) and give the
     result keys and files; the int8 runs must launch B2, the int4 run B6,
-    and verify_parity both."""
+    and verify_parity both. Then the AV-HuBERT family's (`family_cli_runs`).
+    All but serve_http run CLI_WORKERS at a time (two torch threads each),
+    cluster_units after pretrain_avhubert; each run's wall s is taken
+    beside the others."""
     root = Path(__file__).resolve().parent
     grid = [f"{t} (a={a}, v={v})" for t, a, v in
             [("audio", 4, None), ("audio", 16, None), ("video", None, 2), ("video", None, 5)]
@@ -2573,13 +3040,29 @@ def cli_phase(work: Path, raw_clip_path: Path):
     runs.append(("make_noise babble", ["make_noise", "babble", "--input-dir", str(corpus),
                                        "--output", str(work / "noise" / "noise.wav"),
                                        "--num-per-mixture", "3", "--min-seconds", "1"]))
-    rows = [serve_http_cli(root)]
-    for label, argv in runs:
+    runs += family_cli_runs(work)
+    def run(item):
+        label, argv = item
+        # two torch threads a process: CLI_WORKERS processes share the host's
+        # cores; the family's training CLIs under OMNI_REMAT=off: (l) and (m)
+        # run the default "dots" at full width, whose first call costs ~9 s
+        env = dict(os.environ, OMP_NUM_THREADS="2")
+        if label in FAMILY_CLIS:
+            env["OMNI_REMAT"] = "off"
         t = time.perf_counter()
         proc = subprocess.run([sys.executable, "-c", RUN_COUNTED,
                                f"omni_avsr_tpu_torch.cli.{argv[0]}", *argv[1:]], cwd=root,
-                              capture_output=True, text=True, timeout=600)
-        dt = time.perf_counter() - t
+                              capture_output=True, text=True, timeout=600, env=env)
+        return proc, time.perf_counter() - t
+
+    rows = [serve_http_cli(root)]
+    # the runs are independent but for cluster_units, which reads what
+    # pretrain_avhubert wrote: CLI_WORKERS at a time, cluster_units after
+    first = [r for r in runs if not r[0].startswith("cluster_units")]
+    later = [r for r in runs if r[0].startswith("cluster_units")]
+    with ThreadPoolExecutor(max_workers=CLI_WORKERS) as pool:
+        done = list(pool.map(run, first)) + list(pool.map(run, later))
+    for (label, argv), (proc, dt) in zip(first + later, done):
         # random weights fail BASELINE.md: verify_parity's exit 1 is the expected outcome
         if proc.returncode != (1 if label == "verify_parity" else 0):
             raise RuntimeError(f"{label}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
@@ -2657,6 +3140,8 @@ def cli_phase(work: Path, raw_clip_path: Path):
                 raise RuntimeError(f"{label}: manifest {manifest}, ROI shapes {shapes}, "
                                    f"{len(wavs)} wavs\n{proc.stdout[-2000:]}")
             result = dict(rows=manifest, roi_shapes=shapes)
+        elif label in FAMILY_CLIS:
+            result = family_cli_result(label, proc.stdout, work)
         elif label == "make_noise babble":
             from omni_avsr_tpu_torch.preprocess.noise_prep import read_wav_int16
 
@@ -3009,6 +3494,8 @@ def main() -> int:
     rows.update(baseline_phase())
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
     rows.update(corpus_phase(work))
+    rows.update(s2s_phase())
+    rows.update(pretrain_phase(work))
     cli_rows = cli_phase(work, raw_clip_path)
 
     def entry(key, name, source, replaces, row, config, shape):

@@ -12,7 +12,10 @@ that one JAX-initialised tree trains the same in both packages.
 `init_params` builds the same tree shapes directly on the device with a
 `torch.Generator`, in the distributions of the JAX package's initialisers
 (not the same numbers), for runs that need no JAX and no host-side copy
-of the weights.
+of the weights; so do the AV-HuBERT family's builders (`init_avhubert`,
+`init_s2s_decoder`, `init_ctc_head`, `init_pretrain_head`, the trees of
+`omni_avsr_tpu/models/{avhubert,avhubert_s2s,avhubert_pretrain}.py`), whose
+JAX trees `params_from_numpy` carries across like any other.
 """
 
 from __future__ import annotations
@@ -253,3 +256,56 @@ def init_params(cfg: OmniConfig, generator: torch.Generator, device="cuda",
         params["video_proj"] = _init_projectors(train, cfg, cfg.video_rates,
                                                 cfg.avhubert.encoder_embed_dim)
     return params
+
+
+def init_avhubert(cfg: AVHubertConfig, generator: torch.Generator, device="cuda",
+                  dtype=torch.float32) -> Params:
+    """The AV-HuBERT encoder tree alone (`init_avhubert` of the JAX package)."""
+    return _init_avhubert(_Init(generator, device, dtype), cfg)
+
+
+def init_s2s_decoder(cfg, generator: torch.Generator, device="cuda",
+                     dtype=torch.float32) -> Params:
+    """The seq2seq decoder tree of an `S2SDecoderConfig`
+    (`omni_avsr_tpu/models/avhubert_s2s.py::init_s2s_decoder`): embeddings
+    N(0, 1/D), fairseq's sinusoidal positions, nn.Linear-style layers."""
+    from .models.avhubert_s2s import sinusoidal_embedding
+
+    ini = _Init(generator, device, dtype)
+    L, D = (cfg.layers,), cfg.embed_dim
+
+    def attn(kv_dim: int) -> Params:
+        return {"q": ini.linear(L, D, D), "k": ini.linear(L, kv_dim, D),
+                "v": ini.linear(L, kv_dim, D), "o": ini.linear(L, D, D)}
+
+    params: Params = {
+        "embed": {"w": ini.normal((cfg.vocab_size, D), D ** -0.5)},
+        "pos": torch.from_numpy(sinusoidal_embedding(
+            cfg.max_target_positions + cfg.pad_id + 1, D, cfg.pad_id)).to(device=device,
+                                                                          dtype=dtype),
+        "layers": {"self_attn": attn(D), "self_norm": ini.layer_norm(L, D),
+                   "cross_attn": attn(cfg.encoder_dim), "cross_norm": ini.layer_norm(L, D),
+                   "fc1": ini.linear(L, D, cfg.ffn_dim), "fc2": ini.linear(L, cfg.ffn_dim, D),
+                   "final_norm": ini.layer_norm(L, D)},
+    }
+    if not cfg.share_input_output_embed:
+        params["embed_out"] = {"w": ini.normal((D, cfg.vocab_size), D ** -0.5)}
+    return params
+
+
+def init_ctc_head(encoder_dim: int, vocab_size: int, generator: torch.Generator,
+                  device="cuda", dtype=torch.float32) -> Params:
+    """The CTC head: one Linear(encoder_dim -> vocab_size)."""
+    return {"proj": _Init(generator, device, dtype).linear((), encoder_dim, vocab_size)}
+
+
+def init_pretrain_head(cfg: AVHubertConfig, num_classes: int, final_dim: int,
+                       generator: torch.Generator, device="cuda", dtype=torch.float32) -> Params:
+    """The pre-training head (`omni_avsr_tpu/models/avhubert_pretrain.py::
+    init_pretrain_head`): mask_emb U[0, 1), final_proj, label_embs N(0, 1)."""
+    ini = _Init(generator, device, dtype)
+    mask_emb = torch.empty((cfg.encoder_embed_dim,), device=device, dtype=torch.float32)
+    mask_emb.uniform_(0.0, 1.0, generator=generator)
+    return {"mask_emb": mask_emb.to(dtype),
+            "final_proj": ini.linear((), cfg.encoder_embed_dim, final_dim),
+            "label_embs": ini.normal((num_classes, final_dim), 1.0)}

@@ -2,10 +2,18 @@
 `omni_avsr_tpu/models/avhubert.py`; reference
 `av_hubert/avhubert/hubert.py:318-789` and the patched fairseq encoder):
 
-  video (B,T,88,88,1) -> ResNet3D -> Linear(512->D); audio half zero-filled
-  concat (B,T,2D) -> LayerNorm -> post_extract_proj (2D->D)
+  video (B,T,88,88,1) -> ResNet3D -> Linear(512->D)          [video features]
+  audio fbank (B,T,104) -> Linear(104->D)                    [audio features]
+  a missing modality zero-filled (`hubert.py:704-709`)
+  concat (B,T,2D), audio first -> LayerNorm -> post_extract_proj (2D->D)
   -> + pos-conv (grouped k=128, SamePad trim, GELU)
   -> N pre-LN layers, LoRA deltas on q/v (scaling 2) -> final LayerNorm
+
+`avhubert_encoder` is the transformer part alone, over fused features (the
+pre-training loss masks them first); `output_layer` N stops after layer N
+without the final LayerNorm, and `avhubert_encode(..., output_layer=0)`
+returns the fused features (the unit-discovery dump,
+`omni_avsr_tpu/models/avhubert.py:175-292`).
 
 Serving passes no lengths, as the reference's `extract_finetune` call
 (`modeling_OmniAVSR.py:463`) passes no padding mask; with `lengths` the
@@ -128,15 +136,27 @@ def _encoder_layer(layer: Params, cfg: AVHubertConfig, x: torch.Tensor,
     return x + _dropout(k_d3, linear(h, layer["fc2"]), cfg.dropout)
 
 
-def avhubert_extract_features(params: Params, cfg: AVHubertConfig, video: torch.Tensor,
-                              train_mode: bool = False, conv_kernel: bool = False,
-                              bn_stats: str = "onepass") -> torch.Tensor:
-    """Video features, zero-filled audio half, concat fuse (`hubert.py:695-728`);
-    `conv_kernel` runs the ResNet trunk's convs through B7, `bn_stats` is
-    its train-mode BN variance."""
-    vf = resnet3d_forward(params["video_frontend"], video, train_mode, conv_kernel, bn_stats)
-    vfeat = linear(vf, params["video_proj"])
-    afeat = torch.zeros_like(vfeat)
+def avhubert_extract_features(params: Params, cfg: AVHubertConfig, video: Optional[torch.Tensor],
+                              audio: Optional[torch.Tensor] = None, train_mode: bool = False,
+                              conv_kernel: bool = False, bn_stats: str = "onepass") -> torch.Tensor:
+    """Modality features and their fuse (`hubert.py:695-728`): the video
+    (B, T, 88, 88, 1) through the ResNet trunk and `video_proj`, the stacked
+    filterbanks (B, T, audio_feat_dim) through `audio_proj`; a missing
+    modality is zero-filled (and `video=None` runs no trunk), the concat
+    fuse puts audio first. `conv_kernel` runs the trunk's convs through
+    B7, `bn_stats` is its train-mode BN variance."""
+    if video is None and audio is None:
+        raise ValueError("avhubert_extract_features needs video or audio")
+    vfeat = afeat = None
+    if video is not None:
+        vf = resnet3d_forward(params["video_frontend"], video, train_mode, conv_kernel, bn_stats)
+        vfeat = linear(vf, params["video_proj"])
+    if audio is not None:
+        afeat = linear(audio, params["audio_proj"])
+    if vfeat is None:
+        vfeat = torch.zeros_like(afeat)
+    if afeat is None:
+        afeat = torch.zeros_like(vfeat)
     if cfg.modality_fuse == "concat":
         feats = torch.cat([afeat, vfeat], dim=-1)  # audio first (`hubert.py:714`)
     else:
@@ -146,66 +166,106 @@ def avhubert_extract_features(params: Params, cfg: AVHubertConfig, video: torch.
     return linear(feats, params["post_extract_proj"])
 
 
-def _key_streams(cfg: AVHubertConfig, key: torch.Tensor):
-    """A key's streams in the JAX package's order (`avhubert_encode` and
-    `avhubert_encoder`, `:183-292`): (input dropout's key or None, the
-    pos-conv output's dropout key, the encoder's key, whose fold_in 7 draws
-    layerdrop, the (L, 2) layer keys)."""
-    k_input = None
+def _input_split(cfg: AVHubertConfig, key: torch.Tensor):
+    """`avhubert_encode`'s split of a key (`:283-291`): (the input
+    dropout's key or None, the encoder's key)."""
     if cfg.dropout_input > 0.0:
-        k_input, key = prng.split(key)
-    k_in, k_layers = prng.split(key)
-    return k_input, k_in, key, prng.split(k_layers, cfg.encoder_layers)
+        return tuple(prng.split(key))
+    return None, key
 
 
 Plan = Tuple[List[int], List[LayerRng], List[Optional[int]]]
 
 
-def layers_to_run(cfg: AVHubertConfig, rng) -> Plan:
-    """(indices of the encoder layers to run, each layer's random source,
-    each layer's flash dropout seed). Without `rng`: every layer, no draws.
-    With a key: layerdrop's `uniform(fold_in(rng, 7), (L,))` and the layer
-    keys, on the host (no sync); the seeds come from each layer's key in
-    the layer. With a generator: one draw of (3, L) int32s (one host sync):
-    layerdrop's uniforms, the flash seeds, and each layer's generator seed."""
-    L = cfg.encoder_layers
+def _depth(cfg: AVHubertConfig, output_layer: Optional[int]) -> int:
+    """The layers that run: all, or the first `output_layer` (1-based)."""
+    if output_layer is None:
+        return cfg.encoder_layers
+    if not 1 <= output_layer <= cfg.encoder_layers:
+        raise ValueError(f"output_layer {output_layer}: 1..{cfg.encoder_layers}")
+    return output_layer
+
+
+def _encoder_plan(cfg: AVHubertConfig, rng, L: int) -> Plan:
+    """`layers_to_run` from the encoder's own random source, over L layers.
+    A key draws as `avhubert_encoder` (`:210-216`): the layer keys
+    `split(k_layers, L)` after `k_in, k_layers = split(rng)`, layerdrop's
+    `uniform(fold_in(rng, 7), (L,))`."""
     if rng is None:
         return list(range(L)), [None] * L, [None] * L
     if is_key(rng):
-        _, _, key, layer_keys = _key_streams(cfg, rng)
+        _, k_layers = prng.split(rng)
         keep = list(range(L))
         if cfg.layerdrop > 0.0:
-            u = prng.uniform(prng.fold_in(key, 7), (L,)).tolist()
+            u = prng.uniform(prng.fold_in(rng, 7), (L,)).tolist()
             keep = [i for i in keep if u[i] > cfg.layerdrop]
-        return keep, list(layer_keys), [None] * L
+        return keep, list(prng.split(k_layers, L)), [None] * L
     draws = torch.randint(0, 2**31 - 1, (3, L), generator=rng, device=rng.device).tolist()
     keep = [i for i in range(L) if draws[0][i] / 2**31 > cfg.layerdrop]
     return keep, draws[2], draws[1]
 
 
-def avhubert_encode(params: Params, cfg: AVHubertConfig, video: torch.Tensor,
-                    lengths: Optional[torch.Tensor] = None, train_mode: bool = False,
-                    generator=None, plan: Optional[Plan] = None, conv_kernel: bool = False,
-                    bn_stats: str = "onepass", remat: str = "off") -> torch.Tensor:
-    """`extract_finetune` over video only: (B, T, D); `lengths` (B,) masks
-    each clip's padded frames as keys. `generator` is the random source (a
-    threefry key or a torch.Generator; none in eval); `plan` is
-    `layers_to_run`'s, drawn here when not given. `conv_kernel` runs the
-    ResNet trunk's convs through B7, `bn_stats` is its train-mode BN
-    variance, `remat` the encoder layers' remat policy."""
-    assert cfg.layer_norm_first, "the post-LN variant is not ported"
-    rng = generator
-    keep, layer_rngs, seeds = plan if plan is not None else layers_to_run(cfg, rng)
-    feats = avhubert_extract_features(params, cfg, video, train_mode, conv_kernel, bn_stats)
+def layers_to_run(cfg: AVHubertConfig, rng, output_layer: Optional[int] = None) -> Plan:
+    """(indices of the encoder layers to run, each layer's random source,
+    each layer's flash dropout seed), for `avhubert_encode`'s random source
+    and depth (`output_layer`). Without `rng`: every layer, no draws. With
+    a key: layerdrop's uniforms and the layer keys, on the host (no sync),
+    from the encoder's key after the input dropout's split; the seeds come
+    from each layer's key in the layer. With a generator: one draw of (3, L)
+    int32s (one host sync): layerdrop's uniforms, the flash seeds, and each
+    layer's generator seed."""
+    L = _depth(cfg, output_layer)
     if is_key(rng):
-        k_input, k_in, _, _ = _key_streams(cfg, rng)
-    else:
-        k_input = k_in = rng
-    feats = _dropout(k_input, feats, cfg.dropout_input)
-    x = feats + _pos_conv(feats, params["pos_conv"], cfg)
+        rng = _input_split(cfg, rng)[1]
+    return _encoder_plan(cfg, rng, L)
+
+
+def avhubert_encoder(params: Params, cfg: AVHubertConfig, features: torch.Tensor,
+                     lengths: Optional[torch.Tensor] = None, rng=None,
+                     output_layer: Optional[int] = None, plan: Optional[Plan] = None,
+                     remat: str = "off") -> torch.Tensor:
+    """The transformer over fused (B, T, D) features (`:175-232`):
+    pos-conv, the pre-LN layers, the top norm. `rng` (a key or a
+    generator) enables train()-mode dropout and layerdrop; `plan` is
+    `_encoder_plan`'s, drawn here when not given. `output_layer` (1-based)
+    stops after that layer and skips the top norm: the layer-N feature dump
+    behind iterative k-means targets (`clustering/dump_hubert_feature.py:
+    96-106`; the top norm applies only when no layer is named)."""
+    L = _depth(cfg, output_layer)
+    keep, layer_rngs, seeds = plan if plan is not None else _encoder_plan(cfg, rng, L)
+    k_in = prng.split(rng)[0] if is_key(rng) else rng
+    x = features + _pos_conv(features, params["pos_conv"], cfg)
     x = _dropout(k_in, x, cfg.dropout)
     for i in keep:
         x = maybe_remat(_encoder_layer, remat, layer_slice(params["layers"], i), cfg, x, lengths,
                         layer_rngs[i], seeds[i])
+    if output_layer is not None:
+        return x
     tn = params["top_norm"]
     return layer_norm(x, tn["scale"], tn["bias"])
+
+
+def avhubert_encode(params: Params, cfg: AVHubertConfig, video: Optional[torch.Tensor],
+                    audio: Optional[torch.Tensor] = None, lengths: Optional[torch.Tensor] = None,
+                    train_mode: bool = False, generator=None, plan: Optional[Plan] = None,
+                    output_layer: Optional[int] = None, conv_kernel: bool = False,
+                    bn_stats: str = "onepass", remat: str = "off") -> torch.Tensor:
+    """`extract_finetune`: (B, T, D) from video and/or stacked-fbank audio;
+    `lengths` (B,) masks each clip's padded frames as keys. `generator` is
+    the random source (a threefry key or a torch.Generator; none in eval);
+    `plan` is `layers_to_run`'s, drawn here when not given. `output_layer`
+    N returns layer N's output without the top norm, 0 the fused features
+    (ret_conv). `conv_kernel` runs the ResNet trunk's convs through B7,
+    `bn_stats` is its train-mode BN variance, `remat` the encoder layers'
+    remat policy."""
+    assert cfg.layer_norm_first, "the post-LN variant is not ported"
+    rng = generator
+    if output_layer != 0 and plan is None:
+        plan = layers_to_run(cfg, rng, output_layer)
+    feats = avhubert_extract_features(params, cfg, video, audio, train_mode, conv_kernel,
+                                      bn_stats)
+    if output_layer == 0:  # ret_conv: the fused post-projection features
+        return feats
+    k_input, rng = _input_split(cfg, rng) if is_key(rng) else (rng, rng)
+    feats = _dropout(k_input, feats, cfg.dropout_input)
+    return avhubert_encoder(params, cfg, feats, lengths, rng, output_layer, plan, remat)

@@ -7,6 +7,8 @@
   audio train: AdaptiveTimeMask(6400, 16000) -> AddNoise(babble, random SNR)
                -> per-utterance layer_norm(eps 1e-8)
   audio eval : [AddNoise(babble, fixed SNR)] -> per-utterance layer_norm
+  pre-training video: /255 -> RandomCrop(88) -> Grayscale -> HorizontalFlip
+               -> Normalize (eval: CenterCrop, no flip)
 
 Every random draw comes from an explicit source, `rng`: a threefry key
 (`utils/prng.py`), split at every site in the JAX package's order (e.g.
@@ -140,6 +142,23 @@ def horizontal_flip(rng: Rng, video: torch.Tensor, p: float = 0.5) -> torch.Tens
     (`av_hubert/avhubert/utils.py:122-139`); the pre-training pipeline's."""
     flip = _rand(rng, (video.shape[0],), video.device) < p
     return torch.where(flip[:, None, None, None, None], video.flip(3), video)
+
+
+def pretrain_video_pipeline(video_u8: torch.Tensor, train: bool = False,
+                            generator: Optional[Rng] = None, mean: float = 0.421,
+                            std: float = 0.165, flip_p: float = 0.5) -> torch.Tensor:
+    """AV-HuBERT pre-training's image transform (`hubert_dataset.py:216-225`):
+    /255 -> RandomCrop(88) -> Grayscale -> HorizontalFlip(flip_p) ->
+    Normalize in train mode, CenterCrop and no flip in eval; unlike the
+    fine-tune `video_pipeline`, no time mask. The crop offsets and flips
+    come from `generator` (a threefry key: `k_crop, k_flip = split(key)`,
+    or a torch.Generator)."""
+    k_crop, k_flip = subkeys(generator, 2) if train else (None, None)
+    x = video_u8.float() / 255.0
+    x = grayscale_luma(crop_video(k_crop, x, 88, train))
+    if train:
+        x = horizontal_flip(k_flip, x, flip_p)
+    return (x - mean) / std
 
 
 def video_pipeline(video_u8: torch.Tensor, lengths: torch.Tensor, train: bool = False,

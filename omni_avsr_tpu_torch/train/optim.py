@@ -17,7 +17,7 @@ The update is made in place on the f32 masters, without autograd.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
@@ -73,18 +73,23 @@ class AdamW:
 
     @torch.no_grad()
     def update_(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-                state: AdamWState) -> AdamWState:
-        """One step, in place on `params` and the moments."""
+                state: AdamWState, decay: Optional[List[bool]] = None) -> AdamWState:
+        """One step, in place on `params` and the moments. `decay` is adamw's
+        `mask`: the leaves whose weight decay applies (all when None)."""
         b1, b2 = self.cfg.betas
         lr = self.schedule(state.count)
         t = state.count + 1
-        for p, g, mu, nu in zip(params, clip_by_global_norm(grads, self.cfg.grad_clip),
-                                state.mu, state.nu):
+        decay = [True] * len(params) if decay is None else decay
+        for p, g, mu, nu, d in zip(params, clip_by_global_norm(grads, self.cfg.grad_clip),
+                                   state.mu, state.nu, decay):
             mu.mul_(b1).add_(g, alpha=1.0 - b1)
             nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
             m_hat = mu / (1.0 - b1 ** t)
             v_hat = nu / (1.0 - b2 ** t)
-            p.sub_(lr * (m_hat / (torch.sqrt(v_hat) + EPS) + self.cfg.weight_decay * p))
+            update = m_hat / (torch.sqrt(v_hat) + EPS)
+            if d:
+                update = update + self.cfg.weight_decay * p
+            p.sub_(lr * update)
         return AdamWState(t, state.mu, state.nu)
 
 

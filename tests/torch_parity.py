@@ -13,6 +13,13 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
+
+# Every worker process of the suite collects this module. Two torch
+# intra-op threads a process keep the workers from oversubscribing the
+# host's cores: idle OpenMP threads spin, and with a thread per core in
+# each of 6 workers the parity files took twice the wall time.
+torch.set_num_threads(2)
 
 
 def randomize_lora_down(tree, seed: int = 7, std: float = 0.05):
