@@ -139,6 +139,27 @@ Phases, each printing lines with the elapsed seconds:
      defaults (B3 48, B4 24) with the same three-way grad check, the encoder
      saved in the port's checkpoint format, `cluster_units`' layer-12 dump
      of one clip from it (B3 12) and a k-means of 100 over its frames;
+  4a. right after (e), whose int8 tree is now built layer by layer from
+     its bf16 tree on the card (its build peak printed beside the 43.2 GiB
+     that the whole-tree build peaked at on an H100): (n) the registry's Qwen2.5-32B at full width and depth (64
+     layers, hidden 5120, FFN 27648, 40/8 heads at D 128, untied head),
+     its int8 tree drawn layer by layer (`bridge.init_serving_params`; the
+     build's time and peak printed, the peak held under 70 GiB), serving
+     (b)'s three requests (B1 64 a step, B2 once per tower and LLM matrix
+     of the prefill and of every step), its prefill and two decode steps
+     held kernel against plain route and B2 at every shape of a batch; then
+     Qwen2.5-14B in packed int4 the same way, one `transcribe` request
+     through B6, B6 at its shapes; (o) the flagship with 8 experts a layer
+     (`moe_experts=8`, 12.9 GB of bf16 experts), unquantised: (b)'s
+     requests with balanced routing (the routing kernel once per layer and
+     forward, 16 x (1 + steps) a batch), the kernel's assignments on the
+     first batch's prefill layer 0 bit-equal to its plain loop, the prefill
+     and two decode steps kernel against plain route; one batch with top-1
+     routing (no routing kernel); two train steps on (t)'s batch (the
+     routing kernel 96 a step: 3 tasks x 16 layers, forward and the "dots"
+     recompute), a train step's layer-0 assignments bit-equal, and one
+     step's grads kernel against plain; the routing kernel timed at the
+     prefill's, a decode step's and the train step's rows;
   9. the CLIs as a user runs them, as subprocesses on the card, three at a
      time after the first:
      `serve_http --synthetic` (/healthz, one audio request, then stopped),
@@ -147,7 +168,8 @@ Phases, each printing lines with the elapsed seconds:
      --max-epochs 2`, `train_llama_avsr --synthetic 6 --max-epochs 1
      --modality audio`, `eval_llama_avsr --synthetic 4 --modality audio
      --quantize-decode int8` and `verify_parity --synthetic 2 --modes
-     bf16,int8,int4`: exit 0 (verify_parity 1, all 8 settings measured:
+     bf16,int8,int4`, `train_omni` and `eval_omni` with `--moe-experts 4`
+     (the routing kernel launched): exit 0 (verify_parity 1, all 8 settings measured:
      random weights fail BASELINE.md), the result keys, the checkpoints and
      `model_avg_4`; B2 in the int8 runs, B6 in the int4 ones, B1 in none
      (the tiny head size 16 takes the reorder route); verify_parity under
@@ -671,19 +693,20 @@ def serving_leaf(w, bits: int):
     return q, arrange_for_card(pack_int4(q) if bits == 4 else q)
 
 
-def b2_stage(M: int, Kd: int, Nd: int, vocab: int, llm_dims) -> str:
+def b2_stage(M: int, Kd: int, Nd: int, vocab: int, llm_dims, decode_m: int = B_SERVE * K) -> str:
     """Which stage of a served batch runs B2 or B6 at (M, K, N): the decode
-    steps (M = 3 requests x 15 beams, with their lm_head), the LLM prefill
-    (the LLM's widths, and the lm_head of the last prefix token) or the
-    towers."""
-    if M == B_SERVE * K:
+    steps (M = `decode_m`, 3 requests x 15 beams by default, with their
+    lm_head), the LLM prefill (the LLM's widths, and the lm_head of the last
+    prefix token) or the towers."""
+    if M == decode_m:
         return "decode"
     if Nd == vocab or Kd in llm_dims:
         return "prefill"
     return "tower"
 
 
-def qmm_per_batch(flush, label: str, shapes, vocab: int, llm_dims, bits: int = 8):
+def qmm_per_batch(flush, label: str, shapes, vocab: int, llm_dims, bits: int = 8,
+                  decode_m: int = B_SERVE * K):
     """B2 (bits 8) or B6 (bits 4) at every distinct (M, K, N) that one
     served batch launched it with, each against its plain version, timed
     (cold L2) beside the plain version, cuBLAS's bf16 product on the weight
@@ -723,7 +746,7 @@ def qmm_per_batch(flush, label: str, shapes, vocab: int, llm_dims, bits: int = 8
                                    **(F32_OUT_TOL if out_dtype else BF16_TOL))
         nbytes = M * Kd * 2 + Kd * Nd * bits // 8 + Nd * 4 + M * Nd * (4 if out_dtype else 2)
         flops = 2.0 * M * Kd * Nd
-        stage = b2_stage(M, Kd, Nd, vocab, llm_dims)
+        stage = b2_stage(M, Kd, Nd, vocab, llm_dims, decode_m)
         row = dict(stage=stage, M=M, K=Kd, N=Nd, launches=count,
                    max_abs_err=(out.float() - ref.float()).abs().max().item(),
                    ms=time_ms(lambda: kernel(x, leaf, out_dtype=out_dtype), flush),
@@ -920,12 +943,13 @@ def counters():
     from omni_avsr_tpu_torch.ops.conv_block import conv2d_fused
     from omni_avsr_tpu_torch.ops.flash_attention import flash_attention
     from omni_avsr_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd
+    from omni_avsr_tpu_torch.ops.moe_route import balanced_assignment
     from omni_avsr_tpu_torch.ops.quant import quantized_matmul, quantized_matmul4
     from omni_avsr_tpu_torch.ops.select_topk import row_stats_chunkmax
 
     return {"B1": beam_decode_attention, "B2": quantized_matmul, "B3": flash_attention,
             "B4": flash_attention_bwd, "B5": row_stats_chunkmax, "B6": quantized_matmul4,
-            "B7": conv2d_fused}
+            "B7": conv2d_fused, "MOE": balanced_assignment}
 
 
 def reset_counts(fns) -> None:
@@ -938,7 +962,7 @@ def reset_counts(fns) -> None:
 
 def counts(**launches):
     """Every kernel's expected launches, 0 where not named."""
-    return {key: launches.get(key, 0) for key in ("B1", "B2", "B3", "B4", "B5", "B6", "B7")}
+    return {key: launches.get(key, 0) for key in ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "MOE")}
 
 
 def with_vocab(model, vocab: int):
@@ -1014,10 +1038,80 @@ def serve(label: str, server, items, expected, repeats: int = SERVE_REPEATS, **k
     return row
 
 
+def routes_bit_equal(store) -> tuple:
+    """Every recorded routing call (`moe_routes`): the kernel's assignments
+    against the plain loop on a host copy of the same router logits.
+    Raises on any difference; returns (calls, rows) checked."""
+    import torch
+
+    from omni_avsr_tpu_torch.ops.moe_route import balanced_assignment_plain
+
+    bad = []
+    for i, (scores, capacity, got) in enumerate(store):
+        want = balanced_assignment_plain(scores.cpu(), capacity)
+        if not torch.equal(got.cpu(), want):
+            bad.append((i, int((got.cpu() != want).sum()), len(want)))
+    if bad:
+        raise RuntimeError(f"routing kernel vs plain loop: (call, rows differing, rows) {bad[:8]} "
+                           f"in {len(bad)} of {len(store)} calls")
+    return len(store), sum(len(out) for _, _, out in store)
+
+
+@contextlib.contextmanager
+def moe_routes(store: list, route: str):
+    """The balanced routing of an MoE decoder: on the kernel route each
+    call's (scores, capacity, assignments) recorded and, once the route has
+    run, every call held bit-equal to the plain loop on the same logits
+    (`routes_bit_equal`); on the plain route the assignments replayed, call
+    for call. Routing is a discrete choice: a bf16-level difference in the
+    router logits (B1 or B3/B4 against their plain versions) flips
+    near-tied greedy choices, and a flipped token then runs another expert,
+    so without the replay the routes' logits part by far more than the
+    kernels' numerics (0.379 relative L2 on (o) on an NVIDIA H100 80GB
+    HBM3). The plain loop also runs on the plain route's own logits, to
+    count the choices that those differences flip. No effect on a model
+    without MoE layers."""
+    import omni_avsr_tpu_torch.models.moe as moe_mod
+    from omni_avsr_tpu_torch.ops.moe_route import balanced_assignment_plain
+
+    fn = moe_mod.balanced_assignment
+    replayed = []
+
+    def record(scores, capacity):
+        out = fn(scores, capacity)
+        store.append((scores.detach().clone(), capacity, out.clone()))
+        return out
+
+    def replay(scores, capacity):
+        out = store[len(replayed)][2]
+        if out.shape[0] != scores.shape[0]:
+            raise RuntimeError(f"routing replay: {scores.shape[0]} rows, recorded {out.shape[0]}")
+        own = balanced_assignment_plain(scores.detach().cpu(), capacity)
+        replayed.append((int((own != out.cpu()).sum()), len(own)))
+        return out
+
+    moe_mod.balanced_assignment = replay if route == "plain" else record
+    try:
+        yield
+    finally:
+        moe_mod.balanced_assignment = fn
+    if route == "kernel" and store:
+        calls, rows = routes_bit_equal(store)
+        log("MOE", f"kernel route: {calls} routing calls, {rows} rows, every assignment "
+            f"bit-equal to the plain loop on the same logits")
+    if replayed:
+        if len(replayed) != len(store):
+            raise RuntimeError(f"routing replay: {len(replayed)} calls, recorded {len(store)}")
+        log("MOE", f"plain route: {len(replayed)} routing calls replayed from the kernel route; "
+            f"its own routing would choose another expert for {sum(f for f, _ in replayed)} of "
+            f"{sum(n for _, n in replayed)} rows")
+
+
 @contextlib.contextmanager
 def plain_route():
     """Route beam attention and the quantised matmuls of the LLM through
-    their plain versions (the reference side of the agreement checks)."""
+    their plain versions (the reference side of the agreement checks; an
+    MoE decoder's routing is replayed by `moe_routes`)."""
     import omni_avsr_tpu_torch.models.common as common_mod
     import omni_avsr_tpu_torch.models.llm as llm_mod
     from omni_avsr_tpu_torch.ops import quant
@@ -1041,8 +1135,8 @@ def decode_agreement(t, item, steps: int = 2) -> float:
     """Reference check on served inputs: the prefill and the first decode
     steps of the full-width LLM through the kernels (B1 and B2 or B6) and
     through their plain versions, on the same prefix, with the kernel
-    route's tokens fed to both. Returns the largest relative L2 logit
-    difference."""
+    route's tokens (and an MoE decoder's routing, `moe_routes`) fed to
+    both. Returns the largest relative L2 logit difference."""
     import torch
 
     import omni_avsr_tpu_torch.models.llm as llm_mod
@@ -1067,8 +1161,10 @@ def decode_agreement(t, item, steps: int = 2) -> float:
         last = Pp - 1 - torch.argmax(valid.flip(1).int(), dim=1)
         n_valid = valid.sum(dim=1).repeat_interleave(K)
         tokens = []
+        routes = []
         for route in ("kernel", "plain"):
-            with plain_route() if route == "plain" else contextlib.nullcontext():
+            with plain_route() if route == "plain" else contextlib.nullcontext(), \
+                    moe_routes(routes, route):
                 cache0 = llm_mod.KVCache.create(cfg, 1, Pp, dtype=model.dtype, device=DEV)
                 lg, cache0 = llm_mod.llm_prefill_masked(llm, cfg, prefix, valid, positions, last,
                                                         cache0, "audiovisual", layers=layers)
@@ -1232,7 +1328,108 @@ def transcribe_one(server, item, expected):
     row = dict(request_s=dt, audio_s=len(item["audio"]) / 16000,
                decode_steps=server.last_decode_steps, launches=launches, transcript=text)
     log("transcribe", json.dumps(row))
+    row.update(b2_shapes=sorted(fns["B2"].shapes.items()),
+               b6_shapes=sorted(fns["B6"].shapes.items()))
     return row
+
+
+# ------------------------------ (n): Qwen2.5-32B and -14B, drawn layer by layer
+
+QWEN_N, QWEN_N4 = "Qwen/Qwen2.5-32B", "Qwen/Qwen2.5-14B"
+BUILD_PEAK_LIMIT_GIB = 70.0  # the card's 80 GB less room to serve
+
+
+def build_streamed(name: str, mode: str):
+    """A registry model (Whisper-medium, AV-HuBERT Large and the named LLM at
+    Qwen2.5's vocabulary, bucketed window) and its Transcriber on a `mode`
+    tree drawn layer by layer (`bridge.init_serving_params`): never the
+    whole bf16 LLM on the card. Returns (model, Transcriber, build row);
+    the build's peak must stay under BUILD_PEAK_LIMIT_GIB."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_serving_params
+    from omni_avsr_tpu_torch.data.tokenizer import synthetic_tokenizer
+    from omni_avsr_tpu_torch.models.omni import registry_model
+    from omni_avsr_tpu_torch.serve import Transcriber
+
+    model = registry_model(name, synthetic_tokenizer("qwen", base_vocab=QWEN_BASE_VOCAB),
+                           whisper_input_mode="bucket")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**30
+    t = time.perf_counter()
+    tree = init_serving_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), mode, DEV)
+    server = Transcriber(model, tree, device=DEV)
+    del tree
+    torch.cuda.synchronize()
+    llm = model.cfg.llm
+    row = dict(model=name, mode=mode, layers=llm.num_layers, hidden=llm.hidden_size,
+               ffn=llm.intermediate_size, heads=[llm.num_heads, llm.num_kv_heads, llm.head_dim],
+               vocab=llm.vocab_size, build_s=time.perf_counter() - t,
+               build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               tree_gib=torch.cuda.memory_allocated() / 2**30 - before,
+               allocated_before_gib=before)
+    log("model", f"{name} at full width and depth, {mode} tree drawn layer by layer: "
+        f"{json.dumps(row)}")
+    if row["build_peak_gib"] >= BUILD_PEAK_LIMIT_GIB:
+        raise RuntimeError(f"{name} {mode}: build peak {row['build_peak_gib']:.1f} GiB")
+    return model, server, row
+
+
+def per_step(sums, steps: int) -> dict:
+    return {k: sums["decode"][k] / steps for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+
+def big_qwen_phase(items, tower_b2: int, flush):
+    """(n): Qwen2.5-32B int8 serving (b)'s three requests (beam 15, 32 new
+    tokens; B1 once per layer and decode step, B2 once per tower matrix and
+    per LLM matrix of the prefill and of every step), its prefill and two
+    decode steps held kernel against plain route, and B2 at every shape of
+    one batch; then Qwen2.5-14B int4: one request through B6, and B6 at
+    every shape of it. Returns (rows, B2's and B6's per-step sums)."""
+    import torch
+
+    rows = {}
+    model, server, build = build_streamed(QWEN_N, "int8")
+    llm = model.cfg.llm
+    L, mats = llm.num_layers, 4 * llm.num_layers + 1
+    expect = lambda s: counts(B1=L * s, B2=tower_b2 + mats * (1 + s))  # noqa: E731
+    rows["n"] = serve("(n) Qwen2.5-32B bucket int8", server, items, expect)
+    rows["n"]["build"] = build
+    rel = decode_agreement(server, items[0])
+    if rel > REL_L2_TOL:
+        raise RuntimeError(f"(n) logits: kernel vs plain relative L2 {rel:.3g}")
+    rows["n"]["decode_rel_l2"] = rel
+    log("reference", f"(n) {QWEN_N} int8: prefill + 2 decode steps, kernel vs plain route: "
+        f"relative L2 logit difference {rel:.3g} (tol {REL_L2_TOL})")
+    profile_batch("(n) Qwen2.5-32B bucket int8", lambda: server.transcribe_many(items))
+    del server
+    torch.cuda.empty_cache()
+    sums, shape_rows = qmm_per_batch(flush, rows["n"]["config"], rows["n"]["b2_shapes"],
+                                     llm.vocab_size, (llm.hidden_size, llm.intermediate_size))
+    b2_step = per_step(sums, rows["n"]["decode_steps"])
+    log("B2", f"(n) one decode step ({L} x qkv, o, gateup, down + lm_head, M 45): "
+        f"{json.dumps(b2_step)}")
+    rows["n"]["b2_decode_step"] = b2_step
+
+    model, server, build = build_streamed(QWEN_N4, "int4")
+    llm = model.cfg.llm
+    L, mats = llm.num_layers, 4 * llm.num_layers + 1
+    row = transcribe_one(server, items[0], lambda s: counts(B1=L * s, B2=tower_b2,
+                                                             B6=mats * (1 + s)))
+    row.update(config="(n) Qwen2.5-14B bucket int4, one request", build=build)
+    del server
+    torch.cuda.empty_cache()
+    # one request decodes its 15 beams: M 15 is the decode steps' shape
+    sums, _ = qmm_per_batch(flush, row["config"], row["b6_shapes"], llm.vocab_size,
+                            (llm.hidden_size, llm.intermediate_size), bits=4, decode_m=K)
+    b6_step = per_step(sums, row["decode_steps"])
+    log("B6", f"(n) Qwen2.5-14B, one decode step of one request ({L} x qkv, o, gateup, down + "
+        f"lm_head, M {K}): {json.dumps(b6_step)}")
+    row["b6_decode_step"] = b6_step
+    rows["n 14b"] = row
+    return rows, b2_step, b6_step
 
 
 # --------------------------------------------------------------- training
@@ -1263,7 +1460,8 @@ def llm_lengths(model, trim: int, rate_a: int, rate_v: int, frames: int, token_l
 @contextlib.contextmanager
 def plain_train_route():
     """Route the trainable flash attention (B3 forward, B4 backward) and
-    Whisper's B3 through their plain versions."""
+    Whisper's B3 through their plain versions (an MoE decoder's routing is
+    replayed by `moe_routes`)."""
     import omni_avsr_tpu_torch.models.whisper as whisper_mod
     import omni_avsr_tpu_torch.ops.flash_attention_bwd as fab
     from omni_avsr_tpu_torch.ops.flash_attention import flash_attention_plain
@@ -1290,14 +1488,51 @@ def train_launches(model, flash_tasks: int, video_layers: int, remat: str = "dot
     recomputes the layer; nothing else."""
     n = flash_tasks * model.cfg.llm.num_layers
     again = 1 if remat == "off" else 2
-    return {"B1": 0, "B2": 0, "B3": model.cfg.whisper.num_layers + again * (video_layers + n),
-            "B4": video_layers + n, "B5": 0, "B6": 0, "B7": 0}
+    return counts(B3=model.cfg.whisper.num_layers + again * (video_layers + n),
+                  B4=video_layers + n)
 
 
 def check_route_launches(route: str, used) -> None:
-    """The kernel route launched B3 and B4; the plain route launched neither."""
-    if (route == "plain") != (used["B3"] == used["B4"] == 0):
+    """The kernel route launched B3 and B4; the plain route launched neither
+    (nor the MoE routing)."""
+    if (route == "plain") != (used["B3"] == used["B4"] == used["MOE"] == 0):
         raise RuntimeError(f"{route} route launched {used}")
+
+
+def step_grad_agreement(engine, batch, trim: int, fns, label: str) -> dict:
+    """Reference check of a train step: its loss and trainable grads through
+    the kernels and through their plain versions (`plain_train_route`),
+    with the same random draws (the engine's generator re-seeded on both)
+    and an MoE decoder's routing replayed (`moe_routes`): the grads within
+    relative L2 REL_L2_TOL, the loss too."""
+    import torch
+
+    from omni_avsr_tpu_torch.train.state import tree_leaves
+
+    arrays, trim_len = engine._arrays({**batch, "audio_trim_len": trim})
+    leaves = list(tree_leaves(engine.state.trainable))
+    result, routes = {}, []
+    for route in ("kernel", "plain"):
+        with plain_train_route() if route == "plain" else contextlib.nullcontext(), \
+                moe_routes(routes, route):
+            reset_counts(fns)
+            engine.generator.manual_seed(20261017)
+            total, _ = engine._loss(arrays, 4, 2, trim_len, is_train=True)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            flat = torch.cat([(torch.zeros_like(p) if g is None else g).float().reshape(-1)
+                              for p, g in zip(leaves, grads)])
+            check_route_launches(route, {name: fn.launches for name, fn in fns.items()})
+            result[route] = (total.item(), flat)
+    (lk, gk), (lp, gp) = result["kernel"], result["plain"]
+    rel = ((gk - gp).norm() / gp.norm()).item()
+    if not (np.isfinite(lk) and bool(torch.isfinite(gk).all())):
+        raise RuntimeError(f"{label}: non-finite loss or grads on the kernel route")
+    if rel > REL_L2_TOL or abs(lk - lp) > REL_L2_TOL * abs(lp):
+        raise RuntimeError(f"{label}, kernel vs plain: loss {lk} vs {lp}, grads relative L2 "
+                           f"{rel:.3g}")
+    agree = dict(loss_kernel=lk, loss_plain=lp, grad_rel_l2=rel, grad_norm=gp.norm().item())
+    log("reference", f"{label} vs plain, same draws: {json.dumps(agree)} (tol {REL_L2_TOL})")
+    return agree
 
 
 def train_phase():
@@ -1366,32 +1601,8 @@ def train_phase():
     log("train", json.dumps(row))
     profile_batch("train step", step)
 
-    # reference check: one step's loss and grads, kernel route vs plain route,
-    # the same random draws (the engine's generator re-seeded on both)
-    arrays, trim_len = engine._arrays({**batch, "audio_trim_len": trim})
-    leaves = list(tree_leaves(engine.state.trainable))
-    result = {}
-    for route in ("kernel", "plain"):
-        with plain_train_route() if route == "plain" else contextlib.nullcontext():
-            reset_counts(fns)
-            engine.generator.manual_seed(20261017)
-            total, _ = engine._loss(arrays, 4, 2, trim_len, is_train=True)
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
-            flat = torch.cat([(torch.zeros_like(p) if g is None else g).float().reshape(-1)
-                              for p, g in zip(leaves, grads)])
-            check_route_launches(route, {name: fn.launches for name, fn in fns.items()})
-            result[route] = (total.item(), flat)
-    (lk, gk), (lp, gp) = result["kernel"], result["plain"]
-    rel = ((gk - gp).norm() / gp.norm()).item()
-    if not (np.isfinite(lk) and bool(torch.isfinite(gk).all())):
-        raise RuntimeError("non-finite loss or grads on the kernel route")
-    if rel > REL_L2_TOL or abs(lk - lp) > REL_L2_TOL * abs(lp):
-        raise RuntimeError(f"train step, kernel vs plain: loss {lk} vs {lp}, grads relative L2 "
-                           f"{rel:.3g}")
-    agree = dict(loss_kernel=lk, loss_plain=lp, grad_rel_l2=rel, grad_norm=gp.norm().item())
-    log("reference", f"one full-width train step, B3/B4 vs plain, same draws: {json.dumps(agree)} "
-        f"(tol {REL_L2_TOL})")
-    del engine, leaves, result, gk, gp
+    agree = step_grad_agreement(engine, batch, trim, fns, "one full-width train step, B3/B4")
+    del engine
     torch.cuda.empty_cache()
 
     # the first step again on a fresh engine (same weights, seed and draws)
@@ -1419,6 +1630,177 @@ def train_phase():
     del engine
     torch.cuda.empty_cache()
     return row, agree, conv_row
+
+
+# ------------------------------------------------------ (o): the MoE decoder
+
+MOE_EXPERTS = 8  # (o): the flagship's 16 MLPs each replaced by 8 SwiGLU experts
+
+
+def moe_model(routing: str, whisper_input_mode: str):
+    """The full-width flagship with MOE_EXPERTS experts in every LLM layer
+    (`--moe-experts 8 --moe-routing <routing>`)."""
+    from omni_avsr_tpu_torch.models.omni import OmniAVSR, flagship
+
+    m = flagship(tiny=False, whisper_input_mode=whisper_input_mode)
+    llm = dataclasses.replace(m.cfg.llm, moe_experts=MOE_EXPERTS, moe_routing=routing)
+    return OmniAVSR(dataclasses.replace(m.cfg, llm=llm), m.tok, dtype=m.dtype)
+
+
+def route_summary(label: str, store) -> dict:
+    """What `moe_routes` held bit-equal on one kernel route: its calls and
+    rows, and the first call's shape and loads."""
+    import torch
+
+    scores, cap, got = store[0]
+    row = dict(case=label, calls=len(store), rows=sum(len(out) for _, _, out in store),
+               first_N=scores.shape[0], E=scores.shape[1], first_capacity=cap,
+               first_loads=torch.bincount(got.cpu().long(), minlength=scores.shape[1]).tolist(),
+               bit_equal=True)
+    log("MOE", f"real router logits: {json.dumps(row)}")
+    return row
+
+
+def moe_route_timing(flush, scores, cap: int, case: str) -> dict:
+    """The routing kernel on one input: its assignments against the plain
+    loop's on the same scores (raises unless bit-equal), its device time
+    (the wrapper: the visiting order's sort and the launch; kernel_ms: the
+    launch alone on that order) beside the plain loop's (on the card's
+    tensors: a host sync per token), and the bound: one read of the scores,
+    one write of the assignments."""
+    import torch
+
+    from omni_avsr_tpu_torch.ops import moe_route
+
+    N, E = scores.shape
+    got = moe_route.balanced_assignment(scores, cap).cpu().long()
+    want = moe_route.balanced_assignment_plain(scores.cpu(), cap).long()
+    differ = int((got != want).sum())
+    if differ:
+        raise RuntimeError(f"{case}: routing kernel vs plain loop differ in {differ} of {N} rows")
+    order = moe_route.visiting_order(scores)
+    out = torch.empty((N,), dtype=torch.int32, device=scores.device)
+    launch, stream = moe_route._launcher(), torch.cuda.current_stream().cuda_stream
+    nbytes = N * E * 4 + N * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, N * E / F32_FLOPS
+    row = dict(case=case, N=N, E=E, capacity=cap, rows_differing=differ,
+               max_abs_err=float((got - want).abs().max()),
+               ms=time_ms(lambda: moe_route.balanced_assignment(scores, cap), flush),
+               kernel_ms=time_ms(lambda: launch(scores.data_ptr(), order.data_ptr(),
+                                                out.data_ptr(), N, E, cap, stream), flush),
+               plain_ms=time_ms(lambda: moe_route.balanced_assignment_plain(scores, cap), flush,
+                                iters=2),
+               library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log("MOE", json.dumps(row))
+    return row
+
+
+def moe_phase(items, flush):
+    """(o): the MoE flagship at full width (Whisper-medium, AV-HuBERT Large,
+    Llama-3.2-1B with 8 experts a layer, random bf16 weights from a seed)
+    served unquantised, as the JAX package must serve it: (b)'s requests
+    with balanced routing (B1 once per layer and decode step, the routing
+    kernel once per layer and forward), every routing call of the first
+    batch bit-equal to the plain loop on its logits, the prefill and two
+    decode steps held kernel against plain route; one
+    batch with top-1 routing (no routing kernel); two train steps on (t)'s
+    batch (the unfused three-task route, remat "dots": the routing kernel
+    six times a layer, three tasks forward and recomputed), every routing
+    call of the first step bit-equal, and one step's grads kernel against
+    plain (its kernel route's calls bit-equal too). The routing kernel's
+    timed cases are each held bit-equal as well.
+    Returns (rows, the routing kernel's row)."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.config import TrainConfig
+    from omni_avsr_tpu_torch.ops.attention import FLASH_MIN_T_TRAIN
+    from omni_avsr_tpu_torch.ops.audio_frontend import whisper_token_len
+    from omni_avsr_tpu_torch.serve import Transcriber
+    from omni_avsr_tpu_torch.train.engine import OmniEngine
+
+    rows = {}
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = moe_model("balanced", "bucket")
+    params = init_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    server = Transcriber(model, params, device=DEV)
+    torch.cuda.synchronize()
+    n_moe = sum(int(v.numel()) for v in _tensor_leaves(params["llm"]["layers"]["moe"]))
+    log("model", f"(o) the flagship with {MOE_EXPERTS} experts a layer: {n_moe / 1e9:.3f} B MoE "
+        f"parameters (bf16, {n_moe * 2 / 1e9:.2f} GB), served unquantised, in "
+        f"{time.perf_counter() - t:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+        f"GiB")
+    L = model.cfg.llm.num_layers
+    store = []
+    with moe_routes(store, "kernel"):  # a first batch: its first call is the prefill's layer 0
+        server.transcribe_many(items)
+    checks = [route_summary("(o) first batch, every layer's prefill and decode steps", store)]
+    prefill = store[0]
+    del store
+    rows["o"] = serve("(o) MoE 8 experts balanced bf16", server, items,
+                      lambda s: counts(B1=L * s, MOE=L * (1 + s)))
+    rel = decode_agreement(server, items[0])
+    if rel > REL_L2_TOL:
+        raise RuntimeError(f"(o) logits: kernel vs plain relative L2 {rel:.3g}")
+    rows["o"]["decode_rel_l2"] = rel
+    log("reference", f"(o) MoE balanced (B1, routing kernel): prefill + 2 decode steps, kernel "
+        f"vs plain route: relative L2 logit difference {rel:.3g} (tol {REL_L2_TOL})")
+    profile_batch("(o) MoE 8 experts balanced bf16", lambda: server.transcribe_many(items))
+    server_top1 = Transcriber(moe_model("top1", "bucket"), params, device=DEV)
+    rows["o top1"] = serve("(o) MoE 8 experts top1 bf16", server_top1, items,
+                           lambda s: counts(B1=L * s), repeats=1)
+    del server, server_top1
+    torch.cuda.empty_cache()
+
+    # training: (t)'s batch on the unfused three-task route
+    model = moe_model("balanced", "pad30s")
+    bank = (np.random.RandomState(1234).randn(10 * 16000) * 0.1).astype(np.float32)
+    engine = OmniEngine(model, params, TrainConfig(lr=1e-3), noise_bank=bank, seed=0, device=DEV)
+    del params
+    engine.sample_rates = lambda: (4, 2)
+    batch = train_batch(model.tok, B_TRAIN, FRAMES_TRAIN, TOKENS_TRAIN)
+    trim = -(-int(whisper_token_len(FRAMES_TRAIN * 640)) // 25) * 25
+    lengths = llm_lengths(model, trim, 4, 2, FRAMES_TRAIN, TOKENS_TRAIN)
+    flash_tasks = [m for m, n in lengths.items() if n >= FLASH_MIN_T_TRAIN]
+    fns = counters()
+    times, losses, launches_each = [], [], []
+    train_store = []
+    for i in range(2):
+        reset_counts(fns)
+        t = time.perf_counter()
+        with moe_routes(train_store, "kernel") if i == 0 else contextlib.nullcontext():
+            loss = float(engine.train_step({**batch, "audio_trim_len": trim}))
+        times.append(time.perf_counter() - t)
+        launches = {name: fn.launches for name, fn in fns.items()}
+        want = {**train_launches(model, len(flash_tasks), model.last_video_layers),
+                "MOE": 2 * 3 * L}
+        if launches != want:
+            raise RuntimeError(f"(o) train step: kernel launches {launches}, expected {want}")
+        if not np.isfinite(loss):
+            raise RuntimeError(f"(o) train step: loss {loss}")
+        losses.append(loss)
+        launches_each.append(launches)
+    rows["o train"] = dict(config=f"(o) MoE train B {B_TRAIN} x {FRAMES_TRAIN} frames, pad30s",
+                           s_per_step_each=times, losses=losses, launches=launches_each[-1],
+                           llm_lengths=lengths,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("train", json.dumps(rows["o train"]))
+    checks.append(route_summary("(o) first train step, every layer, task and recompute",
+                                train_store))
+    rows["o train"]["grad_agreement"] = step_grad_agreement(
+        engine, batch, trim, fns, "(o) MoE train step, B3/B4 and the routing kernel")
+    del engine
+    torch.cuda.empty_cache()
+
+    scores, cap, _ = prefill
+    cases = [moe_route_timing(flush, scores, cap, f"(o) prefill, {scores.shape[0]} rows"),
+             moe_route_timing(flush, scores[:B_SERVE * K].contiguous(),
+                              -(-B_SERVE * K // MOE_EXPERTS), "a decode step's 45 rows"),
+             moe_route_timing(flush, train_store[0][0], train_store[0][1],
+                              "(o) train step, audio task")]
+    return rows, {**cases[0], "cases": cases, "real_logits": checks}
 
 
 # ------------------------------------------- (g): the HTTP batching server
@@ -2992,7 +3374,9 @@ def cli_phase(work: Path, raw_clip_path: Path):
     """The CLIs as a user runs them, as subprocesses on the card
     (`--synthetic` runs at the JAX CLI's tiny widths): `serve_http` (one
     request), `eval_omni` with the int8 and the packed-int4 decode tree,
-    `train_omni` for two epochs, `train_llama_avsr` for one epoch on audio,
+    `train_omni` for two epochs, `train_omni` and `eval_omni` with
+    `--moe-experts 4` (the routing kernel must launch),
+    `train_llama_avsr` for one epoch on audio,
     `eval_llama_avsr` on audio with the int8 LLM, `verify_parity` in three
     modes with (i)'s raw clip as its golden clip, and the preparation CLIs
     of (i): `preprocess_video` on (i)'s clip, `prepare_dataset` on 4 raw
@@ -3022,6 +3406,14 @@ def cli_phase(work: Path, raw_clip_path: Path):
             for q in ("int8", "int4")]
     runs.append(("train_omni", ["train_omni", "--synthetic", "4", "--max-epochs", "2",
                                 "--exp-dir", str(work / "cli_train")]))
+    # the MoE decoder (4 experts, balanced routing) at the tiny widths, unquantised
+    runs.append(("train_omni moe", ["train_omni", "--synthetic", "4", "--tiny", "true",
+                                    "--moe-experts", "4", "--max-epochs", "1",
+                                    "--exp-dir", str(work / "cli_moe")]))
+    runs.append(("eval_omni moe", ["eval_omni", "--synthetic", "2", "--num-beams", "2",
+                                   "--max-dec-tokens", "4", "--moe-experts", "4", "--print-hyp",
+                                   "false", "--exp-dir", str(work / "eval_moe"),
+                                   "--output-json", str(work / "eval_moe.json")]))
     runs.append(("train_llama_avsr", ["train_llama_avsr", "--synthetic", "6", "--max-epochs", "1",
                                       "--modality", "audio", "--exp-dir", str(work / "llama")]))
     runs.append(("eval_llama_avsr int8", ["eval_llama_avsr", "--synthetic", "4", "--modality",
@@ -3068,7 +3460,8 @@ def cli_phase(work: Path, raw_clip_path: Path):
             raise RuntimeError(f"{label}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
         launches = json.loads(proc.stdout.splitlines()[-1])
         kernel = {"eval_omni int8": ("B2",), "eval_omni int4": ("B6",),
-                  "eval_llama_avsr int8": ("B2",), "verify_parity": ("B2", "B6")}.get(label, ())
+                  "eval_llama_avsr int8": ("B2",), "verify_parity": ("B2", "B6"),
+                  "train_omni moe": ("MOE",), "eval_omni moe": ("MOE",)}.get(label, ())
         if not all(launches[k] for k in kernel):
             raise RuntimeError(f"{label}: no {kernel} launch ({launches})")
         # the tiny model's head size 16 takes the reorder route: no B1 anywhere
@@ -3081,6 +3474,12 @@ def cli_phase(work: Path, raw_clip_path: Path):
             if list(wer) != grid:
                 raise RuntimeError(f"{label}: result keys {list(wer)}, expected {grid}")
             result = dict(keys=len(wer), wer=wer)
+        elif label == "train_omni moe":
+            exp = work / "cli_moe" / "omni"
+            ckpts = sorted(p.name for p in (exp / "checkpoints").glob("step_*.pt"))
+            if not ckpts or "epoch 0:" not in proc.stdout:
+                raise RuntimeError(f"{label}: checkpoints {ckpts}\n{proc.stdout[-2000:]}")
+            result = dict(checkpoints=ckpts)
         elif label == "train_llama_avsr":
             exp = work / "llama" / "omni"
             ckpts = sorted(p.name for p in (exp / "checkpoints").glob("step_*.pt"))
@@ -3453,17 +3852,21 @@ def main() -> int:
     server_e = Transcriber(model_e, params, quantize="int8", device="cuda")
     del params
     torch.cuda.synchronize()
+    build_e = dict(build_s=time.perf_counter() - t,
+                   build_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     log("model", f"(e) {QWEN_E}: {llm_e.num_layers} layers, hidden {llm_e.hidden_size}, "
         f"{llm_e.num_heads}/{llm_e.num_kv_heads} heads at D {llm_e.head_dim}, FFN "
         f"{llm_e.intermediate_size}, vocabulary {llm_e.vocab_size}, untied head; "
-        f"{n_bf16 / 1e9:.3f} B parameters at init (bf16), int8 serving tree in "
-        f"{time.perf_counter() - t:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
-        f"GiB while it was built")
+        f"{n_bf16 / 1e9:.3f} B parameters at init (bf16), int8 serving tree built layer by "
+        f"layer from the bf16 tree on the card in {build_e['build_s']:.1f} s, peak "
+        f"{build_e['build_peak_gib']:.1f} GiB while it was built (the whole-tree build peaked "
+        f"at 43.2 GiB on an NVIDIA H100 80GB HBM3)")
     layers_e = llm_e.num_layers
     mats_e = 4 * layers_e + 1
     expect_e = lambda s: counts(B1=layers_e * s, B2=tower_b2 + mats_e * (1 + s))  # noqa: E731
     rows["e"] = serve("(e) Qwen2.5-7B bucket int8", server_e, items_b, expect_e,
                       repeats=SERVE_REPEATS_E)
+    rows["e"]["build"] = build_e
     rows["e transcribe"] = transcribe_one(server_e, items_b[0], expect_e)
     rel = decode_agreement(server_e, items_b[0])
     if rel > REL_L2_TOL:
@@ -3483,7 +3886,16 @@ def main() -> int:
     b2_batches["e"] = dict(config=rows["e"]["config"], by_stage=sums, shapes=shape_rows,
                            decode_step=per_step)
     profile_batch("(e) Qwen2.5-7B bucket int8", lambda: server_e.transcribe_many(items_b))
-    del server_e, flush
+    del server_e
+    torch.cuda.empty_cache()
+
+    # (n): Qwen2.5-32B int8 and Qwen2.5-14B int4 at full width, drawn layer by layer
+    rows_n, b2_step_n, b6_step_n = big_qwen_phase(items_b, tower_b2, flush)
+    rows.update(rows_n)
+    # (o): the MoE decoder, served and trained
+    rows_o, moe_k = moe_phase(items_b, flush)
+    rows.update(rows_o)
+    del flush
     torch.cuda.empty_cache()
 
     # the reference numerics profile: (j) serving, the threefry draws, (k) training
@@ -3523,6 +3935,7 @@ def main() -> int:
          "prefill_ms": b2_batches["b"]["by_stage"]["prefill"]["ms"],
          "per_batch": {k: v["by_stage"] for k, v in b2_batches.items()},
          "qwen7b_decode_step": b2_batches["e"]["decode_step"],
+         "qwen32b_decode_step": b2_step_n,
          "tower_fc1_m4500": b2["tower"]},
         {**entry("B3", "flash_attention", "omni_avsr_tpu_torch/csrc/flash_attention.cu",
                  "omni_avsr_tpu/ops/flash_attention.py:58", b3, "a",
@@ -3544,13 +3957,24 @@ def main() -> int:
                  "omni_avsr_tpu/ops/quant.py:156", b6, "c",
                  "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head; per_batch: one "
                  "(c) batch's prefill and decode launches, summed"),
-         "per_batch": b6_batch["by_stage"], "per_batch_shapes": b6_batch["shapes"]},
+         "per_batch": b6_batch["by_stage"], "per_batch_shapes": b6_batch["shapes"],
+         "qwen14b_decode_step_one_request": b6_step_n},
         {**entry("B7", "conv2d_fused", "omni_avsr_tpu_torch/csrc/conv_block.cu",
                  "omni_avsr_tpu/ops/conv_block.py:70", b7, "d",
                  "one ResNet trunk of 480 frames (19 convs, summed); library_ms is cuDNN's "
                  "bf16 conv in channels_last with the epilogue as torch ops"),
          "cases": b7["cases"], "trunk_rel_l2": b7["trunk_rel_l2"],
          "tflop_per_s": b7["tflop_per_s"]},
+        {**entry("MOE", "balanced_assignment", "omni_avsr_tpu_torch/csrc/moe_route.cu",
+                 "omni_avsr_tpu/models/moe.py:71", moe_k, "o",
+                 "per launch: (o)'s prefill, 3 requests x 176 slots = 528 rows over 8 experts; "
+                 "launches per (o) batch; cases: a decode step's 45 rows and a "
+                 "train step's audio task, each bit-equal to the plain loop; kernel_ms: the "
+                 "launch alone, without the wrapper's sort; real_logits: every routing call "
+                 "of (o)'s first batch and first train step, bit-equal"),
+         "cases": moe_k["cases"], "real_logits": moe_k["real_logits"],
+         "replaces_note": "no TPU kernel: the JAX package's lax.scan greedy, "
+                          "_topk_balanced_assignment, which runs inside its jitted decoder"},
     ]}), flush=True)
     log("done", f"{time.perf_counter() - T0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .config import MODALITIES, AVHubertConfig, LLMConfig, OmniConfig, WhisperEncoderConfig
-from .models.common import Params
+from .models.common import Params, layer_slice
 from .models.whisper import sinusoidal_positions
 
 
@@ -93,8 +93,11 @@ class _Init:
         return {"scale": self.const((*lead, d), 1.0), "bias": self.const((*lead, d), 0.0)}
 
 
-def _init_llm(ini: _Init, cfg: LLMConfig) -> Params:
-    L, h = (cfg.num_layers,), cfg.hidden_size
+def _init_llm_layers(ini: _Init, cfg: LLMConfig, L: Tuple[int, ...]) -> Params:
+    """The decoder layers stacked over `L`; with `cfg.moe_experts > 0` an
+    MoE FFN ("moe") in place of the dense MLP, as the JAX `_init_layer`
+    (`omni_avsr_tpu/models/llm.py:94-102`)."""
+    h = cfg.hidden_size
     bias = cfg.attention_bias
     layers: Params = {
         "input_norm": {"scale": ini.const((*L, h), 1.0)},
@@ -105,12 +108,18 @@ def _init_llm(ini: _Init, cfg: LLMConfig) -> Params:
             "v": ini.linear(L, h, cfg.kv_dim, bias),
             "o": ini.linear(L, cfg.q_dim, h, False),
         },
-        "mlp": {
+    }
+    if cfg.moe_experts > 0:
+        from .models.moe import init_moe
+
+        layers["moe"] = init_moe(ini.g, cfg.moe_experts, h, cfg.intermediate_size, ini.device,
+                                 ini.dtype, lead=L)
+    else:
+        layers["mlp"] = {
             "gate": ini.linear(L, h, cfg.intermediate_size, False),
             "up": ini.linear(L, h, cfg.intermediate_size, False),
             "down": ini.linear(L, cfg.intermediate_size, h, False),
-        },
-    }
+        }
     if cfg.lora is not None:
         r = cfg.lora.bottleneck(h)
         v_out = h // cfg.lora.v_out_divisor
@@ -126,14 +135,24 @@ def _init_llm(ini: _Init, cfg: LLMConfig) -> Params:
         layers["lora"] = {m: pair() for m in MODALITIES} if cfg.lora.task_specific else pair()
         if cfg.lora.task_specific and cfg.lora.shared:  # the hybrid's shared adapter
             layers["lora_shared"] = pair()
+    return layers
+
+
+def _init_llm_rest(ini: _Init, cfg: LLMConfig) -> Params:
+    """The embedding table, the final norm and an untied lm_head."""
+    h = cfg.hidden_size
     params: Params = {
         "embed": {"w": ini.normal((cfg.vocab_size, h), 0.02)},
-        "layers": layers,
         "final_norm": {"scale": ini.const((h,), 1.0)},
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = {"w": ini.normal((h, cfg.vocab_size), 0.02)}
     return params
+
+
+def _init_llm(ini: _Init, cfg: LLMConfig) -> Params:
+    layers = _init_llm_layers(ini, cfg, (cfg.num_layers,))
+    return {**_init_llm_rest(ini, cfg), "layers": layers}
 
 
 def _init_whisper(ini: _Init, cfg: WhisperEncoderConfig) -> Params:
@@ -253,6 +272,43 @@ def init_params(cfg: OmniConfig, generator: torch.Generator, device="cuda",
         params["audio_proj"] = _init_projectors(train, cfg, cfg.audio_rates, cfg.whisper.hidden_size)
     if cfg.modality in ("video", "audiovisual") and cfg.avhubert is not None:
         params["avhubert"] = _init_avhubert(frozen, cfg.avhubert)
+        params["video_proj"] = _init_projectors(train, cfg, cfg.video_rates,
+                                                cfg.avhubert.encoder_embed_dim)
+    return params
+
+
+def init_serving_params(cfg: OmniConfig, generator: torch.Generator, quantize: str,
+                        device="cuda", frozen_dtype=torch.bfloat16,
+                        train_dtype=torch.float32) -> Params:
+    """Random serving weights at full width, straight into the card tree of
+    `quantize` ("int8" or "int4"; `ops/quant.py::quantize_for_card`'s
+    output): the LLM's embedding, final norm and untied lm_head are drawn
+    first and the lm_head quantised in runs of columns and freed; then each
+    decoder layer is drawn on `device` and quantised into the stacked card
+    tree before the next is drawn, so the whole float LLM never exists on
+    the device. The towers are drawn whole (as `init_params` draws them)
+    and quantised layer by layer; the projectors stay in `train_dtype`.
+    The distributions are `init_params`'s, not its numbers. Serve it as it
+    is: `Transcriber(model, tree)` (no `quantize`: it already is)."""
+    from .ops.quant import card_llm, card_tower
+
+    frozen = _Init(generator, device, frozen_dtype)
+    train = _Init(generator, device, train_dtype)
+    llm = cfg.llm
+
+    def place(path, t):
+        return t.to(device)
+
+    def layer(i):  # each call draws the next layer, stacked over one
+        return layer_slice(_init_llm_layers(frozen, llm, (1,)), 0)
+
+    params: Params = {"llm": card_llm(_init_llm_rest(frozen, llm), layer, llm.num_layers,
+                                      quantize, place)}
+    if cfg.modality in ("audio", "audiovisual") and cfg.whisper is not None:
+        params["whisper"] = card_tower(_init_whisper(frozen, cfg.whisper), place, "whisper")
+        params["audio_proj"] = _init_projectors(train, cfg, cfg.audio_rates, cfg.whisper.hidden_size)
+    if cfg.modality in ("video", "audiovisual") and cfg.avhubert is not None:
+        params["avhubert"] = card_tower(_init_avhubert(frozen, cfg.avhubert), place, "avhubert")
         params["video_proj"] = _init_projectors(train, cfg, cfg.video_rates,
                                                 cfg.avhubert.encoder_embed_dim)
     return params

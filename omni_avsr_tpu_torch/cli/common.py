@@ -102,7 +102,7 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--whisper-path", default=None, help="HF Whisper .bin/.pth state dict")
     p.add_argument("--llm-path", default=None, help="HF Llama/Qwen state dict")
     p.add_argument("--seed", type=int, default=42)
-    # multi-host, meshes and MoE: not ported (ROADMAP A5)
+    # multi-host and meshes: not ported (ROADMAP A5); MoE: models/moe.py
     p.add_argument("--num-nodes", type=int, default=1)
     p.add_argument("--coordinator-address", default=None)
     p.add_argument("--node-rank", type=int, default=None)
@@ -134,7 +134,6 @@ UNPORTED = {
     "mesh_ep": (1, "A5 (parallelism: expert parallel)"),
     "fsdp": (False, "A5 (parallelism: FSDP)"),
     "sequence_parallel": (False, "A5 (parallelism: sequence parallel)"),
-    "moe_experts": (0, "A5 (models/moe.py)"),
     "coordinator_address": (None, "A5 (parallelism: multi-host)"),
     "node_rank": (None, "A5 (parallelism: multi-host)"),
 }
@@ -229,6 +228,10 @@ def build_model(args) -> OmniAVSR:
         whisper = (whisper_medium_en() if "medium" in name
                    else whisper_small_en() if "small" in name else whisper_base_en())
         avhubert = avhubert_large(use_lora=args.use_lora_avhubert)
+
+    if getattr(args, "moe_experts", 0):  # `omni_avsr_tpu/cli/common.py:185-188`
+        llm = dataclasses.replace(llm, moe_experts=args.moe_experts, moe_routing=args.moe_routing,
+                                  moe_capacity_factor=args.moe_capacity_factor)
 
     rates_a = tuple(args.downsample_ratio_audio)
     rates_v = tuple(args.downsample_ratio_video)

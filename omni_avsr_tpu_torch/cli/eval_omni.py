@@ -86,14 +86,15 @@ def tasks_of(args):
 
 
 def decode_tree(engine: OmniEngine, quantize, **quantize_kw):
-    """The serving tree: the merged parameters, quantised
-    (`quantize_for_decode(..., **quantize_kw)`) and arranged for the card
-    when asked (`serve.py::Transcriber`)."""
+    """The serving tree: the merged parameters, quantised and arranged for
+    the card layer by layer when asked (`ops/quant.py::quantize_for_card`,
+    as `serve.py::Transcriber` builds it)."""
     merged = engine.merged_params()
     if quantize:
-        from ..ops.quant import arrange_for_card, quantize_for_decode
+        from ..ops.quant import quantize_for_card
 
-        merged = arrange_for_card(quantize_for_decode(merged, quantize, **quantize_kw))
+        merged = quantize_for_card(merged, quantize, lambda path, t: t.to(engine.device),
+                                   **quantize_kw)
     return merged
 
 

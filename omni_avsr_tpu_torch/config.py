@@ -64,6 +64,14 @@ class LLMConfig:
     attention_bias: bool = False
     max_position_embeddings: int = 131072
     lora: Optional[LoRAConfig] = None
+    # Mixture-of-Experts FFN (`models/moe.py`): moe_experts > 0 replaces each
+    # layer's SwiGLU MLP with an E-expert MoE of the same FFN width.
+    # "balanced" routing gives every expert an equal load (fairseq's BASE
+    # layers), "top1" is capacity routing, tokens past capacity falling
+    # through on the residual (`omni_avsr_tpu/config.py:93-101`).
+    moe_experts: int = 0
+    moe_routing: str = "balanced"  # "balanced" | "top1"
+    moe_capacity_factor: float = 1.25
 
     @property
     def q_dim(self) -> int:

@@ -16,7 +16,7 @@ from typing import Any, Dict
 
 import torch
 
-from ..ops.quant import quantized_matmul, quantized_matmul4
+from ..ops.quant import layer_slice, quantized_matmul, quantized_matmul4  # noqa: F401
 
 Params = Dict[str, Any]
 
@@ -40,10 +40,3 @@ def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
     if b is not None:
         y = y + b.to(x.dtype)
     return y
-
-
-def layer_slice(stacked: Params, i: int) -> Params:
-    """Layer i of an (L, ...)-stacked subtree."""
-    return {k: (layer_slice(v, i) if isinstance(v, dict) else v[i])
-            for k, v in stacked.items()}
-

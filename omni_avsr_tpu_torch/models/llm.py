@@ -47,6 +47,7 @@ from ..ops.norms import rms_norm
 from ..ops.quant import quantized_matmul, quantized_matmul4
 from ..ops.rope import apply_rope, rope_cos_sin
 from .common import Params, layer_slice, linear
+from .moe import moe_ffn
 
 
 def unstack_layers(params: Params, cfg: LLMConfig) -> List[Params]:
@@ -100,7 +101,15 @@ def _qkv_with_lora(layer: Params, cfg: LLMConfig, x: torch.Tensor,
     return q, k, v
 
 
-def _mlp_block(layer: Params, x: torch.Tensor) -> torch.Tensor:
+def _mlp_block(layer: Params, x: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
+    """The layer's SwiGLU MLP (fused gate|up in decode trees), or its MoE FFN
+    when the layer has one (`cfg.moe_experts > 0`, `models/moe.py`; the
+    aux loss is dropped, as the JAX decoder drops it,
+    `omni_avsr_tpu/models/llm.py:244-252`). The MoE routes every row of
+    `x` together, in `x.reshape(-1, H)` order, as the JAX decoder does."""
+    if "moe" in layer:
+        y, _ = moe_ffn(layer["moe"], x, cfg.moe_capacity_factor, cfg.moe_routing)
+        return y
     mlp = layer["mlp"]
     if "gateup" in mlp:
         g, u = torch.chunk(linear(x, mlp["gateup"]), 2, dim=-1)
@@ -150,7 +159,7 @@ def _decoder_layer(layer: Params, cfg: LLMConfig, x: torch.Tensor, cos: torch.Te
         out = dot_product_attention(q, k, v, mask=mask)
     x = x + linear(out.reshape(B, T, cfg.q_dim), layer["attn"]["o"])
     h = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
-    return x + _mlp_block(layer, h)
+    return x + _mlp_block(layer, h, cfg)
 
 
 REMAT_POLICIES = ("dots", "off", "full")
@@ -284,7 +293,7 @@ def llm_prefill_masked(
         out = dot_product_attention(q, cache.k[i].to(q.dtype), cache.v[i].to(q.dtype), mask=qmask)
         x = x + linear(out.reshape(B, P, cfg.q_dim), layer["attn"]["o"])
         h = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
-        x = x + _mlp_block(layer, h)
+        x = x + _mlp_block(layer, h, cfg)
     x_last = x[torch.arange(B, device=x.device), last_idx][:, None]  # (B, 1, H)
     return lm_head(params, cfg, x_last)[:, 0], cache
 
@@ -353,7 +362,7 @@ def llm_decode_step(
         out = dot_product_attention(q, cache.k[i].to(q.dtype), cache.v[i].to(q.dtype), mask=mask)
         x = x + linear(out.reshape(B, 1, cfg.q_dim), layer["attn"]["o"])
         h2 = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
-        x = x + _mlp_block(layer, h2)
+        x = x + _mlp_block(layer, h2, cfg)
     return lm_head(params, cfg, x)[:, 0], cache
 
 
@@ -478,7 +487,7 @@ def llm_decode_step_beam(
         cache.append_(i, k_cur, v_cur, step)
         x = x + linear(out.reshape(BK, 1, cfg.q_dim), layer["attn"]["o"])
         h2 = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
-        x = x + _mlp_block(layer, h2)
+        x = x + _mlp_block(layer, h2, cfg)
     return lm_head(params, cfg, x)[:, 0], cache
 
 
@@ -559,5 +568,5 @@ def llm_decode_step_beam_anc(
         cache.append_(i, k_cur, v_cur, step, num_beams)
         x = x + linear(out.reshape(BK, 1, cfg.q_dim), layer["attn"]["o"])
         h2 = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
-        x = x + _mlp_block(layer, h2)
+        x = x + _mlp_block(layer, h2, cfg)
     return lm_head(params, cfg, x)[:, 0], cache

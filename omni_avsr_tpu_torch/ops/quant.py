@@ -34,11 +34,12 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..kernels import check, load, sm_count
+from ..train.state import tree_leaves
 
 Leaf = Dict[str, torch.Tensor]
 
@@ -79,10 +80,19 @@ def unpack_int4(w4: torch.Tensor, n: int) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-2).reshape(*w4.shape[:-2], -1)[..., :n].to(torch.int8)
 
 
+MOE_UNQUANTISED = (
+    "int8/int4 decode weights of an MoE decoder: not supported. The JAX package's "
+    "quantize_llm_params and fuse_decode_projections read each layer's dense 'mlp' "
+    "(omni_avsr_tpu/ops/quant.py:251, :394), which an MoE layer replaces with 'moe', so an MoE "
+    "decoder serves unquantised there (quantize=None) and here too")
+
+
 def quantize_llm_params(params: Dict, bits: int = 8) -> Dict:
     """Quantised codes for the LLM layers' attn/mlp matrices and an
     unembedding copy under "lm_head" (tied models); LoRA, norms and the
-    embedding table stay as they are."""
+    embedding table stay as they are. An MoE tree raises (`MOE_UNQUANTISED`)."""
+    if "moe" in params["layers"]:
+        raise ValueError(MOE_UNQUANTISED)
     out = dict(params)
     layers = dict(params["layers"])
     for blk_name in ("attn", "mlp"):
@@ -248,7 +258,7 @@ def arrange_for_card(tree: Dict) -> Dict:
     layout that B2 reads, and every packed-int4 leaf {"w4", "s"} -> {"w4c",
     "s"} in the one that B6 reads, other keys kept; float weights stay as
     they are. Stacked (L, K, N) leaves keep their leading axis, so
-    `models/common.py::layer_slice` still takes one layer."""
+    `layer_slice` still takes one layer."""
 
     def walk(node):
         if not isinstance(node, dict):
@@ -263,6 +273,204 @@ def arrange_for_card(tree: Dict) -> Dict:
         return {k: walk(v) for k, v in node.items()}
 
     return walk(tree)
+
+
+# ---------------------------------------------------------------------------
+# The serving tree's card layout, built one layer at a time
+# ---------------------------------------------------------------------------
+
+# where(path, tensor) -> the tensor on the target device (and dtype)
+Place = Callable[[str, torch.Tensor], torch.Tensor]
+# the LLM blocks' fused decode leaves and their parts (`fuse_decode_projections`)
+_FUSED = (("attn", "qkv", ("q", "k", "v")), ("mlp", "gateup", ("gate", "up")))
+HEAD_COLUMNS = 16384  # lm_head columns quantised at a time (a multiple of CARD_PAD_N)
+
+
+def place_tree(tree: Dict, place: Place, prefix: str = "") -> Dict:
+    """Every leaf of `tree` through `place(dotted path, leaf)`."""
+    return {k: (place_tree(v, place, f"{prefix}.{k}" if prefix else k) if isinstance(v, dict)
+                else place(f"{prefix}.{k}" if prefix else k, v))
+            for k, v in tree.items()}
+
+
+def _card_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    return card_int8_layout(codes) if bits == 8 else card_int4_layout(codes)
+
+
+def _card_leaf(parts, bits: int) -> Leaf:
+    """Float leaves {"w" (K, n_i), other keys (n_i,)} -> one card leaf of
+    their columns side by side: each part's codes and scales written into
+    their columns of one layer's buffer, then laid out for the card; the
+    other keys (Qwen's biases) concatenated."""
+    w0 = parts[0]["w"]
+    widths = [p["w"].shape[-1] for p in parts]
+    codes = torch.empty((w0.shape[0], sum(widths)), dtype=torch.int8, device=w0.device)
+    scales = torch.empty((sum(widths),), dtype=torch.float32, device=w0.device)
+    c0 = 0
+    for p, n in zip(parts, widths):
+        q = quantize_per_channel(p["w"], bits)
+        codes[:, c0:c0 + n] = q["w"]
+        scales[c0:c0 + n] = q["s"]
+        c0 += n
+    rest = {k: (parts[0][k] if len(parts) == 1 else torch.cat([p[k] for p in parts], dim=-1))
+            for k in parts[0] if k != "w"}
+    return {**rest, "s": scales, ("wc" if bits == 8 else "w4c"): _card_codes(codes, bits)}
+
+
+def layer_slice(stacked: Dict, i: int) -> Dict:
+    """Layer i of an (L, ...)-stacked subtree."""
+    return {k: (layer_slice(v, i) if isinstance(v, dict) else v[i]) for k, v in stacked.items()}
+
+
+def _stack_layers(num_layers: int, layer_out: Callable[[int], Dict]) -> Dict:
+    """The (L, ...)-stacked tree of `layer_out(0..L-1)`, written layer by
+    layer into outputs allocated once, at the first layer's shapes."""
+
+    def alloc(node):
+        return {k: alloc(v) if isinstance(v, dict) else v.new_empty((num_layers, *v.shape))
+                for k, v in node.items()}
+
+    def write(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                write(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
+    out = None
+    for i in range(num_layers):
+        tree = layer_out(i)
+        if out is None:
+            out = alloc(tree)
+        write(out, tree, i)
+        del tree
+    return out
+
+
+def _card_llm_layer(layer: Dict, bits: int, place: Place, prefix: str) -> Dict:
+    """One LLM layer -> its card layer: every leaf placed, the attn and mlp
+    matrices quantised with q|k|v and gate|up fused."""
+    if "moe" in layer:
+        raise ValueError(MOE_UNQUANTISED)
+    placed = place_tree(layer, place, prefix)
+    out = {k: v for k, v in placed.items() if k not in ("attn", "mlp")}
+    for blk, fused, parts in _FUSED:
+        node = dict(placed[blk])
+        out[blk] = {fused: _card_leaf([node.pop(p) for p in parts], bits),
+                    **{k: _card_leaf([leaf], bits) for k, leaf in node.items()}}
+    return out
+
+
+def _card_head(head: Callable[[int, int], torch.Tensor], n: int, bits: int) -> Leaf:
+    """The lm_head's card leaf from `head(c0, c1)`, its placed (K, c1 - c0)
+    columns, HEAD_COLUMNS at a time: the scales are per column and the
+    card layout's leading axis is 64-column tiles, so each run of columns
+    fills its own rows of outputs allocated once."""
+    codes = scales = None
+    for c0 in range(0, n, HEAD_COLUMNS):
+        c1 = min(n, c0 + HEAD_COLUMNS)
+        q = quantize_per_channel(head(c0, c1), bits)
+        part = _card_codes(q["w"], bits)
+        if codes is None:
+            np_ = -(-n // CARD_PAD_N) * CARD_PAD_N
+            codes = part.new_empty((np_ // 64, *part.shape[1:]))
+            scales = q["s"].new_empty((n,))
+        codes[c0 // 64: c0 // 64 + part.shape[0]] = part
+        scales[c0:c1] = q["s"]
+    return {"s": scales, ("wc" if bits == 8 else "w4c"): codes}
+
+
+def _mode_bits(mode: str) -> int:
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"quantize mode {mode!r}: expected 'int8' or 'int4'")
+    return 4 if mode == "int4" else 8
+
+
+def card_llm(rest: Dict, layer: Callable[[int], Dict], num_layers: int, mode: str,
+             place: Place, prefix: str = "llm") -> Dict:
+    """The LLM's serving tree in the card layout, one layer at a time:
+    `rest` holds the embedding, the final norm and an untied "lm_head";
+    `layer(i)` gives layer i's float tree (a slice of a stacked tree, or
+    one drawn or loaded for the call), whose placed copy is dropped once
+    it is written. The lm_head is quantised first, in runs of columns, and
+    taken out of `rest` (the dict is changed): where the caller keeps no
+    other reference to it, it is freed before the layers come. The result
+    is bit-identical to `arrange_for_card(quantize_for_decode)` of the
+    placed tree (LLM part)."""
+    bits = _mode_bits(mode)
+    head = rest.pop("lm_head", None)
+    out = {k: place_tree(v, place, f"{prefix}.{k}") if isinstance(v, dict)
+           else place(f"{prefix}.{k}", v) for k, v in rest.items()}
+    if head is not None:
+        w = head["w"]
+        out["lm_head"] = _card_head(
+            lambda c0, c1: place(f"{prefix}.lm_head.w", w[:, c0:c1]), w.shape[-1], bits)
+        del head, w
+    else:  # tied: the unembedding is the placed embedding table's transpose
+        emb = out["embed"]["w"]
+        out["lm_head"] = _card_head(lambda c0, c1: emb[c0:c1].t(), emb.shape[0], bits)
+    out["layers"] = _stack_layers(
+        num_layers, lambda i: _card_llm_layer(layer(i), bits, place, f"{prefix}.layers"))
+    return out
+
+
+def _card_tower_layer(layer: Dict, place: Place, prefix: str, in_lora: bool = False) -> Dict:
+    """One tower layer: its (K, N) matrices int8 in the card layout (not the
+    LoRA adapters), every other leaf placed (`quantize_tower_params`)."""
+    out = {}
+    for k, v in layer.items():
+        path = f"{prefix}.{k}"
+        if not isinstance(v, dict):
+            out[k] = place(path, v)
+            continue
+        w = v.get("w")
+        lora = in_lora or k == "lora"
+        if not lora and isinstance(w, torch.Tensor) and w.ndim == 2 and w.dtype != torch.int8:
+            out[k] = _card_leaf([place_tree(v, place, path)], 8)
+        else:
+            out[k] = _card_tower_layer(v, place, path, lora)
+    return out
+
+
+def card_tower(tower: Dict, place: Place, prefix: str) -> Dict:
+    """An encoder tower's serving tree: the stacked "layers" int8 in the
+    card layout one layer at a time, every other leaf placed."""
+    out = {}
+    for k, v in tower.items():
+        path = f"{prefix}.{k}"
+        if k == "layers":
+            L = next(iter(tree_leaves(v))).shape[0]
+            out[k] = _stack_layers(L, lambda i: _card_tower_layer(layer_slice(v, i), place, path))
+        else:
+            out[k] = place_tree(v, place, path) if isinstance(v, dict) else place(path, v)
+    return out
+
+
+def quantize_for_card(merged: Dict, mode: str, place: Place, llm_only: bool = False) -> Dict:
+    """The serving tree of `mode` ("int8" or "int4") in the card layout,
+    built on the target device one layer at a time from leaves on the host
+    or on the card: bit-identical to `arrange_for_card(quantize_for_decode(
+    place_tree(merged, place), mode, llm_only))`, without the whole float
+    LLM, a quantised copy or a fused copy ever on the device beside it.
+    `place(path, leaf)` puts a leaf where it is served (`leaf.to(device)`;
+    `serve.py::placer` also casts the trainable leaves);
+    a layer's placed copy is dropped once written. An MoE tree raises
+    (`MOE_UNQUANTISED`)."""
+    _mode_bits(mode)
+    if "moe" in merged["llm"]["layers"]:
+        raise ValueError(MOE_UNQUANTISED)
+    out = {}
+    for key, sub in merged.items():
+        if key == "llm":
+            rest = {k: v for k, v in sub.items() if k != "layers"}
+            layers = sub["layers"]
+            L = next(iter(tree_leaves(layers))).shape[0]
+            out[key] = card_llm(rest, lambda i: layer_slice(layers, i), L, mode, place)
+        elif key in ("whisper", "avhubert") and not llm_only:
+            out[key] = card_tower(sub, place, key)
+        else:
+            out[key] = place_tree(sub, place, key) if isinstance(sub, dict) else place(key, sub)
+    return out
 
 
 def int8_codes(q: Leaf, k: int) -> torch.Tensor:

@@ -61,24 +61,18 @@ def bucket_ladder(n: int, base: int) -> int:
     return v
 
 
-def merged_params(params: Params, dtype, device, is_trainable) -> Params:
-    """The serving tree on `device`, the leaves `is_trainable` names (the
-    model's `trainable_predicate`) cast to the compute dtype, as the JAX
-    engine's `merged_params` does with its trainable tree."""
+def placer(dtype, device, is_trainable):
+    """`place(path, leaf)` of the serving tree: the leaf on `device`, the
+    leaves `is_trainable` names (the model's `trainable_predicate`) cast to
+    the compute dtype, as the JAX engine's `merged_params` does with its
+    trainable tree."""
 
-    def walk(node, prefix):
-        out = {}
-        for k, v in node.items():
-            path = f"{prefix}.{k}" if prefix else k
-            if isinstance(v, dict):
-                out[k] = walk(v, path)
-            elif is_trainable(path) and v.is_floating_point():
-                out[k] = v.to(device=device, dtype=dtype)
-            else:
-                out[k] = v.to(device)
-        return out
+    def place(path: str, v: torch.Tensor) -> torch.Tensor:
+        if is_trainable(path) and v.is_floating_point():
+            return v.to(device=device, dtype=dtype)
+        return v.to(device)
 
-    return walk(params, "")
+    return place
 
 
 VIDEO_PAD_MULTIPLE = 32  # frames, the default; audio pads to 640 samples per frame
@@ -182,6 +176,14 @@ def ids_to_texts(tok, ids: torch.Tensor) -> List[str]:
 
 
 class Transcriber:
+    """The serving API. `params` may sit on the host or on `device`; every
+    leaf is placed on `device` (`placer`). With `quantize` ("int8" or
+    "int4") the decode tree is built one layer at a time from where the
+    leaves are (`ops/quant.py::quantize_for_card`), so the float LLM is
+    never on the card whole; an MoE tree refuses a quantize mode. A tree
+    already in the card layout (`bridge.init_serving_params`) is served
+    as it is, without `quantize`."""
+
     def __init__(
         self,
         model: OmniAVSR,
@@ -205,12 +207,15 @@ class Transcriber:
         self.conv_kernel = conv_kernel
         self.video_pad_multiple = video_pad_multiple
         self.device = torch.device(device)
-        self.params = merged_params(params, model.dtype, self.device,
-                                    model.trainable_predicate())
-        if quantize:
-            from .ops.quant import arrange_for_card, quantize_for_decode
+        place = placer(model.dtype, self.device, model.trainable_predicate())
+        if quantize:  # built layer by layer from where the caller's leaves are
+            from .ops.quant import quantize_for_card
 
-            self.params = arrange_for_card(quantize_for_decode(self.params, quantize))
+            self.params = quantize_for_card(params, quantize, place)
+        else:
+            from .ops.quant import place_tree
+
+            self.params = place_tree(params, place)
         self.num_beams = num_beams if num_beams is not None else model.cfg.num_beams
         self.max_new = max_new_tokens if max_new_tokens is not None else model.cfg.max_dec_tokens
         self.last_decode_steps = 0  # decode steps of the last batch
@@ -235,7 +240,9 @@ class Transcriber:
         hold only the trainable tree, which is merged over `base_params`
         (the converted frozen weights), or over random ones from seed 0
         (`bridge.init_params`) with `allow_random_base=True`, for tests.
-        `kwargs` go to the constructor (device, quantize, num_beams...)."""
+        `kwargs` go to the constructor (device, quantize, num_beams...).
+        Converted weights stay on the host until the constructor places
+        them: with `quantize`, one layer at a time into the card tree."""
         from .data.tokenizer import load_hf_tokenizer
         from .models.omni import registry_model
 

@@ -1,7 +1,8 @@
 """ctypes bindings for the repository's host-side C++ library
-(`native/editdist.cpp`): word edit distance, BLEU n-gram statistics and
-frame-budget bucket packing (port of the subset of
-`omni_avsr_tpu/utils/native.py` that WER, BLEU and batching use).
+(`native/editdist.cpp`): word edit distance, BLEU n-gram statistics,
+frame-budget bucket packing and the auction solver of balanced assignment
+(port of the subset of `omni_avsr_tpu/utils/native.py` that WER, BLEU,
+batching and MoE routing studies use).
 
 The library is built with `g++` at first use into `build/native/` at the
 repository root, under a file name that carries a hash of the source, so
@@ -69,6 +70,9 @@ def load() -> ctypes.CDLL:
             lib.bucket_pack.restype = ctypes.c_int64
             lib.bucket_pack.argtypes = [_I64P, _I64P, ctypes.c_int64, ctypes.c_int64,
                                         ctypes.c_int64, ctypes.c_int64, _I64P, _I64P]
+            lib.balanced_assignment.restype = ctypes.c_int64
+            lib.balanced_assignment.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+                                                ctypes.c_int64, _I64P]
             _lib = lib
         return _lib
 
@@ -177,3 +181,56 @@ def bucket_batches_py(lengths: Sequence[int], max_frames: int, num_buckets: int,
     if cur:
         batches.append(cur)
     return batches
+
+
+def balanced_assignment_native(scores: np.ndarray) -> np.ndarray:
+    """Balanced linear assignment: each of W workers gets exactly J / W of
+    the J jobs, maximising the total score (the auction algorithm of
+    fairseq's libbase `balanced_assignment.cpp`, BASE-layer MoE routing),
+    on the host, as in the JAX package. scores: float (J, W); returns
+    int64 (J,) where positions w*k .. w*k+k-1 hold worker w's jobs."""
+    scores = np.ascontiguousarray(scores, np.float32)
+    num_jobs, num_workers = scores.shape
+    if num_jobs % num_workers:
+        raise ValueError(f"{num_workers} workers do not divide {num_jobs} jobs")
+    out = np.empty(num_jobs, np.int64)
+    rc = load().balanced_assignment(_ptr(scores, ctypes.c_float), num_jobs, num_workers,
+                                    _ptr(out, ctypes.c_int64))
+    if rc != 0:
+        raise RuntimeError("balanced_assignment failed")
+    return out
+
+
+def balanced_assignment_py(scores: np.ndarray) -> np.ndarray:
+    """The numpy auction (`omni_avsr_tpu/utils/native.py:200-228`): the same
+    iterations as the library, on float64 values."""
+    num_jobs, num_workers = scores.shape
+    k = num_jobs // num_workers
+    max_iterations = 100
+    eps = max((scores.max() - scores.min()) / 50.0, 1e-4)
+    base = scores.T.astype(np.float64).copy()  # (W, J)
+    value = base.copy()
+    cost = np.zeros(num_jobs)
+    retained = np.zeros(0, np.int64)
+    counter = 0
+    while True:
+        bids = np.zeros_like(base)
+        # descending top-(k+1), ties to the lower index
+        top_index = np.argsort(-value, axis=1, kind="stable")[:, : k + 1]
+        top_values = np.take_along_axis(value, top_index, axis=1)
+        incr = top_values[:, :k] - top_values[:, k:] + eps
+        np.put_along_axis(bids, top_index[:, :k], incr, axis=1)
+        if 0 < counter < max_iterations:
+            bids.reshape(-1)[retained] = eps
+        high_bids = bids.max(axis=0)
+        high_bidders = bids.argmax(axis=0)
+        have = high_bids > 0
+        if have.all():
+            break
+        cost += high_bids
+        value = base - cost[None, :]
+        retained = (high_bidders * num_jobs + np.arange(num_jobs))[have]
+        value.reshape(-1)[retained] = (
+            base.max() if counter < max_iterations else base.reshape(-1)[retained])
+        counter += 1
+    return top_index[:, :k].reshape(-1).astype(np.int64)

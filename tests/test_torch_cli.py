@@ -242,7 +242,7 @@ def test_cli_refuses_to_run_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--num-nodes", "2"], ["--mesh-tp", "2"], ["--mesh-pp", "2"], ["--mesh-ep", "2"],
-    ["--fsdp", "true"], ["--sequence-parallel", "true"], ["--moe-experts", "4"],
+    ["--fsdp", "true"], ["--sequence-parallel", "true"], ["--node-rank", "1"],
     ["--coordinator-address", "10.0.0.1:1234"],
 ])
 def test_unported_flags_raise(tmp_path, flag):

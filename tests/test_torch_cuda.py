@@ -654,3 +654,64 @@ def test_reorder_route_agrees_with_b1(cuda_device, B, K, Hq, Hkv, D, P, N, step)
                                  c["k_cur"], c["v_cur"], c["prefix_bias"] == 0.0,
                                  torch.arange(N, device=cuda_device) < step, K)
     torch.testing.assert_close(out, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,E,capacity,ties", [
+    (45, 8, 6, False),      # a beam-15 decode step of 3 requests
+    (528, 8, 66, False),    # a prefill of 3 x 176 slots
+    (4164, 8, 521, False),  # a training forward: several staging chunks
+    (200, 64, 4, True),     # 64 experts (two per lane), tied scores
+    (100, 8, 10, True),     # capacity * E < N: tokens left with -1
+    (7, 3, 3, False),       # fewer experts than a warp's lanes
+])
+def test_moe_route_kernel_bit_equal_plain(cuda_device, N, E, capacity, ties):
+    from omni_avsr_tpu_torch.ops.moe_route import balanced_assignment, balanced_assignment_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(N + E)
+    scores = torch.randn(N, E, generator=g, device=cuda_device)
+    if ties:
+        scores[N // 2:] = scores[: N - N // 2]
+        scores[:, 1] = scores[:, 0]
+    before = balanced_assignment.launches
+    got = balanced_assignment(scores, capacity)
+    torch.cuda.synchronize()
+    assert balanced_assignment.launches == before + 1
+    want = balanced_assignment_plain(scores.cpu(), capacity)
+    assert torch.equal(got.cpu(), want)
+    loads = torch.bincount(want[want >= 0].long(), minlength=E)
+    assert int(loads.max()) <= capacity and int((want < 0).sum()) == max(0, N - capacity * E)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("source", ["host", "device"])
+def test_stream_quantiser_on_the_card(cuda_device, mode, source):
+    """The layer-streaming quantiser on the card, from host leaves and from
+    card leaves, bit-identical to the whole-tree reference built on the
+    card."""
+    import dataclasses
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.models.omni import flagship
+    from omni_avsr_tpu_torch.ops.quant import (arrange_for_card, place_tree, quantize_for_card,
+                                               quantize_for_decode)
+
+    m = flagship(tiny=True)
+    cfg = dataclasses.replace(m.cfg, llm=dataclasses.replace(
+        m.cfg.llm, attention_bias=True, tie_word_embeddings=False))
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = place_tree(host, lambda p, t: t.to(cuda_device))
+    want = arrange_for_card(quantize_for_decode(on_card, mode))
+    got = quantize_for_card(host if source == "host" else on_card, mode,
+                            lambda p, t: t.to(cuda_device))
+
+    def cmp(a, b):
+        assert a.keys() == b.keys()
+        for k in a:
+            if isinstance(a[k], dict):
+                cmp(a[k], b[k])
+            else:
+                assert b[k].is_cuda and torch.equal(a[k], b[k]), k
+
+    cmp(want, got)

@@ -188,15 +188,16 @@ def _kernels_line_entries():
     return found
 
 
-@pytest.mark.parametrize("key", ["B1", "B2", "B3", "B4", "B5", "B6", "B7"])
+@pytest.mark.parametrize("key", ["B1", "B2", "B3", "B4", "B5", "B6", "B7", "MOE"])
 def test_kernels_line_names_the_kernel_source(key):
     """Each kernel of chip_smoke.py's `kernels` line names the csrc file
     that its wrapper builds and loads, that file defines the wrapper's C
-    entry point, and `replaces` points at the TPU kernel's `def`."""
+    entry point, and `replaces` points at the TPU kernel's `def` (for the
+    port's own MOE routing kernel, at the JAX function it stands in for)."""
     import re
 
     entries = _kernels_line_entries()
-    assert sorted(entries) == ["B1", "B2", "B3", "B4", "B5", "B6", "B7"]
+    assert sorted(entries) == ["B1", "B2", "B3", "B4", "B5", "B6", "B7", "MOE"]
     name, source, replaces = entries[key]
     # the ops module that defines the wrapper, and what it loads
     modules = [p for p in sorted((ROOT / "omni_avsr_tpu_torch" / "ops").glob("*.py"))
@@ -211,4 +212,5 @@ def test_kernels_line_names_the_kernel_source(key):
     assert re.search(rf'extern "C" int {symbol}\(', cu.read_text()), (source, symbol)
     path, line = replaces.split(":")
     text = (ROOT / path).read_text().splitlines()[int(line) - 1]
-    assert re.match(r"def _\w*kernel\(", text), (replaces, text)
+    want = r"def _topk_balanced_assignment\(" if key == "MOE" else r"def _\w*kernel\("
+    assert re.match(want, text), (replaces, text)

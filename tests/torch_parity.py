@@ -51,6 +51,16 @@ def jax_tiny_flagship(bucket: bool = True):
     return model
 
 
+def jax_moe_flagship(routing: str = "balanced", experts: int = 4):
+    """The tiny JAX flagship with its LLM's MLPs replaced by `experts`
+    experts (`omni_avsr_tpu/cli/common.py:185-188`)."""
+    from omni_avsr_tpu.models.omni import OmniAVSR
+
+    jm = jax_tiny_flagship()
+    llm = dataclasses.replace(jm.cfg.llm, moe_experts=experts, moe_routing=routing)
+    return OmniAVSR(dataclasses.replace(jm.cfg, llm=llm), jm.tok)
+
+
 def jax_tiny_params(model, seed: int = 0):
     """numpy f32 parameter tree of the JAX model, LoRA downs randomised."""
     init = jax.jit(lambda k: model.init_params(k, frozen_dtype=jnp.float32))
