@@ -1632,6 +1632,336 @@ def train_phase():
     return row, agree, conv_row
 
 
+# ------------------------------------------------------- (p): parallelism
+
+P_SHARD_MODELS = (  # (label, Hq, Hkv, D, hidden, FFN, layers, vocab for B2 / B5)
+    ("Llama-3.2-1B", 32, 8, 64, 2048, 8192, 16, 128256),
+    ("Qwen2.5-7B", 28, 4, 128, 3584, 18944, 28, 152064),
+)
+
+
+def _b2_leaf(K: int, N: int, seed: int, layers: int = 1):
+    """A JAX-layout int8 leaf {"w" (layers, K, N), "s" (layers, N)} of
+    seeded codes (`layers=0`: no layer axis)."""
+    import torch
+
+    lead = (layers,) if layers else ()
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    w = torch.randint(-127, 128, (*lead, K, N), generator=g, device=DEV, dtype=torch.int32)
+    s = torch.rand(*lead, N, generator=g, device=DEV) * 0.01 + 1e-3
+    return {"w": w.to(torch.int8), "s": s}
+
+
+def _b2_bound(M: int, K: int, N: int, out_bytes: int) -> float:
+    return bound_ms(K * N + 4 * N + 2 * M * K + out_bytes * M * N, 2.0 * M * N * K)[0]
+
+
+def shard_b2(flush, tp: int, H: int, F: int, Hq: int, Hkv: int, D: int, vocab: int,
+             layers: int, M: int) -> dict:
+    """One tp rank's B2 launches of a decode step: its shard of a one-layer
+    int8 serving tree cut by `serve.py::shard_serving_tree`, as
+    `Transcriber(mesh=...)` cuts it (q|k|v, gate|up and the lm_head by
+    columns, o and down by rows, fused and laid out for the card per
+    rank), each product held against the unsharded tree's (the same
+    function at tp 1): the ranks' columns concatenated, the row-split
+    partials summed as the all-reduce sums them."""
+    import torch
+
+    from omni_avsr_tpu_torch.ops.quant import layer_slice, quantized_matmul
+    from omni_avsr_tpu_torch.serve import shard_serving_tree
+
+    x = torch.randn(M, max(H, F), device=DEV).to(torch.bfloat16)
+    q_dim, kv_dim = Hq * D, Hkv * D
+    tree = {"llm": {"layers": {
+        "attn": {"q": _b2_leaf(H, q_dim, 1), "k": _b2_leaf(H, kv_dim, 2),
+                 "v": _b2_leaf(H, kv_dim, 3), "o": _b2_leaf(q_dim, H, 4)},
+        "mlp": {"gate": _b2_leaf(H, F, 5), "up": _b2_leaf(H, F, 6), "down": _b2_leaf(F, H, 7)}},
+        "lm_head": _b2_leaf(H, vocab, 8, layers=0)}}
+
+    def leaves(r, n):  # {product: (input, card leaf)} of rank r of n
+        local, blocks = shard_serving_tree(tree, {"tp": n}, True, coords={"tp": r})
+        if n > 1 and blocks != {"llm.attn", "llm.mlp", "llm.lm_head"}:
+            raise RuntimeError(f"B2 tp {n}: blocks {sorted(blocks)} run replicated")
+        layer = layer_slice(local["llm"]["layers"], 0)
+        qs, fs = slice(r * q_dim // n, (r + 1) * q_dim // n), slice(r * F // n, (r + 1) * F // n)
+        return {"qkv": (x[:, :H], layer["attn"]["qkv"]), "o": (x[:, qs], layer["attn"]["o"]),
+                "gateup": (x[:, :H], layer["mlp"]["gateup"]),
+                "down": (x[:, fs], layer["mlp"]["down"]),
+                "lm_head": (x[:, :H], local["llm"]["lm_head"])}
+
+    def mm(xm, leaf):
+        return quantized_matmul(xm.contiguous(), leaf, out_dtype=torch.float32)
+
+    full = {k: mm(*v) for k, v in leaves(0, 1).items()}
+    rank_leaves = [leaves(r, tp) for r in range(tp)]
+    parts = {k: [mm(*lv[k]) for lv in rank_leaves] for k in full}
+    fl, ql, kl = F // tp, q_dim // tp, kv_dim // tp
+
+    def regroup(pieces, bounds):  # each rank's [a_r | b_r | ...] -> [a | b | ...]
+        return torch.cat([torch.cat([p[:, c0:c1] for p in pieces], 1) for c0, c1 in bounds], 1)
+
+    got = {"o": sum(parts["o"]), "down": sum(parts["down"]),
+           "lm_head": torch.cat(parts["lm_head"], 1),
+           "gateup": regroup(parts["gateup"], [(0, fl), (fl, 2 * fl)]),
+           "qkv": regroup(parts["qkv"], [(0, ql), (ql, ql + kl), (ql + kl, ql + 2 * kl)])}
+    errs = {}
+    for k in full:
+        rel = ((got[k] - full[k]).norm() / full[k].norm()).item()
+        errs[k] = rel
+        if rel > 1e-5:
+            raise RuntimeError(f"B2 tp {tp} {k}: ranks vs unsharded relative L2 {rel:.3g}")
+    # rank 0's launches timed (every rank's shapes are the same)
+    row = {"max_rel_l2": max(errs.values())}
+    step_ms = step_bound = 0.0
+    for k, (xm, leaf) in rank_leaves[0].items():
+        xm = xm.contiguous()
+        Kd, Nd = xm.shape[1], leaf["s"].shape[-1]
+        out_b = 4 if k == "lm_head" else 2
+        odt = torch.float32 if k == "lm_head" else torch.bfloat16
+        ms = time_ms(lambda: quantized_matmul(xm, leaf, out_dtype=odt), flush, iters=20)
+        bnd = _b2_bound(M, Kd, Nd, out_b)
+        reps = 1 if k == "lm_head" else layers
+        row[k] = dict(K=Kd, N=Nd, ms=ms, bound_ms=bnd)
+        step_ms += reps * ms
+        step_bound += reps * bnd
+    row.update(decode_step_ms=step_ms, decode_step_bound_ms=step_bound)
+    return row
+
+
+def shard_b1(flush, tp: int, Hq: int, Hkv: int, D: int, layers: int) -> dict:
+    """One tp rank's B1 launch at its heads (Hq/tp, Hkv/tp), every rank's
+    output held against the unsharded kernel's heads."""
+    import torch
+
+    from omni_avsr_tpu_torch.ops.beam_attention import beam_decode_attention
+
+    step = 17
+    inp = b1_inputs(B_SERVE, P_BUCKET, step, seed=tp * 100 + Hq, heads=(Hq, Hkv, D))
+    full = beam_decode_attention(**inp, step=step, num_beams=K)
+    hq, hkv = Hq // tp, Hkv // tp
+    rank_inp = []
+    for r in range(tp):
+        qs, ks = slice(r * hq, (r + 1) * hq), slice(r * hkv, (r + 1) * hkv)
+        ri = dict(inp, q=inp["q"][:, :, qs].contiguous(), pk=inp["pk"][:, ks].contiguous(),
+                  pv=inp["pv"][:, ks].contiguous(), gk=inp["gk"][:, ks].contiguous(),
+                  gv=inp["gv"][:, ks].contiguous(), k_cur=inp["k_cur"][:, ks].contiguous(),
+                  v_cur=inp["v_cur"][:, ks].contiguous())
+        rank_inp.append(ri)
+    got = torch.cat([beam_decode_attention(**ri, step=step, num_beams=K) for ri in rank_inp], 2)
+    torch.testing.assert_close(got.float(), full.float(), **BF16_TOL)
+    err = (got.float() - full.float()).abs().max().item()
+    ri = rank_inp[0]
+    ms = time_ms(lambda: beam_decode_attention(**ri, step=step, num_beams=K), flush, iters=20)
+    bnd = b1_bound_ms(ri, step)
+    return dict(Hq=hq, Hkv=hkv, D=D, max_abs_err=err, ms=ms, bound_ms=bnd,
+                decode_step_ms=layers * ms, decode_step_bound_ms=layers * bnd)
+
+
+def shard_b5(flush, tp: int, V: int) -> dict:
+    """One tp rank's B5 launch and chunked top-2K on V/tp of 45 rows of
+    logits (`decode/decoding.py::select_shard`), every rank's merged by
+    `merge_select_shards`, the merge `_fused_select_sharded` runs after its
+    all-gathers: the maxima and the candidates bit-equal to the unsharded
+    selection's, the normaliser within rtol 1e-5. None where V/tp is not a
+    multiple of 128 (the JAX gate's refusal)."""
+    import torch
+
+    from omni_avsr_tpu_torch.decode.decoding import merge_select_shards, select_shard
+    from omni_avsr_tpu_torch.ops.select_topk import row_stats_chunkmax, select_stats_supported
+
+    Vs = V // tp
+    if V % tp or not select_stats_supported(Vs):
+        return None
+    R, k2 = B_SERVE * K, 2 * K
+    g = torch.Generator(device=DEV).manual_seed(V + tp)
+    x = (torch.randn(B_SERVE, K, V, generator=g, device=DEV) * 4)
+    mx, se, vals, idx = select_shard(x, k2, True)
+    shards = [select_shard(x[..., r * Vs:(r + 1) * Vs].contiguous(), k2, True, r * Vs)
+              for r in range(tp)]
+    m_mx, m_lse, m_vals, m_idx = merge_select_shards(
+        *(torch.stack([sh[i] for sh in shards], -1) for i in (0, 1)),
+        *(torch.cat([sh[i] for sh in shards], -1) for i in (2, 3)), k2)
+    if not (torch.equal(m_mx[..., 0], mx) and torch.equal(m_vals, vals)
+            and torch.equal(m_idx, idx)):
+        raise RuntimeError(f"B5 tp {tp} at V {V}: the merged maxima or candidates differ")
+    torch.testing.assert_close(m_lse[..., 0], torch.log(se), rtol=1e-5, atol=0)
+    xs = x[..., :Vs].reshape(R, Vs).contiguous()
+    ms = time_ms(lambda: row_stats_chunkmax(xs), flush, iters=20)
+    nbytes = 4 * (R * Vs + R * (Vs // 128) + 2 * R)
+    return dict(V=V, Vs=Vs, ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                lse_max_abs_err=(m_lse[..., 0] - torch.log(se)).abs().max().item())
+
+
+@contextlib.contextmanager
+def one_rank_world(work: Path):
+    """This process as rank 0 of a world of one, NCCL on the card, through
+    `maybe_initialize_distributed` and a file store under `work`; the
+    environment and the process group are restored after."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from omni_avsr_tpu_torch.parallel.distributed import maybe_initialize_distributed
+
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               OMNI_DIST_INIT=f"file://{work / 'store'}")
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not maybe_initialize_distributed(device=DEV, timeout_s=300):
+            raise RuntimeError("maybe_initialize_distributed did not start the group")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def nccl_kernels(run) -> list:
+    """The NCCL kernels the profiler sees in `run` (empty when it records no
+    device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    return sorted({e.key for e in prof.key_averages() if "nccl" in e.key.lower()
+                   and getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) > 0})
+
+
+def parallel_phase(flush, items_b) -> dict:
+    """(p): the distributed code path at world size 1 under NCCL at full
+    width (an FSDP train step and a `Transcriber(mesh=...)` batch, each
+    held against the meshless one), then the per-rank B1, B2 and B5
+    launches of a tp mesh at tp 2 and 4, at the shard shapes of
+    Llama-3.2-1B and Qwen2.5-7B, each held against the unsharded kernel.
+    NCCL allows one rank per device: this card is one rank, so the shard
+    launches are what one rank of a tp mesh runs, not a multi-card run."""
+    import argparse
+
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.cli.common import setup_parallelism
+    from omni_avsr_tpu_torch.config import TrainConfig
+    from omni_avsr_tpu_torch.models.omni import flagship
+    from omni_avsr_tpu_torch.ops.attention import FLASH_MIN_T_TRAIN
+    from omni_avsr_tpu_torch.ops.audio_frontend import whisper_token_len
+    from omni_avsr_tpu_torch.serve import Transcriber
+    from omni_avsr_tpu_torch.train.engine import OmniEngine
+    from omni_avsr_tpu_torch.train.state import tree_leaves
+
+    rows = {}
+    fns = counters()
+    t0 = time.perf_counter()
+    with one_rank_world(Path(__file__).resolve().parent / "build" / "chip_smoke_rdzv"):
+        args = argparse.Namespace(mesh_tp=1, mesh_pp=1, mesh_ep=1, fsdp=True,
+                                  sequence_parallel=False, pp_microbatches=4)
+        mesh, feed, plan = setup_parallelism(args, torch.device(DEV))
+        log("parallel", f"NCCL world of 1 through maybe_initialize_distributed (file store); "
+            f"mesh {dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))}, plan {plan}")
+        model = flagship(tiny=False)
+        params = init_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+        bank = (np.random.RandomState(1234).randn(10 * 16000) * 0.1).astype(np.float32)
+        engines = {name: OmniEngine(model, params, TrainConfig(lr=1e-3), noise_bank=bank, seed=0,
+                                    device=DEV, **kw)
+                   for name, kw in (("meshless", {}), ("fsdp", dict(mesh=mesh, fsdp=True)))}
+        del params
+        batch = train_batch(model.tok, B_TRAIN, FRAMES_TRAIN, TOKENS_TRAIN)
+        trim = -(-int(whisper_token_len(FRAMES_TRAIN * 640)) // 25) * 25
+        lengths = llm_lengths(model, trim, 4, 2, FRAMES_TRAIN, TOKENS_TRAIN)
+        flash_tasks = [m for m, n in lengths.items() if n >= FLASH_MIN_T_TRAIN]
+        out = {}
+        for name, engine in engines.items():
+            engine.sample_rates = lambda: (4, 2)
+            b = {**batch, "audio_trim_len": trim}
+            reset_counts(fns)
+            loss = float(engine.train_step(feed(b) if name == "fsdp" else b))
+            launches = {k: fn.launches for k, fn in fns.items()}
+            want = train_launches(model, len(flash_tasks), model.last_video_layers)
+            if launches != want:
+                raise RuntimeError(f"(p) {name} step: kernel launches {launches}, expected "
+                                   f"{want}")
+            flat = torch.cat([x.detach().float().reshape(-1)
+                              for x in tree_leaves(engine.full_state().trainable)])
+            out[name] = (loss, flat, launches)
+        (l0, f0, n0), (l1, f1, n1) = out["meshless"], out["fsdp"]
+        rel = ((f1 - f0).norm() / f0.norm()).item()
+        if not np.isfinite(l1):
+            raise RuntimeError(f"(p) FSDP step: loss {l1}")
+        if abs(l1 - l0) > 1e-6 * abs(l0) or rel > 1e-6:
+            raise RuntimeError(f"(p) FSDP step vs meshless: loss {l1} vs {l0}, trainable "
+                               f"relative L2 {rel:.3g}")
+        engine = engines["fsdp"]
+        nccl = nccl_kernels(lambda: engine.train_step(
+            feed({**batch, "audio_trim_len": trim})))
+        rows["p train"] = dict(config="(p) FSDP train step, NCCL world 1", loss=l1,
+                               loss_meshless=l0, bit_equal_loss=l1 == l0,
+                               trainable_rel_l2=rel, trainable_bit_equal=bool(torch.equal(f0, f1)),
+                               launches=n1, nccl_kernels=nccl or "not measured")
+        log("parallel", json.dumps(rows["p train"]))
+        del engines, engine
+        torch.cuda.empty_cache()
+
+        model_b = flagship(tiny=False, whisper_input_mode="bucket")
+        params = init_params(model_b.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+        plain = Transcriber(model_b, params, quantize="int8", device=DEV)
+        meshed = Transcriber(model_b, params, quantize="int8", device=DEV, mesh=mesh)
+        del params
+        want = plain.transcribe_many(items_b)
+        reset_counts(fns)
+        got = meshed.transcribe_many(items_b)
+        launches = {k: fn.launches for k, fn in fns.items()}
+        s = meshed.last_decode_steps
+        layers_llm = model_b.cfg.llm.num_layers
+        tower_b2 = 6 * (model_b.cfg.whisper.num_layers + model_b.cfg.avhubert.encoder_layers)
+        expect = counts(B1=layers_llm * s, B2=tower_b2 + (4 * layers_llm + 1) * (1 + s))
+        if got != want or launches != expect:
+            raise RuntimeError(f"(p) Transcriber(mesh): {got} vs {want}; launches {launches}, "
+                               f"expected {expect}")
+        ids_equal = bool(torch.equal(meshed.decode_ids(*_padded(items_b), 15),
+                                     plain.decode_ids(*_padded(items_b), 15)))
+        rows["p serve"] = dict(config="(p) Transcriber(mesh) int8 (b), NCCL world 1",
+                               token_identical=ids_equal, decode_steps=s, launches=launches,
+                               tp_blocks=sorted(meshed.par.tp_blocks))
+        if not ids_equal:
+            raise RuntimeError("(p) Transcriber(mesh): ids differ from the meshless ones")
+        log("parallel", json.dumps(rows["p serve"]))
+        del plain, meshed
+        torch.cuda.empty_cache()
+    log("parallel", f"world-1 NCCL path in {time.perf_counter() - t0:.1f} s")
+
+    shards = {}
+    reset_counts(fns)  # every launch of the shard checks and their timing
+    for label, Hq, Hkv, D, H, F, layers, vocab in P_SHARD_MODELS:
+        for tp in (1, 2, 4):
+            key = f"{label} tp {tp}"
+            shards[key] = dict(
+                B1=shard_b1(flush, tp, Hq, Hkv, D, layers),
+                B2=shard_b2(flush, tp, H, F, Hq, Hkv, D, vocab, layers, B_SERVE * K),
+                B5=shard_b5(flush, tp, vocab) or f"not run: V/tp = {vocab / tp:g} is not a "
+                                                  f"multiple of 128 (the JAX gate refuses it)")
+            log("parallel", f"per-rank kernels, {key} (one rank's decode step): "
+                f"{json.dumps(shards[key])}")
+    rows["p shards"] = dict(config="(p) per-rank shard kernels, checks and timing",
+                            shards=shards, launches={k: fn.launches for k, fn in fns.items()})
+    log("parallel", f"(p) in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def _padded(items):
+    """(batch, modality, rates, trim) of `items` for `Transcriber.decode_ids`."""
+    from omni_avsr_tpu_torch.serve import pad_batch
+
+    batch, trim = pad_batch(items, "audiovisual")
+    return batch, "audiovisual", 4, 2, trim
+
+
 # ------------------------------------------------------ (o): the MoE decoder
 
 MOE_EXPERTS = 8  # (o): the flagship's 16 MLPs each replaced by 8 SwiGLU experts
@@ -3895,6 +4225,8 @@ def main() -> int:
     # (o): the MoE decoder, served and trained
     rows_o, moe_k = moe_phase(items_b, flush)
     rows.update(rows_o)
+    # (p): NCCL at world size 1, and the per-rank kernels of a tp mesh
+    rows.update(parallel_phase(flush, items_b))
     del flush
     torch.cuda.empty_cache()
 
@@ -3925,7 +4257,8 @@ def main() -> int:
                  "per launch: B 3 x 15 beams, P 176, step 17; cases: the timed shapes (K 15 "
                  "at P 176 and 400, K 1, K 65, K 128, and (e)'s Qwen2.5-7B: Hq 28 / Hkv 4, D "
                  "128)"),
-         "cases": [b1, b1_a, b1_greedy, b1_k65, b1_k128, b1_e]},
+         "cases": [b1, b1_a, b1_greedy, b1_k65, b1_k128, b1_e],
+         "tp_shards": {k: v["B1"] for k, v in rows["p shards"]["shards"].items()}},
         {**entry("B2", "quantized_matmul", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
                  "omni_avsr_tpu/ops/quant.py:54", b2, "b",
                  "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head; tower_ms and "
@@ -3936,7 +4269,8 @@ def main() -> int:
          "per_batch": {k: v["by_stage"] for k, v in b2_batches.items()},
          "qwen7b_decode_step": b2_batches["e"]["decode_step"],
          "qwen32b_decode_step": b2_step_n,
-         "tower_fc1_m4500": b2["tower"]},
+         "tower_fc1_m4500": b2["tower"],
+         "tp_shards": {k: v["B2"] for k, v in rows["p shards"]["shards"].items()}},
         {**entry("B3", "flash_attention", "omni_avsr_tpu_torch/csrc/flash_attention.cu",
                  "omni_avsr_tpu/ops/flash_attention.py:58", b3, "a",
                  "per launch: Whisper 30 s window, B 3, 16 heads, T = S = 1500, D 64; cases: "
@@ -3952,7 +4286,8 @@ def main() -> int:
                  "omni_avsr_tpu/ops/select_topk.py:52", b5, "d",
                  f"per launch: {B_SERVE} x 15 beams = 45 rows, V {VOCAB_D}; library_ms is "
                  f"torch.logsumexp, which gives the normaliser only"),
-         "timed": b5},
+         "timed": b5,
+         "tp_shards": {k: v["B5"] for k, v in rows["p shards"]["shards"].items()}},
         {**entry("B6", "quantized_matmul4", "omni_avsr_tpu_torch/csrc/quant_matmul.cu",
                  "omni_avsr_tpu/ops/quant.py:156", b6, "c",
                  "one decode step, M 45: 16 x (qkv, o, gateup, down) + lm_head; per_batch: one "

@@ -102,16 +102,28 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--whisper-path", default=None, help="HF Whisper .bin/.pth state dict")
     p.add_argument("--llm-path", default=None, help="HF Llama/Qwen state dict")
     p.add_argument("--seed", type=int, default=42)
-    # multi-host and meshes: not ported (ROADMAP A5); MoE: models/moe.py
-    p.add_argument("--num-nodes", type=int, default=1)
-    p.add_argument("--coordinator-address", default=None)
-    p.add_argument("--node-rank", type=int, default=None)
-    p.add_argument("--mesh-tp", type=int, default=1)
-    p.add_argument("--fsdp", type=str2bool, default=False)
-    p.add_argument("--mesh-pp", type=int, default=1)
-    p.add_argument("--pp-microbatches", type=int, default=4)
-    p.add_argument("--mesh-ep", type=int, default=1)
-    p.add_argument("--sequence-parallel", type=str2bool, default=False)
+    # ranks and meshes (`parallel/`, one rank per device; launch the ranks with
+    # `python -m omni_avsr_tpu_torch.parallel.launch --nproc N -- ...` or torchrun)
+    p.add_argument("--num-nodes", type=int, default=1,
+                   help="ranks (one per device); > 1 with --coordinator-address starts them")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of rank 0 (else torchrun's or SLURM's environment)")
+    p.add_argument("--node-rank", type=int, default=None,
+                   help="this process's rank (RANK or SLURM_PROCID if unset)")
+    p.add_argument("--mesh-tp", type=int, default=1,
+                   help="tensor-parallel mesh axis size (ranks split dp x tp)")
+    p.add_argument("--fsdp", type=str2bool, default=False,
+                   help="additionally shard the LLM matrices over the dp axis (ZeRO-3)")
+    p.add_argument("--mesh-pp", type=int, default=1,
+                   help="pipeline stages: the decoder layer stack shards over a pp axis and "
+                        "the train step runs the GPipe schedule (parallel/pipeline.py)")
+    p.add_argument("--pp-microbatches", type=int, default=4,
+                   help="GPipe microbatches per step (batch must divide)")
+    p.add_argument("--mesh-ep", type=int, default=1,
+                   help="expert-parallel axis: shards --moe-experts expert weights over ep")
+    p.add_argument("--sequence-parallel", type=str2bool, default=False,
+                   help="shard the decoder residual stream's time axis over tp between "
+                        "layers (the JAX package's OMNI_SP=1; needs --mesh-tp > 1)")
     p.add_argument("--moe-experts", type=int, default=0)
     p.add_argument("--moe-routing", default="balanced", choices=["balanced", "top1"])
     p.add_argument("--moe-capacity-factor", type=float, default=1.25)
@@ -126,17 +138,6 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="torch device; without a CUDA device the CLI stops unless given cpu")
 
 
-# flag -> (its value when the feature is off, the ROADMAP item that ports it)
-UNPORTED = {
-    "num_nodes": (1, "A5 (parallelism: multi-host)"),
-    "mesh_tp": (1, "A5 (parallelism: tensor parallel)"),
-    "mesh_pp": (1, "A5 (parallelism: pipeline)"),
-    "mesh_ep": (1, "A5 (parallelism: expert parallel)"),
-    "fsdp": (False, "A5 (parallelism: FSDP)"),
-    "sequence_parallel": (False, "A5 (parallelism: sequence parallel)"),
-    "coordinator_address": (None, "A5 (parallelism: multi-host)"),
-    "node_rank": (None, "A5 (parallelism: multi-host)"),
-}
 
 
 def add_baseline_prompt(p: argparse.ArgumentParser) -> None:
@@ -154,13 +155,7 @@ def single_prompt(args) -> None:
 
 
 def check_args(args) -> torch.device:
-    """Refuse the flags of unported work and a missing card; returns the
-    device to run on."""
-    for name, (off, item) in UNPORTED.items():
-        if getattr(args, name, off) != off:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not ported to omni_avsr_tpu_torch "
-                                      f"(ROADMAP {item})")
+    """Refuse a missing card; returns the device to run on."""
     if getattr(args, "compilation_cache_dir", None):
         print(f"--compilation-cache-dir {args.compilation_cache_dir}: the port compiles no XLA "
               f"program; its CUDA kernels are cached under build/torch_kernels/")
@@ -169,6 +164,109 @@ def check_args(args) -> torch.device:
         raise SystemExit(f"--device {args.device}: no CUDA device here. The port runs on "
                          f"the card; pass --device cpu to run on the CPU.")
     return device
+
+
+def initialize_from_args(args) -> torch.device:
+    """Start this rank's process group when several ranks are asked for
+    (`parallel/distributed.py::maybe_initialize_distributed`: the flags,
+    then torchrun's or SLURM's environment; NCCL on the card, gloo with
+    `--device cpu`), before anything else touches a device. Returns the
+    rank's device (`cuda:LOCAL_RANK` on the card)."""
+    from ..parallel.distributed import local_device, maybe_initialize_distributed
+
+    device = check_args(args)
+    maybe_initialize_distributed(num_nodes=args.num_nodes,
+                                 coordinator_address=args.coordinator_address,
+                                 node_rank=args.node_rank, device=device)
+    return local_device(device)
+
+
+def setup_parallelism(args, device=None):
+    """(mesh, feed, plan) of the flags (`omni_avsr_tpu/cli/common.py:
+    281-355`): the (dp[, pp][, ep], tp) mesh over the world, with dp the
+    ranks left over by tp x pp x ep, when several ranks run or any model
+    axis or `--fsdp` is asked for; else (None, identity, None). `feed`
+    keeps this rank's `host_shard_slice` rows of the deterministic global
+    batch (every rank iterates the same batches; its dp coordinate picks
+    its rows) as tensors on `device`; `plan` is the `PipelinePlan` of
+    `--mesh-pp` / `--pp-microbatches`. The engine shards the parameters
+    (`OmniEngine(mesh=...)`)."""
+    import numpy as np
+
+    from ..parallel.distributed import global_batch_from_local, host_shard_slice, process_count
+
+    pp, ep, tp = args.mesh_pp, args.mesh_ep, args.mesh_tp
+    if read_numerics().sp:  # the JAX package's OMNI_SP=1 is --sequence-parallel
+        args.sequence_parallel = True
+    if args.sequence_parallel:
+        assert tp > 1, "--sequence-parallel needs --mesh-tp > 1"
+    use_mesh = process_count() > 1 or tp > 1 or pp > 1 or ep > 1 or args.fsdp
+    if not use_mesh:
+        return None, (lambda b: b), None
+    import torch.distributed as dist
+
+    from ..config import MeshConfig
+    from ..parallel.mesh import AXIS_DP, axis, make_mesh
+
+    n = process_count()
+    model_axes = tp * pp * ep
+    assert n % model_axes == 0, f"{n} devices not divisible by tp*pp*ep={model_axes}"
+    if not dist.is_initialized():
+        raise ValueError("a mesh needs a process group: launch the ranks with "
+                         "`python -m omni_avsr_tpu_torch.parallel.launch --nproc N -- ...`")
+    mesh = make_mesh(MeshConfig(dp=n // model_axes, tp=tp, pp=pp, ep=ep))
+    plan = None
+    if pp > 1:
+        from ..parallel.pipeline import AXIS_PP, PipelinePlan
+
+        plan = PipelinePlan(mesh, num_microbatches=args.pp_microbatches, axis=AXIS_PP,
+                            dp_axis=AXIS_DP)
+    dp = axis(mesh, AXIS_DP)
+
+    def feed(batch):
+        arrays = {k: v for k, v in batch.items()
+                  if not isinstance(v, (int, float, str, list)) and v is not None}
+        rest = {k: v for k, v in batch.items() if k not in arrays}
+        B = next(iter(arrays.values())).shape[0]
+        assert B % dp.size == 0, (
+            f"global batch {B} not divisible by {dp.size} processes — raise the "
+            f"batch bucket size or lower --num-nodes")
+        sl = host_shard_slice(B, dp.rank, dp.size)
+        out = global_batch_from_local(mesh, {k: np.asarray(v)[sl] for k, v in arrays.items()},
+                                      device)
+        out.update(rest)
+        return out
+
+    return mesh, feed, plan
+
+
+def engine_parallel_kwargs(args, mesh, plan) -> Dict[str, Any]:
+    """The `OmniEngine` arguments of the mesh flags, after
+    `setup_parallelism` has resolved `--sequence-parallel`."""
+    if mesh is None:
+        return {}
+    return dict(mesh=mesh, fsdp=args.fsdp, pipeline=plan,
+                sequence_parallel=args.sequence_parallel)
+
+
+def primary_logger(args):
+    """The run's `MetricLogger` on the primary rank; elsewhere one that
+    writes nothing (logs and checkpoints are the primary's)."""
+    from ..parallel.distributed import is_primary
+    from ..utils.logging import MetricLogger
+
+    if is_primary():
+        return MetricLogger(args.exp_dir, args.exp_name, use_wandb=args.wandb,
+                            project=args.project_wandb, config=vars(args))
+
+    class _Quiet:
+        def log(self, *a, **k):
+            pass
+
+        def close(self):
+            pass
+
+    return _Quiet()
 
 
 def tiny_dims() -> Tuple[WhisperEncoderConfig, AVHubertConfig, Dict[str, int]]:
@@ -321,12 +419,19 @@ def maybe_synthetic(args) -> None:
     and point the data flags at it."""
     if not args.synthetic:
         return
+    import torch.distributed as dist
+
     from ..data.synthetic import generate_corpus
+    from ..parallel.distributed import is_primary
 
     out_dir = os.path.join(args.exp_dir, "synthetic_data")
-    os.makedirs(out_dir, exist_ok=True)
-    args.train_file, args.val_file, args.test_file = generate_corpus(out_dir,
-                                                                     n_train=args.synthetic)
+    files = [None]
+    if is_primary():  # one writer; the other ranks read its manifests
+        os.makedirs(out_dir, exist_ok=True)
+        files = [generate_corpus(out_dir, n_train=args.synthetic)]
+    if dist.is_initialized():
+        dist.broadcast_object_list(files, src=0)
+    args.train_file, args.val_file, args.test_file = files[0]
     args.root_dir = out_dir
     args.max_frames_audiovisual = 200
     args.train_num_buckets = 4

@@ -24,7 +24,6 @@ from ..data.noise import load_noise_bank
 from ..train.checkpoint import average_last_n, restore_checkpoint, save_checkpoint
 from ..train.engine import OmniEngine
 from ..train.state import TrainState, master_weights
-from ..utils.logging import MetricLogger
 from ..utils.metrics import WerAccumulator
 from .common import (
     add_baseline_prompt,
@@ -32,9 +31,12 @@ from .common import (
     build_data_config,
     build_model,
     build_params,
-    check_args,
+    engine_parallel_kwargs,
+    initialize_from_args,
     maybe_synthetic,
+    primary_logger,
     read_numerics,
+    setup_parallelism,
     single_prompt,
     str2bool,
 )
@@ -61,14 +63,17 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    from ..parallel.distributed import is_primary
+
     args = parse_args(argv)
-    device = check_args(args)
+    device = initialize_from_args(args)
     maybe_synthetic(args)
     os.makedirs(args.exp_dir, exist_ok=True)
     ckpt_dir = os.path.join(args.exp_dir, args.exp_name, "checkpoints")
 
     model = build_model(args)
     params = build_params(args, model, device)
+    mesh, feed, plan = setup_parallelism(args, device)
     data_cfg = build_data_config(args)
     dm = DataModule(data_cfg, model.tok, modality=args.modality,
                     downsample_video=None if args.is_matryoshka else model.cfg.video_rates[0])
@@ -83,21 +88,21 @@ def main(argv=None):
     noise = load_noise_bank(args.noise_path) if args.modality != "video" else None
     engine = OmniEngine(model, params, train_cfg, steps_per_epoch, unfrozen_modules=unfrozen,
                         noise_bank=noise, seed=args.seed, device=device,
-                        **read_numerics().engine_kwargs())
+                        **read_numerics().engine_kwargs(),
+                        **engine_parallel_kwargs(args, mesh, plan))
     del params
-    logger = MetricLogger(args.exp_dir, args.exp_name, use_wandb=args.wandb,
-                          project=args.project_wandb, config=vars(args))
+    logger = primary_logger(args)
 
     start_epoch = 0
     if args.ckpt_path:
-        engine.state = restore_checkpoint(args.ckpt_path, device)
+        engine.load_state(restore_checkpoint(args.ckpt_path, device))
         start_epoch = engine.state.step // steps_per_epoch
 
     for epoch in range(start_epoch, args.max_epochs):
         t0 = time.time()
         n, loss_sum, loss_n = 0, 0.0, 0
         for batch in dm.train_batches(epoch):
-            loss = engine.single_train_step(batch, args.modality)
+            loss = engine.single_train_step(feed(batch), args.modality)
             n += 1
             if n % 10 == 0 or n == 1:
                 loss_val = float(loss)  # a host sync
@@ -106,23 +111,37 @@ def main(argv=None):
                 logger.log(engine.state.step, {"loss": loss_val})
         val_sum, val_n = 0.0, 0
         for batch in dm.val_batches():
-            val_sum += float(engine.single_eval_step(batch, args.modality))
+            val_sum += float(engine.single_eval_step(feed(batch), args.modality))
             val_n += 1
-        print(f"epoch {epoch}: loss={loss_sum / max(loss_n, 1):.4f} "
-              f"loss_val={val_sum / max(val_n, 1):.4f} steps={n} ({time.time() - t0:.1f}s)")
-        logger.log(engine.state.step, {"epoch": epoch, "loss_val": val_sum / max(val_n, 1)})
-        save_checkpoint(ckpt_dir, engine.state.step, engine.state, keep=args.num_check_save)
+        state = engine.full_state()  # under a mesh a collective: every rank gathers
+        if is_primary():
+            print(f"epoch {epoch}: loss={loss_sum / max(loss_n, 1):.4f} "
+                  f"loss_val={val_sum / max(val_n, 1):.4f} steps={n} "
+                  f"({time.time() - t0:.1f}s)")
+            logger.log(engine.state.step, {"epoch": epoch, "loss_val": val_sum / max(val_n, 1)})
+            save_checkpoint(ckpt_dir, engine.state.step, state, keep=args.num_check_save)
+        del state
+
+    base = engine.merged_params() if mesh is not None else None  # a collective
+    if not is_primary():
+        return
 
     avg = average_last_n(ckpt_dir, min(args.num_average_epochs, args.max_epochs))
     avg_dir = os.path.join(args.exp_dir, args.exp_name, f"model_avg_{args.num_average_epochs}")
     save_checkpoint(avg_dir, engine.state.step,
                     TrainState(engine.state.step, avg, engine.state.opt_state), keep=0)
-    engine.state = TrainState(engine.state.step, master_weights(avg, engine.device),
-                              engine.state.opt_state)
     print(f"averaged last {args.num_average_epochs} checkpoints -> {avg_dir}")
+    if mesh is None:
+        engine.state = TrainState(engine.state.step, master_weights(avg, engine.device),
+                                  engine.state.opt_state)
+        params = engine.merged_params()
+    else:  # the averaged trainable tree over the gathered frozen one
+        from ..train.state import merge_params, tree_map
+
+        params = merge_params(tree_map(lambda x: x.to(device=device, dtype=model.dtype), avg),
+                              base)
 
     if args.auto_test and args.test_file:
-        params = engine.merged_params()
         dm_t = DataModule(data_cfg, model.tok, modality=args.modality)
         for ra, rv in engine._rate_combos(args.modality):
             acc = WerAccumulator()

@@ -4,7 +4,12 @@ flag names, see `cli/common.py`): the epoch loop with random matryoshka
 rates per step (`OmniEngine.train_step`), validation and a checkpoint after
 every epoch (keep-N), resume, the mean of the last N checkpoints after
 training, and an automatic WER sweep over the task x rate grid
-(`train_OmniAVSR.py:400-479`).
+(`train_OmniAVSR.py:400-479`). Several ranks (one per device) train one
+global step on a mesh (`--mesh-tp`, `--fsdp`, `--mesh-pp`, `--mesh-ep`,
+`--sequence-parallel`; `cli/common.py::setup_parallelism`): launch them
+with `python -m omni_avsr_tpu_torch.parallel.launch --nproc N -- python -m
+omni_avsr_tpu_torch.cli.train_omni ...` or torchrun. Only rank 0 logs,
+writes checkpoints (the whole tree) and runs the WER sweep.
 
     python -m omni_avsr_tpu_torch.cli.train_omni --synthetic 4 --max-epochs 2 \\
         --exp-dir /tmp/omni_smoke                            # on the card
@@ -27,7 +32,6 @@ from ..data.noise import load_noise_bank
 from ..train.checkpoint import average_last_n, latest_checkpoint, restore_checkpoint, save_checkpoint
 from ..train.engine import OmniEngine
 from ..train.state import TrainState, master_weights
-from ..utils.logging import MetricLogger
 from ..utils.metrics import WerAccumulator
 from ..utils.prefetch import device_prefetch
 from ..utils.profiling import StepTimer, find_nonfinite, trace
@@ -36,9 +40,12 @@ from .common import (
     build_data_config,
     build_model,
     build_params,
-    check_args,
+    engine_parallel_kwargs,
+    initialize_from_args,
     maybe_synthetic,
+    primary_logger,
     read_numerics,
+    setup_parallelism,
     str2bool,
 )
 
@@ -67,8 +74,10 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    from ..parallel.distributed import is_primary
+
     args = parse_args(argv)
-    device = check_args(args)
+    device = initialize_from_args(args)
     maybe_synthetic(args)
     # the unified model trains all three tasks on every batch and needs AV
     # data (`modeling_OmniAVSR.py:263-306`)
@@ -80,6 +89,7 @@ def main(argv=None):
 
     model = build_model(args)
     params = build_params(args, model, device)
+    mesh, feed, plan = setup_parallelism(args, device)
     dm = DataModule(build_data_config(args), model.tok, modality=args.modality)
     steps_per_epoch = max(dm.steps_per_epoch(), 1)
     train_cfg = TrainConfig(
@@ -89,15 +99,15 @@ def main(argv=None):
     engine = OmniEngine(model, params, train_cfg, steps_per_epoch,
                         unfrozen_modules=tuple(args.unfrozen_modules),
                         noise_bank=load_noise_bank(args.noise_path), seed=args.seed,
-                        device=device, **read_numerics().engine_kwargs())
+                        device=device, **read_numerics().engine_kwargs(),
+                        **engine_parallel_kwargs(args, mesh, plan))
     del params
-    logger = MetricLogger(args.exp_dir, args.exp_name, use_wandb=args.wandb,
-                          project=args.project_wandb, config=vars(args))
+    logger = primary_logger(args)
 
     start_epoch = 0
     resume_path = args.ckpt_path or (latest_checkpoint(ckpt_dir) if args.auto_resume else None)
     if resume_path:
-        engine.state = restore_checkpoint(resume_path, device)
+        engine.load_state(restore_checkpoint(resume_path, device))
         start_epoch = engine.state.step // steps_per_epoch
         print(f"resumed from {resume_path} at epoch {start_epoch}")
 
@@ -107,7 +117,9 @@ def main(argv=None):
         n, loss_sum, loss_n = 0, 0.0, 0
         # the next batches upload on a side stream while this step runs
         # (`omni_avsr_tpu/cli/train_omni.py:120-123`)
-        for batch in device_prefetch(dm.train_batches(epoch), device=device):
+        batches = (map(feed, dm.train_batches(epoch)) if mesh is not None
+                   else device_prefetch(dm.train_batches(epoch), device=device))
+        for batch in batches:
             profiled = args.profile_dir if (epoch == start_epoch and 2 <= n <= 4) else None
             with trace(profiled, device):
                 loss = engine.train_step(batch)
@@ -129,14 +141,23 @@ def main(argv=None):
         # validation (the reference logs loss_val, `lightning:185-190`)
         val_n, val_sum = 0, 0.0
         for batch in dm.val_batches():
-            total, _ = engine.eval_step(batch)
+            total, _ = engine.eval_step(feed(batch))
             val_sum += float(total)
             val_n += 1
         val_loss = val_sum / max(val_n, 1)
-        print(f"epoch {epoch}: train_loss={train_loss:.4f} val_loss={val_loss:.4f} "
-              f"steps={n} ({time.time() - t0:.1f}s)")
-        logger.log(engine.state.step, {"epoch": epoch, "loss_val": val_loss})
-        save_checkpoint(ckpt_dir, engine.state.step, engine.state, keep=args.num_check_save)
+        state = engine.full_state()  # under a mesh a collective: every rank gathers
+        if is_primary():
+            print(f"epoch {epoch}: train_loss={train_loss:.4f} val_loss={val_loss:.4f} "
+                  f"steps={n} ({time.time() - t0:.1f}s)")
+            logger.log(engine.state.step, {"epoch": epoch, "loss_val": val_loss})
+            save_checkpoint(ckpt_dir, engine.state.step, state, keep=args.num_check_save)
+        del state
+
+    # under a mesh every rank gathers the frozen tree (a collective); then the
+    # primary alone averages, saves and tests, as the JAX CLI's other hosts stop
+    base = engine.merged_params() if mesh is not None else None
+    if not is_primary():
+        return
 
     # the mean of the last N checkpoints (`utils/avg_checkpoints.py:34-44`),
     # saved outside ckpt_dir so that --auto-resume never resumes from
@@ -145,19 +166,26 @@ def main(argv=None):
     avg_dir = os.path.join(args.exp_dir, args.exp_name, f"model_avg_{args.num_average_epochs}")
     save_checkpoint(avg_dir, engine.state.step,
                     TrainState(engine.state.step, avg, engine.state.opt_state), keep=0)
-    engine.state = TrainState(engine.state.step, master_weights(avg, engine.device),
-                              engine.state.opt_state)
     print(f"averaged last {args.num_average_epochs} checkpoints -> {avg_dir}")
+    if mesh is None:
+        engine.state = TrainState(engine.state.step, master_weights(avg, engine.device),
+                                  engine.state.opt_state)
+        params = engine.merged_params()
+    else:  # the averaged trainable tree over the gathered frozen one
+        from ..train.state import merge_params, tree_map
+
+        params = merge_params(tree_map(lambda x: x.to(device=device, dtype=model.dtype), avg),
+                              base)
 
     if args.auto_test and args.test_file:
-        run_auto_test(args, model, engine, dm, logger)
+        run_auto_test(args, model, engine, dm, logger, params)
     logger.close()
 
 
-def run_auto_test(args, model, engine, dm, logger) -> dict:
+def run_auto_test(args, model, engine, dm, logger, params=None) -> dict:
     """The task x rate WER sweep (`train_OmniAVSR.py:426-478`); video is
     tested three times per rate (`:441-445`)."""
-    params = engine.merged_params()
+    params = engine.merged_params() if params is None else params
     results = {}
     tasks = [("audio", [(ra, None) for ra in model.cfg.audio_rates]),
              ("video", [(None, rv) for rv in model.cfg.video_rates]),

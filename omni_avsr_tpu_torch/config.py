@@ -299,3 +299,22 @@ class DataConfig:
     # 640 samples per padded frame (16 kHz / 25 fps, `av_dataset.py:55`)
     video_pad_multiple: int = 32
     audio_samples_per_frame: int = 640
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh of the port (`parallel/mesh.py`; the JAX package's
+    `MeshConfig`, `omni_avsr_tpu/config.py:371`), one rank per device.
+
+    dp: data parallel (batch).  tp: tensor parallel (attention heads / MLP
+    hidden).  pp: pipeline parallel (decoder layer stack, GPipe schedule,
+    `parallel/pipeline.py`).  ep: expert parallel (MoE expert dim,
+    `models/moe.py`). The dp and tp axes always exist in the mesh; pp and ep
+    are added only when their size is > 1."""
+
+    dp: int = 1
+    tp: int = 1
+    pp: int = 1
+    ep: int = 1
+    axis_dp: str = "dp"
+    axis_tp: str = "tp"

@@ -619,12 +619,18 @@ extern "C" int conv_block_launch(const void* x, const void* w, const void* scale
     if (bm == 192 && bn == 64) return launch_wgmma<3, 64>(x, w, ep, g, tf, th, st);
     return (int)cudaErrorInvalidValue;
   }
-  static bool smem_set = false;  // set once, on the first launch's device: one device per process
-  if (!smem_set) {
+  // the shared-memory limit is raised once on each device of the process
+  constexpr int kMaxDevices = 64;
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  const cudaError_t e0 = cudaGetDevice(&dev);
+  if (e0 != cudaSuccess) return (int)e0;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
     const cudaError_t e =
         cudaFuncSetAttribute(conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (e != cudaSuccess) return (int)e;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   const dim3 grid((unsigned)((M + BM - 1) / BM), (Cout + BN - 1) / BN);
   conv_kernel<<<grid, THREADS, SMEM, st>>>(xb, static_cast<const __nv_bfloat16*>(w), ep, g);

@@ -453,15 +453,21 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   constexpr size_t smem_dq = 1024 + 7 * (size_t)TILE<D> + BQ * sizeof(float);
   constexpr size_t smem_dkv = 1024 + 2 * (size_t)TILE<D> + 2 * (4 * (size_t)TILE<D> + 4 * BQ * 4);
   static_assert(4 * TILE<D> + 4 * BQ * 4 >= 512 * D, "a ring holds a warpgroup's dk/dv sums");
-  static bool smem_set = false;
-  if (!smem_set) {
+  // the shared-memory limits are raised once on each device of the process
+  constexpr int kMaxDevices = 64;
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  const cudaError_t e0 = cudaGetDevice(&dev);
+  if (e0 != cudaSuccess) return (int)e0;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
     cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
     if (e != cudaSuccess) return (int)e;
     e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_dkv);
     if (e != cudaSuccess) return (int)e;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   flash_bwd_dq_kernel<D><<<(a.T + BQ - 1) / BQ * B * a.Hq, DQ_THREADS, smem_dq, stream>>>(a);
   const cudaError_t e = cudaGetLastError();

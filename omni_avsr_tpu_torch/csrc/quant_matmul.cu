@@ -427,14 +427,22 @@ __global__ void __launch_bounds__(288, 1)
 
 // ------------------------------------------------------------------ launch
 
-template <class Kernel>
-int set_smem(Kernel kernel, size_t smem, size_t& done) {
+constexpr int kMaxDevices = 64;
+
+// raise the kernel's shared-memory limit on the current device (the attribute
+// holds for one device only), once per device and size
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem, size_t (&done)[kMaxDevices]) {
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  if (smem > done) {
+  int dev = 0;
+  const cudaError_t e0 = cudaGetDevice(&dev);
+  if (e0 != cudaSuccess) return (int)e0;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > done[dev]) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    done = smem;
+    done[dev] = smem;
   }
   return 0;
 }
@@ -442,7 +450,7 @@ int set_smem(Kernel kernel, size_t smem, size_t& done) {
 template <int BITS, int NT, int CW, int KS>
 int launch_decode(const void* x, const void* wc, const void* s, void* out, int M, int N, int K,
                   int Kp, int stages, int blocks, int out_f32, cudaStream_t stream) {
-  static size_t smem_set = 0;  // set once, on the first launch's device: one device per process
+  static size_t smem_set[kMaxDevices] = {};  // per device
   const size_t smem = Ring<BITS, NT, KS, CW>::smem(stages) + (size_t)(KS - 1) * CW * NT * 64;
   int rc = set_smem(qmm_decode_kernel<BITS, NT, CW, KS>, smem, smem_set);
   if (rc != 0) return rc;
@@ -460,7 +468,7 @@ int launch_decode(const void* x, const void* wc, const void* s, void* out, int M
 template <int BITS, int NT>
 int launch_tower(const void* x, const void* wc, const void* s, void* out, int M, int N, int K,
                  int Kp, int stages, int out_f32, cudaStream_t stream) {
-  static size_t smem_set = 0;
+  static size_t smem_set[kMaxDevices] = {};  // per device
   const size_t smem = Ring<BITS, NT, 1, 8>::smem(stages);
   int rc = set_smem(qmm_tower_kernel<BITS, NT>, smem, smem_set);
   if (rc != 0) return rc;

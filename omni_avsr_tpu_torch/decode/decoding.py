@@ -41,6 +41,12 @@ lower index, as `jax.lax.top_k` does. With `select_kernel=True` (the JAX
 package's `OMNI_SELECT_KERNEL=1`) each fused step's row max, normaliser
 and 128-wide chunk maxima come from one pass of the stats kernel B5
 (`ops/select_topk.py::row_stats_chunkmax`) instead of three passes.
+
+Under tensor-parallel serving (`serve.py::Transcriber(mesh=...)`) the
+lm_head gives each rank its slice of the vocabulary. The fused selection
+then runs per vocabulary shard (`_fused_select_sharded`: B5 and the
+chunked top-2K on V/tp, then an exact merge over tp); every other
+consumer of the logits all-gathers them first (`full_logits`).
 """
 
 from __future__ import annotations
@@ -65,6 +71,8 @@ from ..models.llm import (
 )
 from ..ops.beam_attention import kernel_supported
 from ..ops.select_topk import CHUNK, row_stats_chunkmax, select_stats_supported
+from ..parallel import collectives as par
+from ..parallel.mesh import Axis, axis
 
 NEG = -1e9
 ATTN_ROUTES = (None, "kernel", "xla")
@@ -131,6 +139,61 @@ def select_kernel_supported(vocab_size: int) -> bool:
     return vocab_size >= 16384 and select_stats_supported(vocab_size)
 
 
+def full_logits(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """The logits over the whole vocabulary: a tensor-parallel head's
+    slices all-gathered over tp."""
+    if logits.shape[-1] == vocab_size:
+        return logits
+    return par.all_gather(logits, par.tp_axis("llm.lm_head"), -1)
+
+
+def select_shard(x: torch.Tensor, k2: int, use_kernel: bool, offset: int = 0):
+    """One vocabulary shard's part of the fused selection: x (B, K, Vs),
+    the columns [offset, offset + Vs) of the logits. Returns its row maxima
+    and normalisers (B, K) and its per-beam top-k2 values with their
+    global indices (B, K, k2), through B5 and the chunked top-k with
+    `use_kernel`, else torch ops."""
+    B, K, Vs = x.shape
+    if use_kernel:
+        cm, mx_s, se_s = row_stats_chunkmax(x.reshape(B * K, Vs))
+        mx_s, se_s = mx_s.reshape(B, K), se_s.reshape(B, K)
+        vals_s, vidx_s = topk_chunked(x, k2, chunk_maxima=cm.reshape(B, K, -1))
+    else:
+        mx_s = x.amax(dim=-1)
+        se_s = torch.exp(x - mx_s[..., None]).sum(dim=-1)
+        vals_s, vidx_s = topk_chunked(x, k2)
+    return mx_s, se_s, vals_s, vidx_s + offset
+
+
+def merge_select_shards(mx_s: torch.Tensor, se_s: torch.Tensor, vals_s: torch.Tensor,
+                        gidx_s: torch.Tensor, k2: int):
+    """The exact merge of the shards' `select_shard` results, stacked on a
+    trailing axis in shard order: mx_s, se_s (B, K, tp), vals_s, gidx_s
+    (B, K, tp * k2). The row maximum is the shards' maximum, the normaliser
+    the sum of se_s * exp(mx_s - mx) in shard order, and one top-k over the
+    tp x k2 candidates keeps k2 (every global winner wins its own shard).
+    Returns (mx, lse) (B, K, 1) and the values and global indices (B, K, k2)."""
+    mx = mx_s.amax(dim=-1, keepdim=True)
+    se = (se_s * torch.exp(mx_s - mx)).sum(dim=-1, keepdim=True)
+    vals, sel = top_k(vals_s, k2)
+    return mx, torch.log(se), vals, torch.gather(gidx_s, -1, sel)
+
+
+def _fused_select_sharded(x: torch.Tensor, k2: int, tp: Axis, use_kernel: bool):
+    """Vocabulary-sharded fused selection (`omni_avsr_tpu/decode/decoding.py:
+    112-168`). x: (B, K, V/tp), this rank's slice. Each rank runs
+    `select_shard` on its slice; the (B, K) maxima and normalisers and the
+    tp x k2 candidates are all-gathered over tp and merged exactly by
+    `merge_select_shards`, the same on every rank. Gathering the (B, K)
+    statistics in place of the JAX package's pmax / psum costs tp x B x K
+    floats and fixes the normaliser's summation order.
+    Returns (mx, lse, vals, vidx)."""
+    mx_s, se_s, vals_s, gidx_s = select_shard(x, k2, use_kernel, tp.rank * x.shape[-1])
+    return merge_select_shards(par.all_gather(mx_s[..., None], tp, 2),
+                               par.all_gather(se_s[..., None], tp, 2),
+                               par.all_gather(vals_s, tp, 2), par.all_gather(gidx_s, tp, 2), k2)
+
+
 class DecodeOutput(NamedTuple):
     tokens: torch.Tensor  # (B, max_new) generated ids (beam: the best hypothesis), pad after
     steps: int  # decode steps run (each ran every decoder layer once)
@@ -162,19 +225,27 @@ def ngram_ban_mask(tokens: torch.Tensor, t: int, n: int, vocab_size: int) -> tor
 def beam_loop(*, init_logits: torch.Tensor, state, step_fn, num_beams: int,
               vocab_size: int, max_new: int, eos_id: int, pad_id: int,
               length_penalty: float = 1.0, select_kernel: bool = False,
-              no_repeat_ngram_size: int = 0, select_mode: str = "fused") -> DecodeOutput:
+              no_repeat_ngram_size: int = 0, select_mode: str = "fused",
+              select_mesh=None) -> DecodeOutput:
     """Decoder-agnostic beam loop. step_fn(state, new_tok (B,K), flat_idx
     (B*K,), t) -> ((B, K, V) logits, state). `select_kernel` takes each
     fused step's selection statistics from B5 (V % 128 == 0);
     `select_mode="grid"`, or a positive `no_repeat_ngram_size`, selects on
-    the full candidate grid."""
+    the full candidate grid. With `select_mesh` (a tp mesh) the fused
+    selection runs per vocabulary shard (`_fused_select_sharded`), unless
+    there is nothing to shard, V does not divide tp or 2K > V/tp, as the
+    JAX guard (`decoding.py:412-420`); the logits may then be this rank's
+    vocabulary slice (a tensor-parallel lm_head) or the whole of it."""
     if select_mode not in SELECT_MODES:
         raise ValueError(f"select_mode {select_mode!r}: one of {SELECT_MODES}")
     grid = no_repeat_ngram_size > 0 or select_mode == "grid"
     B = init_logits.shape[0]
     K, V = num_beams, vocab_size
     dev = init_logits.device
-    logits = init_logits[:, None].expand(B, K, V)
+    tp = axis(select_mesh, "tp") if select_mesh is not None else None
+    if tp is not None and (tp.size <= 1 or V % tp.size or 2 * K > V // tp.size or grid):
+        tp = None  # nothing to shard (or V not divisible): the local route
+    logits = init_logits[:, None].expand(B, K, init_logits.shape[-1])
     cum = torch.tensor([0.0] + [NEG] * (K - 1), dtype=torch.float32, device=dev).repeat(B, 1)
     tokens = torch.full((B, K, max_new), pad_id, dtype=torch.long, device=dev)
     h_s = torch.full((B, K), NEG, dtype=torch.float32, device=dev)
@@ -200,13 +271,23 @@ def beam_loop(*, init_logits: torch.Tensor, state, step_fn, num_beams: int,
     t = 0
     while t < max_new and not done():
         x = logits.float()
-        if grid:  # the (B, K*V) grid of log-probabilities (`decoding.py:486-495`)
+        if tp is not None:
+            if x.shape[-1] == V:  # a replicated head: this rank's slice
+                x = x[..., tp.rank * (V // tp.size):(tp.rank + 1) * (V // tp.size)]
+            mx, lse, vals, vidx = _fused_select_sharded(x, 2 * K, tp, select_kernel)
+            cand_sel = cum[:, :, None] + ((vals - mx) - lse)
+            scores2k, sel = top_k(cand_sel.reshape(B, K * 2 * K), 2 * K)
+            v_sel = torch.gather(vidx.reshape(B, K * 2 * K), 1, sel)
+            idx2k = torch.div(sel, 2 * K, rounding_mode="floor") * V + v_sel
+        elif grid:
+            x = full_logits(x, V)  # the (B, K*V) grid of log-probabilities (`decoding.py:486-495`)
             shifted = x - x.amax(dim=-1, keepdim=True)
             logp = shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
             if no_repeat_ngram_size > 0:
                 logp = logp + ngram_ban_mask(tokens, t, no_repeat_ngram_size, V)
             scores2k, idx2k = top_k((cum[:, :, None] + logp).reshape(B, K * V), 2 * K)
         else:
+            x = full_logits(x, V)
             if select_kernel:  # one pass: chunk maxima, row max, normaliser (`:510-523`)
                 cm, mx, se = row_stats_chunkmax(x.reshape(B * K, V))
                 mx = mx.reshape(B, K, 1)
@@ -321,7 +402,7 @@ def greedy_decode(
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     steps = 0
     for t in range(max_new):
-        tok = torch.argmax(logits, dim=-1)
+        tok = torch.argmax(full_logits(logits, cfg.vocab_size), dim=-1)
         tok = torch.where(done, torch.full_like(tok, pad_id), tok)
         done = done | (tok == eos_id)
         tokens[:, t] = tok
@@ -350,6 +431,7 @@ def beam_search(
     select_kernel: bool = False,
     attn_route: Optional[str] = None,
     select_mode: str = "fused",
+    attn_mesh=None,
 ) -> DecodeOutput:
     """Prefill once per batch item (the prefix K/V is shared by all beams),
     then the beam loop on the route `decode_route` picks: the ancestor
@@ -358,7 +440,10 @@ def beam_search(
     selection statistics from B5; it needs a vocabulary that the JAX
     package's opt-in takes the kernel for (`select_kernel_supported`), else
     it raises; an explicit `attn_route="xla"` turns it off, as there.
-    `no_repeat_ngram_size > 0` bans repeated n-grams (on the grid)."""
+    `no_repeat_ngram_size > 0` bans repeated n-grams (on the grid).
+    `attn_mesh`, a tp mesh whose heads B1 shards, also shards the fused
+    selection over the vocabulary (`beam_loop(select_mesh=...)`), as the
+    JAX package passes its `attn_mesh` on."""
     B, P, _ = prefix_embeds.shape
     K = num_beams
     V = cfg.vocab_size
@@ -366,8 +451,9 @@ def beam_search(
     route = decode_route(attn_route, cfg.head_dim, dev)
     if attn_route == "xla":
         select_kernel = False
-    if select_kernel and not select_kernel_supported(V):
-        raise ValueError(f"select_kernel: vocabulary {V} is not supported by the selection "
+    shard_v = V // axis(attn_mesh, "tp").size if attn_mesh is not None else V
+    if select_kernel and not select_kernel_supported(shard_v):
+        raise ValueError(f"select_kernel: vocabulary {shard_v} is not supported by the selection "
                          f"stats kernel (needs V % {CHUNK} == 0 and 16384 <= V <= 212992)")
     dtype = prefix_embeds.dtype
     layers = unstack_layers(params, cfg)
@@ -386,7 +472,7 @@ def beam_search(
             logits, cache = llm_decode_step_beam_anc(
                 params, cfg, emb, t, n_valid_bk, prefix_mask, cache, anc, K, modality,
                 layers=layers)
-            return logits.reshape(B, K, V), (cache, anc)
+            return logits.reshape(B, K, -1), (cache, anc)
     else:
         state0 = SplitCache.from_prefill(cache0, P, K, max_new)
 
@@ -395,10 +481,11 @@ def beam_search(
             emb = embed_tokens(params, new_tok.reshape(B * K, 1), dtype)
             logits, cache = llm_decode_step_beam(params, cfg, emb, t, n_valid_bk, prefix_mask,
                                                  cache, K, modality, layers=layers)
-            return logits.reshape(B, K, V), cache
+            return logits.reshape(B, K, -1), cache
     del cache0
 
     return beam_loop(init_logits=logits0, state=state0, step_fn=step_fn, num_beams=K,
                      vocab_size=V, max_new=max_new, eos_id=eos_id, pad_id=pad_id,
                      length_penalty=length_penalty, select_kernel=select_kernel,
-                     no_repeat_ngram_size=no_repeat_ngram_size, select_mode=select_mode)
+                     no_repeat_ngram_size=no_repeat_ngram_size, select_mode=select_mode,
+                     select_mesh=attn_mesh if route == "kernel" else None)

@@ -57,8 +57,9 @@ from ..ops.attention import FLASH_MIN_T_TRAIN, dot_product_attention, padding_ma
 from ..ops.augment import is_key, subkeys
 from ..ops.flash_attention_bwd import flash_attention_trainable
 from ..ops.norms import layer_norm
+from ..parallel.collectives import draw_rows
 from ..utils import prng
-from .common import Params, layer_slice, linear
+from .common import Params, layer_slice, linear, tp_ffn
 from .llm import maybe_remat
 from .resnet3d import resnet3d_forward
 from .whisper import conv1d_nwc
@@ -82,9 +83,10 @@ def _dropout(rng, x: torch.Tensor, rate: float) -> torch.Tensor:
     if rng is None or rate <= 0.0:
         return x
     if is_key(rng):
-        keep = prng.bernoulli(rng, 1.0 - rate, x.shape, x.device)
+        keep = draw_rows(lambda sh: prng.bernoulli(rng, 1.0 - rate, sh, x.device), x.shape)
     else:
-        keep = torch.rand(x.shape, generator=rng, device=rng.device).to(x.device) < 1.0 - rate
+        keep = draw_rows(lambda sh: torch.rand(sh, generator=rng, device=rng.device),
+                         x.shape).to(x.device) < 1.0 - rate
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
@@ -132,8 +134,9 @@ def _encoder_layer(layer: Params, cfg: AVHubertConfig, x: torch.Tensor,
                      lengths, cfg, k_attn, seed)
     x = x + _dropout(k_d1, linear(out.reshape(B, T, D), attn["o"]), cfg.dropout)
     h = layer_norm(x, layer["final_norm"]["scale"], layer["final_norm"]["bias"])
-    h = _dropout(k_d2, F.gelu(linear(h, layer["fc1"])), cfg.activation_dropout)
-    return x + _dropout(k_d3, linear(h, layer["fc2"]), cfg.dropout)
+    h = tp_ffn(h, layer["fc1"], layer["fc2"], "avhubert.ffn", F.gelu,
+               lambda a: _dropout(k_d2, a, cfg.activation_dropout))
+    return x + _dropout(k_d3, h, cfg.dropout)
 
 
 def avhubert_extract_features(params: Params, cfg: AVHubertConfig, video: Optional[torch.Tensor],

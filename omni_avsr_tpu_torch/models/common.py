@@ -17,6 +17,7 @@ from typing import Any, Dict
 import torch
 
 from ..ops.quant import layer_slice, quantized_matmul, quantized_matmul4  # noqa: F401
+from ..parallel import collectives as par
 
 Params = Dict[str, Any]
 
@@ -40,3 +41,18 @@ def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
     if b is not None:
         y = y + b.to(x.dtype)
     return y
+
+
+def tp_ffn(h: torch.Tensor, fc1: Params, fc2: Params, block: str, act,
+           mid=lambda h: h) -> torch.Tensor:
+    """act(h @ fc1) @ fc2 (`mid` applied between, e.g. a dropout), with the
+    serving tree's encoder FFN tensor-parallel when `block` runs so: fc1's
+    column slice, fc2's row slice, the partial products all-reduced over tp
+    before fc2's bias."""
+    tp = par.tp_axis(block)
+    if tp is None:
+        return linear(mid(act(linear(h, fc1))), fc2)
+    h = mid(act(linear(par.copy_to(h, tp), fc1)))
+    y = par.reduce_from(linear(h, {k: v for k, v in fc2.items() if k != "b"}), tp)
+    b = fc2.get("b")
+    return y + b.to(y.dtype) if b is not None else y

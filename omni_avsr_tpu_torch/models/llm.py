@@ -46,6 +46,7 @@ from ..ops.flash_attention_bwd import flash_attention_trainable
 from ..ops.norms import rms_norm
 from ..ops.quant import quantized_matmul, quantized_matmul4
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..parallel import collectives as par
 from .common import Params, layer_slice, linear
 from .moe import moe_ffn
 
@@ -55,10 +56,47 @@ def unstack_layers(params: Params, cfg: LLMConfig) -> List[Params]:
     return [layer_slice(params["layers"], i) for i in range(cfg.num_layers)]
 
 
-def _lora_delta(x: torch.Tensor, adapter: Params, scaling: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    dq = linear(linear(x, adapter["down_q"]), adapter["up_q"])
-    dv = linear(linear(x, adapter["down_v"]), adapter["up_v"])
+def _lora_delta(x: torch.Tensor, adapter: Params, scaling: float,
+                tp: Optional[par.Axis] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The adapter's q/v deltas; under tensor parallelism the ups are the
+    rank's column slices and the (replicated) downs' grads are summed over
+    tp (`par.copy_to` on their weights: each rank's grad is the part its
+    heads give)."""
+    down_q, down_v = adapter["down_q"], adapter["down_v"]
+    if tp is not None:
+        down_q = {**down_q, "w": par.copy_to(down_q["w"], tp)}
+        down_v = {**down_v, "w": par.copy_to(down_v["w"], tp)}
+    dq = linear(linear(x, down_q), adapter["up_q"])
+    dv = linear(linear(x, down_v), adapter["up_v"])
     return dq * scaling, dv * scaling
+
+
+def local_heads(cfg: LLMConfig) -> Tuple[int, int]:
+    """(query heads, kv heads) this rank runs: all of them, or its 1/tp of
+    each when the attention block runs tensor-parallel."""
+    tp = par.tp_axis("llm.attn")
+    n = tp.size if tp is not None else 1
+    return cfg.num_heads // n, cfg.num_kv_heads // n
+
+
+def _enter(x: torch.Tensor, block: str) -> torch.Tensor:
+    """A block's input: under tensor parallelism (and not sequence
+    parallelism, whose all-gather over T is the entry) its gradient is
+    summed over tp, each rank's being the part its columns give."""
+    if par.sp_axis() is not None:
+        return x
+    return par.copy_to(x, par.tp_axis(block))
+
+
+def _leave(y: torch.Tensor, block: str) -> torch.Tensor:
+    """A row-split linear's partial sums -> the block's output: an
+    all-reduce over tp, or a reduce-scatter over T under sequence
+    parallelism."""
+    tp = par.tp_axis(block)
+    if tp is None:
+        return y
+    sp = par.sp_axis()
+    return par.reduce_scatter(y, sp, 1) if sp is not None else par.reduce_from(y, tp)
 
 
 # The modality of the fused three-task training forward: the rows of x are
@@ -75,9 +113,13 @@ def _qkv_with_lora(layer: Params, cfg: LLMConfig, x: torch.Tensor,
     run once over the stacked (3B, T, H) batch and each task block adds its
     own adapter's deltas (`omni_avsr_tpu/models/llm.py:153-200`)."""
     attn = layer["attn"]
+    tp = par.tp_axis("llm.attn")
+    x = _enter(x, "llm.attn")
     if "qkv" in attn:
         qkv = linear(x, attn["qkv"])
-        q, k, v = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+        hq, hkv = local_heads(cfg)
+        q, k, v = torch.split(qkv, [hq * cfg.head_dim, hkv * cfg.head_dim,
+                                    hkv * cfg.head_dim], dim=-1)
     else:
         q, k, v = linear(x, attn["q"]), linear(x, attn["k"]), linear(x, attn["v"])
     if cfg.lora is not None:
@@ -85,17 +127,17 @@ def _qkv_with_lora(layer: Params, cfg: LLMConfig, x: torch.Tensor,
         if cfg.lora.task_specific:
             assert modality is not None, "task-specific LoRA needs a modality"
             if modality == FUSED3:
-                deltas = [_lora_delta(xm, layer["lora"][m], scaling)
+                deltas = [_lora_delta(xm, layer["lora"][m], scaling, tp)
                           for xm, m in zip(torch.chunk(x, 3, dim=0), MODALITIES)]
                 dq = torch.cat([d[0] for d in deltas], dim=0)
                 dv = torch.cat([d[1] for d in deltas], dim=0)
             else:
-                dq, dv = _lora_delta(x, layer["lora"][modality], scaling)
+                dq, dv = _lora_delta(x, layer["lora"][modality], scaling, tp)
             if cfg.lora.shared:
-                dqs, dvs = _lora_delta(x, layer["lora_shared"], scaling)
+                dqs, dvs = _lora_delta(x, layer["lora_shared"], scaling, tp)
                 dq, dv = dq + dqs, dv + dvs
         else:
-            dq, dv = _lora_delta(x, layer["lora"], scaling)
+            dq, dv = _lora_delta(x, layer["lora"], scaling, tp)
         q = q + dq
         v = v + dv
     return q, k, v
@@ -111,11 +153,12 @@ def _mlp_block(layer: Params, x: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
         y, _ = moe_ffn(layer["moe"], x, cfg.moe_capacity_factor, cfg.moe_routing)
         return y
     mlp = layer["mlp"]
+    x = _enter(x, "llm.mlp")
     if "gateup" in mlp:
         g, u = torch.chunk(linear(x, mlp["gateup"]), 2, dim=-1)
     else:
         g, u = linear(x, mlp["gate"]), linear(x, mlp["up"])
-    return linear(F.silu(g) * u, mlp["down"])
+    return _leave(linear(F.silu(g) * u, mlp["down"]), "llm.mlp")
 
 
 def embed_tokens(params: Params, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -126,12 +169,14 @@ def lm_head(params: Params, cfg: LLMConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm + unembedding -> f32 logits. An explicit "lm_head" (the
     int8 or packed-int4 copy installed by ops/quant.py) wins over the tied
     embeddings and goes through B2 or B6 with an f32 result
-    (`omni_avsr_tpu/models/llm.py:287-312`)."""
+    (`omni_avsr_tpu/models/llm.py:287-312`). Under tensor parallelism an
+    explicit head gives this rank's vocabulary slice (`gather_vocab`)."""
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
     head = params.get("lm_head")
     if head is None:  # tied bf16 embeddings: bf16 operands, f32 product
         w = params["embed"]["w"].t().to(x.dtype)
         return torch.matmul(x.float(), w.float())
+    x = par.copy_to(x, par.tp_axis("llm.lm_head"))
     xm = x.reshape(-1, x.shape[-1]).contiguous()
     if "w4" in head or "w4c" in head:
         logits = quantized_matmul4(xm, head, out_dtype=torch.float32)
@@ -142,23 +187,45 @@ def lm_head(params: Params, cfg: LLMConfig, x: torch.Tensor) -> torch.Tensor:
     return logits.reshape(*x.shape[:-1], -1)
 
 
+def gather_vocab(logits: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
+    """Logits over the whole vocabulary: the ranks' slices all-gathered
+    when the head runs tensor-parallel (the consumer runs replicated, so
+    each rank's gradient is its own slice)."""
+    if logits.shape[-1] == cfg.vocab_size:
+        return logits
+    return par.gather(logits, par.tp_axis("llm.lm_head"), -1, grad="slice")
+
+
 def _decoder_layer(layer: Params, cfg: LLMConfig, x: torch.Tensor, cos: torch.Tensor,
                    sin: torch.Tensor, mask: Optional[torch.Tensor], modality: Optional[str],
                    flash_causal: bool) -> torch.Tensor:
-    """One pre-norm layer over the whole (B, T, H) sequence (training)."""
-    B, T, _ = x.shape
-    h = rms_norm(x, layer["input_norm"]["scale"], cfg.rms_norm_eps)
+    """One pre-norm layer over the whole (B, T, H) sequence (training).
+    Under sequence parallelism x is this rank's slice of T: the norms run
+    on it, and an all-gather over T feeds q|k|v and gate|up."""
+    layer = par.fsdp_layer(layer)
+    sp = par.sp_axis()
+
+    def norm(x, p):  # under SP a norm's scale sees this rank's rows only
+        return rms_norm(x, par.copy_to(p["scale"], sp), cfg.rms_norm_eps)
+
+    h = norm(x, layer["input_norm"])
+    if sp is not None:
+        h = par.gather(h, sp, 1, grad="sum")
+    B, T, _ = h.shape
+    hq, hkv = local_heads(cfg)
     q, k, v = _qkv_with_lora(layer, cfg, h, modality)
-    q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(B, T, hq, cfg.head_dim)
+    k = k.reshape(B, T, hkv, cfg.head_dim)
+    v = v.reshape(B, T, hkv, cfg.head_dim)
     q, k = apply_rope(q, k, cos, sin)
     if flash_causal:
         out = flash_attention_trainable(q, k, v, causal=True)
     else:
         out = dot_product_attention(q, k, v, mask=mask)
-    x = x + linear(out.reshape(B, T, cfg.q_dim), layer["attn"]["o"])
-    h = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
+    x = x + _leave(linear(out.reshape(B, T, -1), layer["attn"]["o"]), "llm.attn")
+    h = norm(x, layer["post_attn_norm"])
+    if sp is not None:
+        h = par.gather(h, sp, 1, grad="sum")
     return x + _mlp_block(layer, h, cfg)
 
 
@@ -200,24 +267,65 @@ def maybe_remat(fn, remat: str, *args):
                                                    _dots_policy))
 
 
-def llm_backbone(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
-                 positions: torch.Tensor, modality: Optional[str] = None,
-                 remat: str = "dots") -> torch.Tensor:
-    """The causal decoder stack over (B, T, H) embeddings at (B, T) rope
-    positions; returns the final hidden states before the final norm
-    (`omni_avsr_tpu/models/llm.py:316-372`, without its pipeline route).
-    Each layer runs under the remat policy `remat` (`maybe_remat`); the
-    values are the same under every policy."""
+def run_layers(layers: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
+               positions: torch.Tensor, modality: Optional[str] = None,
+               remat: str = "dots") -> torch.Tensor:
+    """The causal stack of `layers` (an (L', ...)-stacked tree: the whole
+    decoder, or a pipeline stage's slice) over (B, T, H) at (B, T) rope
+    positions. Under sequence parallelism T is padded to a multiple of tp,
+    the residual stream between layers is this rank's slice of T, and the
+    padding is sliced off at the end (causal: it reaches no real row)."""
     check_remat(remat)
     B, T, _ = inputs_embeds.shape
+    sp = par.sp_axis()
+    x = inputs_embeds
+    if sp is not None:
+        Tp = -(-T // sp.size) * sp.size
+        if Tp != T:
+            x = F.pad(x, (0, 0, 0, Tp - T))
+            positions = torch.cat([positions, positions[:, -1:] + torch.arange(
+                1, Tp - T + 1, device=positions.device)[None]], dim=1)
+        T = Tp
+        x = par.scatter(x, sp, 1)
     cos, sin = rope_cos_sin(cfg, positions)
     flash_causal = inputs_embeds.is_cuda and cfg.head_dim in (64, 128) and T >= FLASH_MIN_T_TRAIN
     mask = None if flash_causal else causal_mask(T, T, device=inputs_embeds.device)
-    x = inputs_embeds
-    for layer in unstack_layers(params, cfg):
-        x = maybe_remat(_decoder_layer, remat, layer, cfg, x, cos, sin, mask, modality,
-                        flash_causal)
+    n = next(iter(_stacked_leaves(layers))).shape[0]
+    for i in range(n):
+        x = maybe_remat(_decoder_layer, remat, layer_slice(layers, i), cfg, x, cos, sin, mask,
+                        modality, flash_causal)
+    if sp is not None:
+        x = par.gather(x, sp, 1, grad="slice")[:, :inputs_embeds.shape[1]]
     return x
+
+
+def _stacked_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _stacked_leaves(v)
+        else:
+            yield v
+
+
+def llm_backbone(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
+                 positions: torch.Tensor, modality: Optional[str] = None,
+                 remat: str = "dots", pipeline=None) -> torch.Tensor:
+    """The causal decoder stack over (B, T, H) embeddings at (B, T) rope
+    positions; returns the final hidden states before the final norm
+    (`omni_avsr_tpu/models/llm.py:316-372`). Each layer runs under the
+    remat policy `remat` (`maybe_remat`); the values are the same under
+    every policy. With a `PipelinePlan` the stack runs the GPipe schedule
+    over the plan's pp axis (`parallel/pipeline.py`; `params["layers"]` is
+    then this stage's slice)."""
+    check_remat(remat)
+    if pipeline is not None:
+        from ..parallel.pipeline import pipeline_backbone
+
+        return pipeline_backbone(
+            pipeline.mesh, params["layers"], cfg, inputs_embeds, positions, modality=modality,
+            num_microbatches=pipeline.num_microbatches, remat=remat,
+            axis_name=pipeline.axis, dp_axis=pipeline.dp_axis)
+    return run_layers(params["layers"], cfg, inputs_embeds, positions, modality, remat)
 
 
 def token_ce_stats(logits: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -234,7 +342,7 @@ def token_ce_stats(logits: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.T
 
 def llm_span_stats(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                    labels: torch.Tensor, span: Tuple[int, int], modality: Optional[str] = None,
-                   remat: str = "dots") -> Tuple[torch.Tensor, torch.Tensor]:
+                   remat: str = "dots", pipeline=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shifted-CE stats over the label-active logits positions [t0, t1)
     only: the backbone runs the whole sequence, the final norm, lm_head and
     CE only the span (`:451-475`; exact, since the other positions' labels
@@ -242,8 +350,8 @@ def llm_span_stats(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     B, T, _ = inputs_embeds.shape
     t0, t1 = span
     positions = torch.arange(T, device=inputs_embeds.device)[None].expand(B, T)
-    x = llm_backbone(params, cfg, inputs_embeds, positions, modality, remat)
-    logits = lm_head(params, cfg, x[:, t0:t1])
+    x = llm_backbone(params, cfg, inputs_embeds, positions, modality, remat, pipeline)
+    logits = gather_vocab(lm_head(params, cfg, x[:, t0:t1]), cfg)
     return token_ce_stats(logits, labels[:, t0 + 1:t1 + 1])
 
 
@@ -256,7 +364,7 @@ class KVCache(NamedTuple):
     @classmethod
     def create(cls, cfg: LLMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> "KVCache":
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        shape = (cfg.num_layers, batch, max_len, local_heads(cfg)[1], cfg.head_dim)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -276,6 +384,7 @@ def llm_prefill_masked(
     cache in place and returns the (B, V) f32 logits at `last_idx`."""
     B, P, _ = inputs_embeds.shape
     layers = layers if layers is not None else unstack_layers(params, cfg)
+    hq, hkv = local_heads(cfg)
     cos, sin = rope_cos_sin(cfg, positions)
     S = cache.k.shape[2]
     kv = F.pad(key_valid, (0, S - P))
@@ -284,14 +393,14 @@ def llm_prefill_masked(
     for i, layer in enumerate(layers):
         h = rms_norm(x, layer["input_norm"]["scale"], cfg.rms_norm_eps)
         q, k, v = _qkv_with_lora(layer, cfg, h, modality)
-        q = q.reshape(B, P, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(B, P, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(B, P, cfg.num_kv_heads, cfg.head_dim)
+        q = q.reshape(B, P, hq, cfg.head_dim)
+        k = k.reshape(B, P, hkv, cfg.head_dim)
+        v = v.reshape(B, P, hkv, cfg.head_dim)
         q, k = apply_rope(q, k, cos, sin)
         cache.k[i, :, :P] = k.to(cache.k.dtype)
         cache.v[i, :, :P] = v.to(cache.v.dtype)
         out = dot_product_attention(q, cache.k[i].to(q.dtype), cache.v[i].to(q.dtype), mask=qmask)
-        x = x + linear(out.reshape(B, P, cfg.q_dim), layer["attn"]["o"])
+        x = x + _leave(linear(out.reshape(B, P, -1), layer["attn"]["o"]), "llm.attn")
         h = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
         x = x + _mlp_block(layer, h, cfg)
     x_last = x[torch.arange(B, device=x.device), last_idx][:, None]  # (B, 1, H)
@@ -339,6 +448,7 @@ def llm_decode_step(
     B = token_embeds.shape[0]
     dev = token_embeds.device
     layers = layers if layers is not None else unstack_layers(params, cfg)
+    hq, hkv = local_heads(cfg)
     cos, sin = rope_cos_sin(cfg, (prefix_len + step)[:, None])
     S = cache.k.shape[2]
     key_pos = torch.arange(S, device=dev)[None]
@@ -353,14 +463,14 @@ def llm_decode_step(
     for i, layer in enumerate(layers):
         h = rms_norm(x, layer["input_norm"]["scale"], cfg.rms_norm_eps)
         q, k, v = _qkv_with_lora(layer, cfg, h, modality)
-        q = q.reshape(B, 1, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
+        q = q.reshape(B, 1, hq, cfg.head_dim)
+        k = k.reshape(B, 1, hkv, cfg.head_dim)
+        v = v.reshape(B, 1, hkv, cfg.head_dim)
         q, k = apply_rope(q, k, cos, sin)
         cache.k[i, :, slot] = k[:, 0].to(cache.k.dtype)
         cache.v[i, :, slot] = v[:, 0].to(cache.v.dtype)
         out = dot_product_attention(q, cache.k[i].to(q.dtype), cache.v[i].to(q.dtype), mask=mask)
-        x = x + linear(out.reshape(B, 1, cfg.q_dim), layer["attn"]["o"])
+        x = x + _leave(linear(out.reshape(B, 1, -1), layer["attn"]["o"]), "llm.attn")
         h2 = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
         x = x + _mlp_block(layer, h2, cfg)
     return lm_head(params, cfg, x)[:, 0], cache
@@ -468,6 +578,7 @@ def llm_decode_step_beam(
     attention. Returns ((B*K, V) f32 logits, cache)."""
     BK = token_embeds.shape[0]
     layers = layers if layers is not None else unstack_layers(params, cfg)
+    hq, hkv = local_heads(cfg)
     cos, sin = rope_cos_sin(cfg, (n_valid + step)[:, None])
     N = cache.gen_k.shape[3]
     gen_mask = torch.arange(N, device=token_embeds.device) < step
@@ -475,9 +586,9 @@ def llm_decode_step_beam(
     for i, layer in enumerate(layers):
         h = rms_norm(x, layer["input_norm"]["scale"], cfg.rms_norm_eps)
         q, k, v = _qkv_with_lora(layer, cfg, h, modality)
-        q = q.reshape(BK, 1, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(BK, 1, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(BK, 1, cfg.num_kv_heads, cfg.head_dim)
+        q = q.reshape(BK, 1, hq, cfg.head_dim)
+        k = k.reshape(BK, 1, hkv, cfg.head_dim)
+        v = v.reshape(BK, 1, hkv, cfg.head_dim)
         q, k = apply_rope(q, k, cos, sin)
         k_cur, v_cur = k[:, 0], v[:, 0]
         out = merged_beam_attention(
@@ -485,7 +596,7 @@ def llm_decode_step_beam(
             cache.gen_k[:, i].to(q.dtype), cache.gen_v[:, i].to(q.dtype), k_cur, v_cur,
             prefix_mask, gen_mask, num_beams)
         cache.append_(i, k_cur, v_cur, step)
-        x = x + linear(out.reshape(BK, 1, cfg.q_dim), layer["attn"]["o"])
+        x = x + _leave(linear(out.reshape(BK, 1, -1), layer["attn"]["o"]), "llm.attn")
         h2 = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
         x = x + _mlp_block(layer, h2, cfg)
     return lm_head(params, cfg, x)[:, 0], cache
@@ -549,6 +660,7 @@ def llm_decode_step_beam_anc(
     Returns ((B*K, V) f32 logits, cache)."""
     BK = token_embeds.shape[0]
     layers = layers if layers is not None else unstack_layers(params, cfg)
+    hq, hkv = local_heads(cfg)
     positions = (n_valid + step)[:, None]
     cos, sin = rope_cos_sin(cfg, positions)
     prefix_bias = torch.where(prefix_mask, 0.0, NEG_INF).float()
@@ -556,9 +668,9 @@ def llm_decode_step_beam_anc(
     for i, layer in enumerate(layers):
         h = rms_norm(x, layer["input_norm"]["scale"], cfg.rms_norm_eps)
         q, k, v = _qkv_with_lora(layer, cfg, h, modality)
-        q = q.reshape(BK, 1, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(BK, 1, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(BK, 1, cfg.num_kv_heads, cfg.head_dim)
+        q = q.reshape(BK, 1, hq, cfg.head_dim)
+        k = k.reshape(BK, 1, hkv, cfg.head_dim)
+        v = v.reshape(BK, 1, hkv, cfg.head_dim)
         q, k = apply_rope(q, k, cos, sin)
         k_cur, v_cur = k[:, 0].contiguous(), v[:, 0].contiguous()
         out = beam_decode_attention(
@@ -566,7 +678,7 @@ def llm_decode_step_beam_anc(
             cache.gen_k[i].to(q.dtype), cache.gen_v[i].to(q.dtype), k_cur, v_cur,
             prefix_bias, anc, step, num_beams)
         cache.append_(i, k_cur, v_cur, step, num_beams)
-        x = x + linear(out.reshape(BK, 1, cfg.q_dim), layer["attn"]["o"])
+        x = x + _leave(linear(out.reshape(BK, 1, -1), layer["attn"]["o"]), "llm.attn")
         h2 = rms_norm(x, layer["post_attn_norm"]["scale"], cfg.rms_norm_eps)
         x = x + _mlp_block(layer, h2, cfg)
     return lm_head(params, cfg, x)[:, 0], cache

@@ -40,9 +40,11 @@ from ..config import (
 from ..data.tokenizer import IGNORE_INDEX, TokenizerBundle, synthetic_tokenizer
 from ..ops.audio_frontend import log_mel_spectrogram, whisper_token_len
 from ..ops.pooling import compress
+from ..parallel.collectives import global_count
 from .avhubert import avhubert_encode, layers_to_run
 from .common import Params
-from .llm import FUSED3, embed_tokens, llm_backbone, llm_span_stats, lm_head, token_ce_stats
+from .llm import (FUSED3, embed_tokens, gather_vocab, llm_backbone, llm_span_stats, lm_head,
+                  token_ce_stats)
 from .projector import project
 from .whisper import whisper_encode
 
@@ -276,7 +278,7 @@ class OmniAVSR:
                      rate_video: int, audio_trim_len: int, train_mode: bool = True,
                      remat: str = "dots", generator: Optional[torch.Generator] = None,
                      conv_kernel: bool = False, dropout_rng: Optional[torch.Tensor] = None,
-                     bn_stats: str = "onepass") -> Dict[str, torch.Tensor]:
+                     bn_stats: str = "onepass", pipeline=None) -> Dict[str, torch.Tensor]:
         """Three-task training forward: the matryoshka-weighted CE of each
         task (`modeling_OmniAVSR.py:263-306`;
         `omni_avsr_tpu/models/omni.py:233-280`, its unfused route). Batch:
@@ -285,7 +287,10 @@ class OmniAVSR:
         `generator`, or the threefry key `dropout_rng`, AV-HuBERT's dropouts
         and layerdrop; `conv_kernel` the ResNet trunk's convs through B7;
         `remat` is the remat policy of the LLM's and AV-HuBERT's layers
-        ("dots", "off" or "full": the same values)."""
+        ("dots", "off" or "full": the same values); `pipeline` a
+        `PipelinePlan` for the decoder stack. Inside a data-parallel step
+        (`parallel/collectives.py`) each CE is this rank's sum over the
+        global token count, so the ranks' losses sum to the global one."""
         cfg, dtype = self.cfg, self.dtype
         text_emb = embed_tokens(params["llm"], batch["tokens"].long(), dtype)
         labels = batch["labels"]
@@ -297,14 +302,16 @@ class OmniAVSR:
                               audio_trim_len).to(dtype)
         task_specific = bool(cfg.llm.lora and cfg.llm.lora.task_specific)
         if cfg.fused_task_forward:
-            return self._fused_train_losses(params, a, v, text_emb, labels, task_specific, remat)
+            return self._fused_train_losses(params, a, v, text_emb, labels, task_specific, remat,
+                                            pipeline)
         losses = {}
         for i, m in enumerate(MODALITIES):
             parts = {"audio": (a,), "video": (v,), "audiovisual": (a, v)}[m]
             embeds, lab, span = self._assemble_task(params, m, parts, text_emb, labels)
             total, count = llm_span_stats(params["llm"], cfg.llm, embeds, lab, span,
-                                          modality=m if task_specific else None, remat=remat)
-            loss = total.sum() / torch.clamp(count.sum(), min=1)
+                                          modality=m if task_specific else None, remat=remat,
+                                          pipeline=pipeline)
+            loss = total.sum() / torch.clamp(global_count(count.sum()), min=1)
             if cfg.matry_weights is not None:
                 loss = loss * cfg.matry_weights[i]
             losses[m] = loss
@@ -312,7 +319,7 @@ class OmniAVSR:
 
     def _fused_train_losses(self, params: Params, a: torch.Tensor, v: torch.Tensor,
                             text_emb: torch.Tensor, labels: torch.Tensor, task_specific: bool,
-                            remat: str) -> Dict[str, torch.Tensor]:
+                            remat: str, pipeline=None) -> Dict[str, torch.Tensor]:
         """The three tasks in one LLM forward, stacked on the batch axis
         (`omni_avsr_tpu/models/omni.py:282-335`): each task's sequence is
         right-padded to the longest (the audiovisual one), the decoder runs
@@ -329,14 +336,15 @@ class OmniAVSR:
         stacked = torch.cat([F.pad(e, (0, 0, 0, T_max - e.shape[1])) for e, _, _ in tasks])
         positions = torch.arange(T_max, device=stacked.device)[None].expand(3 * B, T_max)
         x = llm_backbone(params["llm"], cfg.llm, stacked, positions,
-                         FUSED3 if task_specific else None, remat)
+                         FUSED3 if task_specific else None, remat, pipeline)
         rows = torch.cat([x[i * B:(i + 1) * B, t0:t1] for i, (_, _, (t0, t1)) in enumerate(tasks)])
         targets = torch.cat([lab[:, t0 + 1:t1 + 1] for _, lab, (t0, t1) in tasks])
-        total, count = token_ce_stats(lm_head(params["llm"], cfg.llm, rows), targets)
+        total, count = token_ce_stats(gather_vocab(lm_head(params["llm"], cfg.llm, rows),
+                                                   cfg.llm), targets)
         losses = {}
         for i, m in enumerate(MODALITIES):
-            loss = total[i * B:(i + 1) * B].sum() / torch.clamp(count[i * B:(i + 1) * B].sum(),
-                                                                 min=1)
+            loss = total[i * B:(i + 1) * B].sum() / torch.clamp(
+                global_count(count[i * B:(i + 1) * B].sum()), min=1)
             if cfg.matry_weights is not None:
                 loss = loss * cfg.matry_weights[i]
             losses[m] = loss
@@ -362,7 +370,8 @@ class OmniAVSR:
 
     def single_task_loss(self, params: Params, batch: Dict[str, torch.Tensor], modality: str,
                          features: Dict[str, torch.Tensor], rate_audio: Optional[int] = None,
-                         rate_video: Optional[int] = None, remat: str = "dots") -> torch.Tensor:
+                         rate_video: Optional[int] = None, remat: str = "dots",
+                         pipeline=None) -> torch.Tensor:
         """The Llama-AVSR baseline's loss: one task's CE at one pair of rates
         (`omni_avsr_tpu/models/omni.py:337-374`; reference
         `modeling_LlamaAVSR.py`), on `features`, the `task_features` of the
@@ -380,8 +389,8 @@ class OmniAVSR:
                                                 batch["labels"])
         lora_mod = modality if (cfg.llm.lora and cfg.llm.lora.task_specific) else None
         total, count = llm_span_stats(params["llm"], cfg.llm, embeds, lab, span,
-                                      modality=lora_mod, remat=remat)
-        return total.sum() / torch.clamp(count.sum(), min=1)
+                                      modality=lora_mod, remat=remat, pipeline=pipeline)
+        return total.sum() / torch.clamp(global_count(count.sum()), min=1)
 
 
 def flagship(tiny: bool, dtype=torch.bfloat16, whisper_input_mode: str = "pad30s") -> OmniAVSR:

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..ops.conv_block import bn_fold, fused_conv
 from ..ops.norms import batch_norm_inference
+from ..parallel.collectives import batch_stat, dp_axis, global_count
 from .common import Params
 
 
@@ -48,6 +49,8 @@ def batch_norm_train(x: torch.Tensor, p: Params, eps: float = 1e-5,
     its variance in one pass or two (`stats`)."""
     axes = tuple(range(x.dim() - 1))
     xf = x.float()
+    if dp_axis(2) is not None:  # a data-parallel step: the global batch's statistics
+        return _batch_norm_global(xf, p, eps, stats, axes).to(x.dtype)
     mean = xf.mean(dim=axes)
     if stats == "onepass":
         var = torch.clamp(xf.square().mean(dim=axes) - mean.square(), min=0.0)
@@ -58,6 +61,22 @@ def batch_norm_train(x: torch.Tensor, p: Params, eps: float = 1e-5,
         raise ValueError(f"bn stats {stats!r}: one of {BN_STATS}")
     y = (xf - mean) * torch.rsqrt(var + eps) * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
+
+
+def _batch_norm_global(xf: torch.Tensor, p: Params, eps: float, stats: str,
+                       axes) -> torch.Tensor:
+    """`batch_norm_train` over the global batch of a data-parallel step: the
+    sums over this rank's rows all-reduced over dp (their gradient too),
+    one all-reduce per pass."""
+    n = global_count(torch.tensor(float(xf.numel() // xf.shape[-1]), device=xf.device))
+    mean = batch_stat(xf.sum(dim=axes)) / n
+    if stats == "onepass":
+        var = torch.clamp(batch_stat(xf.square().sum(dim=axes)) / n - mean.square(), min=0.0)
+    elif stats == "twopass":
+        var = batch_stat((xf - mean).square().sum(dim=axes)) / n
+    else:
+        raise ValueError(f"bn stats {stats!r}: one of {BN_STATS}")
+    return (xf - mean) * torch.rsqrt(var + eps) * p["scale"].float() + p["bias"].float()
 
 
 def _basic_block(p: Params, x: torch.Tensor, stride: int, train_mode: bool = False,

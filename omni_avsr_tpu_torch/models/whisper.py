@@ -20,7 +20,7 @@ from ..config import WhisperEncoderConfig
 from ..ops.attention import dot_product_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.norms import layer_norm
-from .common import Params, layer_slice, linear
+from .common import Params, layer_slice, linear, tp_ffn
 
 
 def sinusoidal_positions(length: int, channels: int) -> np.ndarray:
@@ -57,8 +57,7 @@ def _encoder_layer(layer: Params, cfg: WhisperEncoderConfig, x: torch.Tensor) ->
         out = dot_product_attention(q, k, v)
     x = x + linear(out.reshape(B, T, D), attn["o"])
     h = layer_norm(x, layer["mlp_norm"]["scale"], layer["mlp_norm"]["bias"], cfg.layer_norm_eps)
-    h = F.gelu(linear(h, layer["fc1"]))
-    return x + linear(h, layer["fc2"])
+    return x + tp_ffn(h, layer["fc1"], layer["fc2"], "whisper.ffn", F.gelu)
 
 
 def whisper_encode(params: Params, cfg: WhisperEncoderConfig, mel: torch.Tensor) -> torch.Tensor:

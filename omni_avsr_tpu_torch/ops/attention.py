@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.collectives import draw_rows
 from ..utils import prng
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -51,9 +52,11 @@ def dot_product_attention(
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     if generator is not None and dropout_rate > 0.0:
         if isinstance(generator, torch.Tensor):
-            keep = prng.bernoulli(generator, 1.0 - dropout_rate, probs.shape, probs.device)
+            keep = draw_rows(lambda sh: prng.bernoulli(generator, 1.0 - dropout_rate, sh,
+                                                       probs.device), probs.shape)
         else:
-            keep = torch.rand(probs.shape, generator=generator, device=generator.device)
+            keep = draw_rows(lambda sh: torch.rand(sh, generator=generator,
+                                                   device=generator.device), probs.shape)
             keep = keep.to(probs.device) < 1.0 - dropout_rate
         probs = probs * keep.to(probs.dtype) / (1.0 - dropout_rate)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v)

@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence, Union
 
 import torch
 
+from ..parallel.collectives import draw_rows
 from ..utils import prng
 
 SNR_CHOICES = (-5.0, 0.0, 5.0, 10.0, 15.0, 20.0, 999999.0)
@@ -45,15 +46,19 @@ def subkeys(rng: Rng, n: int) -> List[Rng]:
 
 
 def _randint(rng: Rng, low: int, high: int, shape, device) -> torch.Tensor:
+    """A draw whose leading axis is the batch (`draw_rows`: inside a
+    data-parallel step, the global batch's draw sliced to this rank's rows)."""
     if is_key(rng):
-        return prng.randint(rng, shape, low, high, device).long()
-    return torch.randint(low, high, shape, generator=rng, device=rng.device).to(device)
+        return draw_rows(lambda sh: prng.randint(rng, sh, low, high, device).long(), shape)
+    return draw_rows(lambda sh: torch.randint(low, high, sh, generator=rng,
+                                              device=rng.device).to(device), shape)
 
 
 def _rand(rng: Rng, shape, device) -> torch.Tensor:
     if is_key(rng):
-        return prng.uniform(rng, shape, device)
-    return torch.rand(shape, generator=rng, device=rng.device).to(device)
+        return draw_rows(lambda sh: prng.uniform(rng, sh, device), shape)
+    return draw_rows(lambda sh: torch.rand(sh, generator=rng, device=rng.device).to(device),
+                     shape)
 
 
 def utterance_layer_norm(x: torch.Tensor, lengths: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

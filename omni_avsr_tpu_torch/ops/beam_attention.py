@@ -45,6 +45,19 @@ def kernel_supported(head_dim: int) -> bool:
     return head_dim in (64, 128)
 
 
+def beam_attn_shardable(num_heads: int, num_kv_heads: int, mesh, axis: str = "tp") -> bool:
+    """Whether the kernel runs per shard under `mesh`'s tp axis
+    (`omni_avsr_tpu/ops/beam_attention.py:135-148`): it is parallel over kv
+    heads with no collective, so it shards iff both head counts divide tp.
+    Under tensor-parallel serving each rank launches it on its own heads."""
+    if mesh is None:
+        return True
+    from ..parallel.mesh import mesh_sizes
+
+    tp = mesh_sizes(mesh).get(axis, 1)
+    return num_heads % tp == 0 and num_kv_heads % tp == 0
+
+
 def smem_bytes(K: int, N: int, D: int) -> int:
     """The kernel's shared memory (`csrc/beam_attention.cu::Cfg::smem`):
     two stages of a 64-key K and V tile (rows padded by 8 bf16), each key's
@@ -255,7 +268,10 @@ def beam_decode_attention(
     physically reordered so that row k holds beam k's ancestor chain.
     CPU tensors take the plain version; CUDA tensors (bf16, contiguous,
     f32 bias, int32 anc) launch the kernel and count the launch in
-    `beam_decode_attention.launches`."""
+    `beam_decode_attention.launches`. Under a tp mesh (one rank per device)
+    the tensors are the rank's heads, Hq/tp and Hkv/tp: the JAX package's
+    `beam_decode_attention(mesh=...)` `shard_map` over kv heads is this
+    same call on each rank (`beam_attn_shardable` says when it applies)."""
     if q.device.type == "cpu":
         return beam_decode_attention_plain(q, pk, pv, gk, gv, k_cur, v_cur,
                                            prefix_bias, anc, step, num_beams)

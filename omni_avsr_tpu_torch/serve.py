@@ -28,6 +28,14 @@ package's reorder route (its `OMNI_BEAM_ATTN=xla`; also the route at a
 head size B1 lacks), `select_mode="grid"` its full candidate grid
 (`OMNI_BEAM_SELECT=grid`), and `no_repeat_ngram_size` bans repeated
 n-grams.
+
+With `mesh` (a tp `DeviceMesh`, `parallel/mesh.py`) every rank of the mesh
+builds its own shard of the serving tree (`decode_partition_specs`: the
+LLM matmuls and the encoder FFNs over tp, int8 codes and scales sliced
+from the whole tree bit for bit, then fused and laid out for the card per
+rank) and runs the same requests: B1 on its heads, B2 on its slices, B5
+on its vocabulary slice with an exact merge; every rank returns the same
+transcripts (`omni_avsr_tpu/serve.py:54-101`).
 """
 
 from __future__ import annotations
@@ -122,7 +130,8 @@ def decode_padded(model: OmniAVSR, params: Params, batch: Dict[str, np.ndarray],
                   device, *, select_kernel: bool = False, conv_kernel: bool = False,
                   noise_bank: Optional[torch.Tensor] = None, snr_target: Optional[float] = None,
                   generator=None, attn_route: Optional[str] = None,
-                  select_mode: str = "fused", no_repeat_ngram_size: int = 0) -> DecodeOutput:
+                  select_mode: str = "fused", no_repeat_ngram_size: int = 0,
+                  attn_mesh=None) -> DecodeOutput:
     """The decode body that `Transcriber` and `OmniEngine.decode_batch`
     share (`omni_avsr_tpu/train/engine.py::_decode_fn`): eval preprocessing
     of the modality's streams (babble from `noise_bank` mixed at
@@ -161,7 +170,8 @@ def decode_padded(model: OmniAVSR, params: Params, batch: Dict[str, np.ndarray],
             return greedy_decode(params["llm"], cfg.llm, prefix, **common)
         return beam_search(params["llm"], cfg.llm, prefix, num_beams=num_beams,
                            select_kernel=select_kernel, select_mode=select_mode,
-                           no_repeat_ngram_size=no_repeat_ngram_size, **common)
+                           no_repeat_ngram_size=no_repeat_ngram_size, attn_mesh=attn_mesh,
+                           **common)
 
 
 def ids_to_texts(tok, ids: torch.Tensor) -> List[str]:
@@ -173,6 +183,29 @@ def ids_to_texts(tok, ids: torch.Tensor) -> List[str]:
             toks = toks[: toks.index(tok.eos_id)]
         out.append(tok.decode(toks))
     return out
+
+
+def shard_serving_tree(tree: Params, mesh, quantized: bool, replicate=(),
+                       coords: Optional[Dict[str, int]] = None):
+    """(local tree, tp blocks): one rank's shard of a placed serving tree,
+    whose int8 leaves (when `quantized`) are not yet fused. Cut by
+    `decode_partition_specs`, clamped to the shapes and made coherent per
+    block (`parallel/partitioning.py`; the blocks of `replicate` run
+    replicated); then q|k|v and gate|up fused and every int8 leaf laid out
+    for the card. `mesh` may be a mapping of axis sizes, and `coords` (the
+    rank's mesh coordinates, else its own) lets one process cut every
+    rank's shard."""
+    from .ops.quant import arrange_for_card, fuse_decode_projections
+    from .parallel.partitioning import (clamp_specs_to_shapes, coherent_specs,
+                                        decode_partition_specs, shard_params)
+
+    specs = clamp_specs_to_shapes(mesh, tree, decode_partition_specs(tree))
+    specs, blocks = coherent_specs(specs, replicate=replicate)
+    local = shard_params(mesh, tree, specs, coords)
+    if quantized:  # each block's leaves are all sliced or all whole: fusing is per rank
+        local["llm"] = fuse_decode_projections(local["llm"])
+        local = arrange_for_card(local)
+    return local, blocks
 
 
 class Transcriber:
@@ -198,6 +231,7 @@ class Transcriber:
         attn_route: Optional[str] = None,  # decode attention: None (auto), "kernel", "xla"
         select_mode: str = "fused",  # beam candidate selection: "fused" or "grid"
         no_repeat_ngram_size: int = 0,  # > 0: ban repeated n-grams (on the grid)
+        mesh=None,  # a tp DeviceMesh: tensor-parallel serving, one rank per device
     ):
         self.model = model
         self.select_kernel = select_kernel
@@ -208,7 +242,10 @@ class Transcriber:
         self.video_pad_multiple = video_pad_multiple
         self.device = torch.device(device)
         place = placer(model.dtype, self.device, model.trainable_predicate())
-        if quantize:  # built layer by layer from where the caller's leaves are
+        self.mesh, self.attn_mesh, self.par = mesh, None, None
+        if mesh is not None:
+            self.params = self._shard(params, quantize, place, mesh)
+        elif quantize:  # built layer by layer from where the caller's leaves are
             from .ops.quant import quantize_for_card
 
             self.params = quantize_for_card(params, quantize, place)
@@ -220,6 +257,39 @@ class Transcriber:
         self.max_new = max_new_tokens if max_new_tokens is not None else model.cfg.max_dec_tokens
         self.last_decode_steps = 0  # decode steps of the last batch
         self.last_file_seconds: Dict[str, float] = {}  # stages of the last transcribe_file
+
+    def _shard(self, params: Params, quantize: Optional[str], place, mesh) -> Params:
+        """This rank's shard of the serving tree (`omni_avsr_tpu/serve.py:
+        63-101`): the whole tree placed and, with `quantize`, int8 without
+        fused projections (the tp rules shard q, k, v and gate, up apart);
+        cut by `decode_partition_specs`, clamped to the shapes and made
+        coherent per block (`parallel/partitioning.py`); then q|k|v and
+        gate|up fused and every int8 leaf laid out for the card, per rank.
+        B1 runs per shard where the heads divide tp, else the decode takes
+        the reorder route (the JAX package's `decode_attn_route = "xla"`)."""
+        from .ops.beam_attention import beam_attn_shardable
+        from .ops.quant import place_tree, quantize_llm_params, quantize_tower_params
+        from .parallel.collectives import Parallel
+
+        assert quantize in (None, "int8"), "int4 packed runtime is single-chip"
+        llm_cfg = self.model.cfg.llm
+        heads_divide = beam_attn_shardable(llm_cfg.num_heads, llm_cfg.num_kv_heads, mesh)
+        if heads_divide:
+            self.attn_mesh = mesh
+        else:
+            self.attn_route = "xla"
+        tree = place_tree(params, place)
+        if quantize:
+            tree = dict(tree)
+            tree["llm"] = quantize_llm_params(tree["llm"], 8)
+            for tower in ("whisper", "avhubert"):
+                if tower in tree:
+                    tree[tower] = quantize_tower_params(tree[tower])
+        local, blocks = shard_serving_tree(tree, mesh, bool(quantize),
+                                           replicate=() if heads_divide else ("llm.attn",))
+        del tree
+        self.par = Parallel.of(mesh, blocks)
+        return local
 
     @classmethod
     def from_pretrained(
@@ -276,11 +346,15 @@ class Transcriber:
                    rate_video: int, trim: int, num_beams: int) -> torch.Tensor:
         """Padded numpy batch -> (B, max_new) ids: the best beam hypothesis,
         or the greedy ids when `num_beams <= 1`."""
-        out = decode_padded(self.model, self.params, batch, modality, rate_audio, rate_video,
-                            trim, num_beams, self.max_new, self.device,
-                            select_kernel=self.select_kernel, conv_kernel=self.conv_kernel,
-                            attn_route=self.attn_route, select_mode=self.select_mode,
-                            no_repeat_ngram_size=self.no_repeat_ngram_size)
+        from .parallel.collectives import scope
+
+        with scope(self.par):
+            out = decode_padded(self.model, self.params, batch, modality, rate_audio,
+                                rate_video, trim, num_beams, self.max_new, self.device,
+                                select_kernel=self.select_kernel, conv_kernel=self.conv_kernel,
+                                attn_route=self.attn_route, select_mode=self.select_mode,
+                                no_repeat_ngram_size=self.no_repeat_ngram_size,
+                                attn_mesh=self.attn_mesh)
         self.last_decode_steps = out.steps
         return out.tokens
 

@@ -43,10 +43,25 @@ The JAX package's numerics switches are arguments here (the CLIs read its
     attention route and candidate selection (`OMNI_BEAM_ATTN`,
     `OMNI_BEAM_SELECT`); `select_kernel` its selection statistics through
     B5 where the vocabulary allows (`OMNI_SELECT_KERNEL=1`).
+
+Parallelism (`parallel/`): with `mesh` (a `DeviceMesh`, one rank per
+device) the engine keeps this rank's slice of every leaf
+(`llm_partition_specs`: the LLM over tp, over dp too with `fsdp`, the
+expert weights over ep; `pipeline`'s layer slice over pp) and computes
+the JAX package's global step. Each rank takes its rows of the global
+batch (`cli/common.py::setup_parallelism`'s feed); the CE means are over
+the global token count, the ResNet's BN over the global batch, every
+random draw the global batch's draw sliced to the rank's rows; the
+gradients of the replicated leaves are broadcast from pipeline stage 0
+and summed over dp (FSDP leaves' are reduce-scattered by their per-layer
+all-gather), then the clip takes the norm of the whole tree and AdamW
+updates each rank's shards. `full_state` / `load_state` move between the
+shards and the tree one process holds (checkpoints).
 """
 
 from __future__ import annotations
 
+import functools
 import random
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -59,6 +74,7 @@ from ..models.llm import check_remat
 from ..models.omni import OmniAVSR
 from ..models.resnet3d import BN_STATS
 from ..ops.augment import audio_pipeline, video_pipeline
+from ..parallel import collectives as par
 from ..utils import prng as threefry
 from .optim import make_optimizer
 from .state import (
@@ -93,6 +109,10 @@ class OmniEngine:
         decode_attn_route: Optional[str] = None,
         decode_select_mode: str = "fused",
         select_kernel: bool = False,
+        mesh=None,
+        fsdp: bool = False,
+        sequence_parallel: bool = False,
+        pipeline=None,
     ):
         if prng not in ("torch", "threefry"):
             raise ValueError(f"prng {prng!r}: 'torch' or 'threefry'")
@@ -116,12 +136,20 @@ class OmniEngine:
         # babble mixed at this fixed SNR into decode_batch's audio (None: clean)
         self.decode_snr_target = decode_snr_target
         self.last_decode_steps = 0  # decode steps of the last decode_batch
+        # a tp mesh whose heads B1 shards: decode_batch's fused selection then
+        # runs per vocabulary shard (`serve.py::Transcriber(mesh=...)` keeps
+        # its own; the JAX engine's `decode_attn_mesh`)
+        self.decode_attn_mesh = None
         self._py_rng = random.Random(seed)
         # augmentation, dropout and layerdrop draws: a generator on the
         # device, or the JAX engine's threefry key (`train/engine.py:72-81`)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._rng_key = threefry.PRNGKey(seed) if prng == "threefry" else None
-        trainable, frozen = split_params(params, model.trainable_predicate(unfrozen_modules))
+        self.mesh, self.pipeline, self.par, self._fsdp_rest = mesh, pipeline, None, None
+        pred = model.trainable_predicate(unfrozen_modules)
+        if mesh is not None:
+            params = self._shard(params, fsdp, sequence_parallel, pred)
+        trainable, frozen = split_params(params, pred)
         self.frozen = tree_map(lambda x: x.detach().to(self.device), frozen)
         if inference_only:
             # no optimizer: f32 trainable leaves without grads or AdamW moments
@@ -134,9 +162,60 @@ class OmniEngine:
             masters = master_weights(trainable, self.device)
             self.state = TrainState(0, masters, self.tx.init(list(tree_leaves(masters))))
 
+    def _shard(self, params, fsdp: bool, sequence_parallel: bool, pred):
+        """This rank's slices of `params` under the mesh, with the spec trees
+        of the trainable and frozen leaves and the step's `Parallel`
+        (`omni_avsr_tpu/cli/common.py:281-320`: only the LLM shards in
+        training)."""
+        from ..parallel.mesh import axis
+        from ..parallel.partitioning import (clamp_specs_to_shapes, coherent_specs,
+                                             llm_partition_specs, shard_params)
+        from ..parallel.pipeline import pipeline_layer_specs
+
+        mesh, llm = self.mesh, params["llm"]
+        if sequence_parallel:
+            assert axis(mesh, "tp").size > 1, "--sequence-parallel needs --mesh-tp > 1"
+            if self.cfg.llm.moe_experts:
+                raise ValueError("sequence parallelism with an MoE decoder is not ported "
+                                 "(ROADMAP A5)")
+        specs = llm_partition_specs(llm, fsdp=fsdp, ep=axis(mesh, "ep").size > 1)
+        if self.pipeline is not None:
+            specs["layers"] = pipeline_layer_specs(llm["layers"])
+        tp = axis(mesh, "tp").size
+        heads_divide = self.cfg.llm.num_heads % tp == 0 and self.cfg.llm.num_kv_heads % tp == 0
+        specs, blocks = coherent_specs(clamp_specs_to_shapes(mesh, llm, specs), "llm",
+                                       replicate=() if heads_divide else ("llm.attn",))
+        if sequence_parallel and not {"llm.attn", "llm.mlp"} <= blocks:
+            raise ValueError("sequence parallelism needs the attention and MLP blocks to "
+                             "divide the tp axis")
+        tree_specs = {k: (specs if k == "llm" else tree_map(lambda x: (), v)
+                          if isinstance(v, dict) else ()) for k, v in params.items()}
+        self.specs, self.frozen_specs = split_params(tree_specs, pred)
+        self.specs = self.specs or {}
+        self.par = par.Parallel.of(mesh, blocks, sequence_parallel,
+                                   specs["layers"] if fsdp else None)
+        self._fsdp_rest = ({k: v for k, v in specs.items() if k != "layers"} if fsdp else None)
+        return shard_params(mesh, params, tree_specs)
+
     def _params(self) -> Dict[str, Any]:
-        """The merged tree: masters cast to the compute dtype (in the graph)."""
-        return merge_params(cast_trainable(self.state.trainable, self.model.dtype), self.frozen)
+        """The merged tree: masters cast to the compute dtype (in the graph);
+        under FSDP the LLM's leaves outside the layer stack all-gathered
+        (the layers' are gathered per layer, `models/llm.py`)."""
+        merged = merge_params(cast_trainable(self.state.trainable, self.model.dtype), self.frozen)
+        if self._fsdp_rest is not None:
+            llm = dict(merged["llm"])
+            for k, spec in self._fsdp_rest.items():
+                llm[k] = par.fsdp_gather(llm[k], spec)
+            merged = {**merged, "llm": llm}
+        return merged
+
+    def _rows(self, batch: Dict[str, torch.Tensor]):
+        """This rank's (first row, global batch) for the step's draws."""
+        if self.par is None:
+            return
+        B = next(v.shape[0] for v in batch.values() if isinstance(v, torch.Tensor) and v.dim())
+        dp = self.par.dp
+        self.par.rows = (dp.rank * B, dp.size * B) if dp.active else None
 
     def _next_rng(self) -> Optional[torch.Tensor]:
         """The call's key, `self._rng_key, k = split(self._rng_key)` (the JAX
@@ -183,7 +262,7 @@ class OmniEngine:
             self._params(), proc, rate_a, rate_v, trim_len, train_mode=mode, remat=self.remat,
             generator=self.generator if mode and key is None else None,
             conv_kernel=self.conv_kernel, dropout_rng=k_drop if mode else None,
-            bn_stats=self.bn_stats)
+            bn_stats=self.bn_stats, pipeline=self.pipeline)
         total = (losses["audio"] + losses["video"] + losses["audiovisual"]) / 3.0
         return total, losses
 
@@ -202,30 +281,74 @@ class OmniEngine:
                 self._py_rng.choice(self.cfg.video_rates))
 
     def _update(self, total: torch.Tensor) -> torch.Tensor:
-        """Backpropagate `total` into the masters, then the clip + AdamW step."""
+        """Backpropagate `total` into the masters, then the clip + AdamW step.
+        Returns the loss (summed over dp: each rank's is its share)."""
         if self.tx is None:
             raise RuntimeError("an inference_only engine holds no optimizer")
         leaves = list(tree_leaves(self.state.trainable))
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        extra = []
+        if self.pipeline is not None:
+            from ..parallel.pipeline import anchors
+
+            extra = anchors()
+        grads = torch.autograd.grad(total, leaves + extra, allow_unused=True)[:len(leaves)]
         # a leaf this step did not use (the other rates' projectors) has a
         # zero grad, as under jax.grad: AdamW still decays it and its moments
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        opt_state = self.tx.update_(leaves, grads, self.state.opt_state)
+        sq_norm = None
+        if self.par is not None:
+            from ..parallel.pipeline import drain
+
+            drain()
+            specs = list(tree_leaves(self.specs))
+            grads = par.reduce_grads(grads, specs, self.par)
+            sq_norm = functools.partial(self._sq_norm, specs=specs)
+        opt_state = self.tx.update_(leaves, grads, self.state.opt_state, sq_norm=sq_norm)
         self.state = TrainState(self.state.step + 1, self.state.trainable, opt_state)
-        return total.detach()
+        return par.all_reduce(total.detach(), self.par.dp if self.par else None)
+
+    def _sq_norm(self, grads: List[torch.Tensor], specs) -> torch.Tensor:
+        """The squared global norm of a sharded tree: each rank's squares,
+        each leaf's divided by the ranks that hold the same slice, summed
+        over the world."""
+        import torch.distributed as dist
+
+        from ..parallel.mesh import mesh_sizes
+
+        sizes = mesh_sizes(self.mesh)
+        world = dist.get_world_size()
+        total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        for g, s in zip(grads, specs):
+            shards = 1
+            for ax in s:
+                if ax is not None:
+                    shards *= sizes.get(ax, 1)
+            total = total + (g.float() * g.float()).sum() * (shards / world)
+        dist.all_reduce(total)
+        return total
 
     def train_step(self, batch: Dict[str, Any]) -> torch.Tensor:
         """One optimizer step; returns the loss (a device scalar)."""
         rate_a, rate_v = self.sample_rates()
         arrays, trim = self._arrays(batch)
-        total, _ = self._loss(arrays, rate_a, rate_v, trim, is_train=True, key=self._next_rng())
-        return self._update(total)
+        self._rows(arrays)
+        with par.scope(self.par):
+            total, _ = self._loss(arrays, rate_a, rate_v, trim, is_train=True,
+                                  key=self._next_rng())
+            return self._update(total)
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         rate_a, rate_v = self.sample_rates()
         arrays, trim = self._arrays(batch)
-        return self._loss(arrays, rate_a, rate_v, trim, is_train=False, key=self._next_rng())
+        self._rows(arrays)
+        with par.scope(self.par):
+            total, losses = self._loss(arrays, rate_a, rate_v, trim, is_train=False,
+                                       key=self._next_rng())
+            if self.par is None:
+                return total, losses
+            dp = self.par.dp
+            return par.all_reduce(total, dp), {k: par.all_reduce(v, dp) for k, v in losses.items()}
 
     def _rate_combos(self, modality: str) -> List[Tuple[Optional[int], Optional[int]]]:
         """The rate pairs of the baseline's loss: every rate of the task's
@@ -261,7 +384,7 @@ class OmniEngine:
                                          remat=self.remat)
         combos = self._rate_combos(modality)
         total = sum(self.model.single_task_loss(params, proc, modality, feats, ra, rv,
-                                                remat=self.remat)
+                                                remat=self.remat, pipeline=self.pipeline)
                     for ra, rv in combos)
         return total / len(combos)
 
@@ -269,13 +392,19 @@ class OmniEngine:
         """One optimizer step of the single-task baseline on `modality`;
         returns the loss (a device scalar)."""
         arrays, trim = self._arrays(batch)
-        return self._update(self._single_loss(arrays, modality, trim, is_train=True,
-                                              key=self._next_rng()))
+        self._rows(arrays)
+        with par.scope(self.par):
+            return self._update(self._single_loss(arrays, modality, trim, is_train=True,
+                                                  key=self._next_rng()))
 
     @torch.no_grad()
     def single_eval_step(self, batch: Dict[str, Any], modality: str) -> torch.Tensor:
         arrays, trim = self._arrays(batch)
-        return self._single_loss(arrays, modality, trim, is_train=False, key=self._next_rng())
+        self._rows(arrays)
+        with par.scope(self.par):
+            loss = self._single_loss(arrays, modality, trim, is_train=False,
+                                     key=self._next_rng())
+            return par.all_reduce(loss, self.par.dp) if self.par is not None else loss
 
     def decode_batch(self, params: Dict[str, Any], batch: Dict[str, Any], modality: str,
                      rate_a: Optional[int] = None, rate_v: Optional[int] = None,
@@ -308,11 +437,69 @@ class OmniEngine:
             noise_bank=self.noise_bank, snr_target=self.decode_snr_target, generator=rng,
             attn_route=attn_route if attn_route is not None else self.decode_attn_route,
             select_mode=select_mode if select_mode is not None else self.decode_select_mode,
-            no_repeat_ngram_size=no_repeat_ngram_size)
+            no_repeat_ngram_size=no_repeat_ngram_size, attn_mesh=self.decode_attn_mesh)
         self.last_decode_steps = out.steps
         return ids_to_texts(self.model.tok, out.tokens)
 
     def merged_params(self) -> Dict[str, Any]:
-        """The full tree for serving: masters in the compute dtype, detached."""
-        return merge_params(tree_map(lambda x: x.detach().to(self.model.dtype),
-                                     self.state.trainable), self.frozen)
+        """The full tree for serving: masters in the compute dtype, detached
+        (under a mesh gathered from every rank's slices: every rank then
+        decodes the whole model)."""
+        trainable = tree_map(lambda x: x.detach().to(self.model.dtype), self.state.trainable)
+        frozen = self.frozen
+        if self.par is not None:
+            from ..parallel.partitioning import gather_params
+
+            trainable = gather_params(self.mesh, trainable, self.specs)
+            frozen = gather_params(self.mesh, frozen, self.frozen_specs)
+        return merge_params(trainable, frozen)
+
+    def full_state(self) -> TrainState:
+        """The state one process holds: under a mesh the masters and AdamW
+        moments gathered from every rank's slices (for checkpoints, which
+        only the primary writes)."""
+        if self.par is None:
+            return self.state
+        from ..parallel.partitioning import gather_params
+
+        def whole(leaves):
+            tree = _unflatten(self.state.trainable, leaves)
+            return list(tree_leaves(gather_params(self.mesh, tree, self.specs)))
+
+        st = self.state
+        trainable = gather_params(self.mesh, tree_map(lambda x: x.detach(), st.trainable),
+                                  self.specs)
+        opt = st.opt_state
+        if opt is not None:
+            opt = type(opt)(opt.count, whole(opt.mu), whole(opt.nu))
+        return TrainState(st.step, trainable, opt)
+
+    def load_state(self, state: TrainState) -> None:
+        """Install a state one process holds (`restore_checkpoint`): under a
+        mesh each rank keeps its slices."""
+        if self.par is not None:
+            from ..parallel.partitioning import shard_params
+
+            def mine(leaves):
+                tree = _unflatten(state.trainable, leaves)
+                return [x.to(self.device).contiguous() for x in
+                        tree_leaves(shard_params(self.mesh, tree, self.specs))]
+
+            opt = state.opt_state
+            if opt is not None:
+                opt = type(opt)(opt.count, mine(opt.mu), mine(opt.nu))
+            trainable = shard_params(self.mesh, state.trainable, self.specs)
+            trainable = master_weights(trainable, self.device)
+            state = TrainState(state.step, trainable, opt)
+        self.state = state
+
+
+def _unflatten(template: Dict[str, Any], leaves: List[torch.Tensor]) -> Dict[str, Any]:
+    """`leaves` (in `tree_leaves` order) in the structure of `template`."""
+    it = iter(leaves)
+
+    def build(node):
+        return {k: build(node[k]) if isinstance(node[k], dict) else next(it)
+                for k in sorted(node)}
+
+    return build(template)

@@ -50,9 +50,17 @@ class AdamWState(NamedTuple):
     nu: List[torch.Tensor]
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
-    """optax.clip_by_global_norm: g * c / max(||g||_2, c) over all leaves."""
-    norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sq_norm: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None
+                        ) -> List[torch.Tensor]:
+    """optax.clip_by_global_norm: g * c / max(||g||_2, c) over all leaves.
+    `sq_norm(grads)` gives the squared norm where the leaves are shards of
+    the global tree (`train/engine.py`): the sum of every rank's squares,
+    each element counted once."""
+    if sq_norm is not None:
+        norm = torch.sqrt(sq_norm(grads))
+    else:
+        norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
     c = torch.tensor(max_norm, dtype=norm.dtype, device=norm.device)
     factor = c / torch.maximum(norm, c)
     return [g * factor for g in grads]
@@ -73,14 +81,17 @@ class AdamW:
 
     @torch.no_grad()
     def update_(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-                state: AdamWState, decay: Optional[List[bool]] = None) -> AdamWState:
+                state: AdamWState, decay: Optional[List[bool]] = None,
+                sq_norm=None) -> AdamWState:
         """One step, in place on `params` and the moments. `decay` is adamw's
-        `mask`: the leaves whose weight decay applies (all when None)."""
+        `mask`: the leaves whose weight decay applies (all when None);
+        `sq_norm` the clip's squared norm of sharded leaves
+        (`clip_by_global_norm`)."""
         b1, b2 = self.cfg.betas
         lr = self.schedule(state.count)
         t = state.count + 1
         decay = [True] * len(params) if decay is None else decay
-        for p, g, mu, nu, d in zip(params, clip_by_global_norm(grads, self.cfg.grad_clip),
+        for p, g, mu, nu, d in zip(params, clip_by_global_norm(grads, self.cfg.grad_clip, sq_norm),
                                    state.mu, state.nu, decay):
             mu.mul_(b1).add_(g, alpha=1.0 - b1)
             nu.mul_(b2).add_(g * g, alpha=1.0 - b2)

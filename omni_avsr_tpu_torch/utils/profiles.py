@@ -54,7 +54,7 @@ class Numerics:
     select_kernel: bool = False  # B5 selection statistics (where the vocabulary allows)
     conv_kernel: bool = False  # B7 in the ResNet trunk
     remat: str = "dots"  # remat policy: "dots", "off" or "full"
-    sp: bool = False  # sequence parallelism (not ported: ROADMAP A5)
+    sp: bool = False  # OmniEngine(sequence_parallel=) under a tp mesh (`--sequence-parallel`)
 
     def engine_kwargs(self) -> Dict[str, object]:
         """The `OmniEngine` arguments these switches set."""
@@ -109,9 +109,6 @@ def resolve(environ: Mapping[str, str], verbose: bool = True) -> Numerics:
             msg += " | explicit overrides kept: " + ", ".join(
                 f"{k}={v}" for k, v in overridden.items())
         print(msg)
-    if _flag(env, "OMNI_SP"):
-        raise NotImplementedError("OMNI_SP=1 (sequence parallelism) is not ported to "
-                                  "omni_avsr_tpu_torch (ROADMAP A5)")
     attn = env.get("OMNI_BEAM_ATTN") or None
     if attn not in (None, "kernel", "xla"):
         raise ValueError(f"OMNI_BEAM_ATTN={attn!r}: 'kernel' or 'xla'")
@@ -123,7 +120,7 @@ def resolve(environ: Mapping[str, str], verbose: bool = True) -> Numerics:
         select_kernel=_flag(env, "OMNI_SELECT_KERNEL"),
         conv_kernel=_flag(env, "OMNI_CONV_KERNEL"),
         remat=_choice(env, "OMNI_REMAT", "dots", ("dots", "off", "full")),
-        sp=False,
+        sp=_flag(env, "OMNI_SP"),
     )
 
 

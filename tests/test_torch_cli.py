@@ -246,11 +246,43 @@ def test_cli_refuses_to_run_without_a_card(tmp_path):
     ["--coordinator-address", "10.0.0.1:1234"],
 ])
 def test_unported_flags_raise(tmp_path, flag):
-    from omni_avsr_tpu_torch.cli import eval_llama_avsr, eval_omni, train_llama_avsr, train_omni
+    """The parallel flags, refused until the port had parallelism, now reach
+    the rank start-up (`parallel/distributed.py::resolve_rendezvous`) and
+    the mesh (`cli/common.py::setup_parallelism`). In one process each one
+    that asks for more ranks raises the JAX package's message before any
+    work; `--node-rank` alone starts nothing; the coordinator's address
+    becomes the rendezvous (resolved here, nothing is contacted)."""
+    from omni_avsr_tpu_torch.cli import train_llama_avsr, train_omni
+    from omni_avsr_tpu_torch.cli.common import check_args, setup_parallelism
+    from omni_avsr_tpu_torch.parallel.distributed import resolve_rendezvous
 
-    for cli in (eval_omni, train_omni, eval_llama_avsr, train_llama_avsr):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["--synthetic", "1", "--device", "cpu", "--exp-dir", str(tmp_path)] + flag)
+    for cli in (train_omni, train_llama_avsr):
+        args = cli.parse_args(["--synthetic", "1", "--device", "cpu",
+                               "--exp-dir", str(tmp_path)] + flag)
+        check_args(args)
+        name = flag[0]
+        if name == "--num-nodes":
+            with pytest.raises(ValueError, match="--coordinator-address"):
+                resolve_rendezvous(args.num_nodes, args.coordinator_address, args.node_rank,
+                                   environ={})
+            continue
+        rv = resolve_rendezvous(args.num_nodes, args.coordinator_address, args.node_rank,
+                                environ={})
+        if name == "--coordinator-address":
+            assert rv == ("tcp://10.0.0.1:1234", 1, 0, 0)
+            continue
+        assert rv is None
+        if name in ("--mesh-tp", "--mesh-pp", "--mesh-ep"):
+            with pytest.raises(AssertionError, match="1 devices not divisible by tp\\*pp\\*ep=2"):
+                setup_parallelism(args)
+        elif name == "--sequence-parallel":
+            with pytest.raises(AssertionError, match="--sequence-parallel needs --mesh-tp > 1"):
+                setup_parallelism(args)
+        elif name == "--fsdp":
+            with pytest.raises(ValueError, match="process group"):
+                setup_parallelism(args)
+        else:
+            assert setup_parallelism(args)[0] is None
     assert not os.listdir(tmp_path)
 
 

@@ -715,3 +715,110 @@ def test_stream_quantiser_on_the_card(cuda_device, mode, source):
                 assert b[k].is_cuda and torch.equal(a[k], b[k]), k
 
     cmp(want, got)
+
+
+@pytest.fixture
+def two_devices(cuda_device):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: the kernels' shared-memory limit is raised per device, "
+                    "and a launch on a second device of the process is what shows it")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_a_second_device(two_devices):
+    """B2, B6, B4 and B7 each raise their dynamic shared-memory limit with
+    `cudaFuncSetAttribute`, which holds for one device only: one process
+    launches each on device 0 and then on device 1, and both agree with the
+    plain version."""
+    from omni_avsr_tpu_torch.ops.conv_block import conv2d_fused, conv2d_fused_plain
+    from omni_avsr_tpu_torch.ops.flash_attention import flash_attention
+    from omni_avsr_tpu_torch.ops.flash_attention_bwd import (flash_attention_bwd,
+                                                             flash_attention_bwd_plain)
+    from omni_avsr_tpu_torch.ops.quant import (arrange_for_card, pack_int4, quantized_matmul,
+                                               quantized_matmul4, quantized_matmul4_plain,
+                                               quantized_matmul_plain)
+
+    for dev in two_devices:
+        with torch.cuda.device(dev):
+            x, q = _quant_inputs(45, 2048, 3072, dev, seed=1)
+            card = arrange_for_card(q)
+            torch.testing.assert_close(quantized_matmul(x, card).float(),
+                                       quantized_matmul_plain(x, card).float(), atol=2e-2,
+                                       rtol=2e-2)
+            x4, q4 = _quant_inputs(45, 2048, 3072, dev, seed=2, bits=4)
+            card4 = arrange_for_card(pack_int4(q4))
+            torch.testing.assert_close(quantized_matmul4(x4, card4).float(),
+                                       quantized_matmul4_plain(x4, card4).float(), atol=2e-2,
+                                       rtol=2e-2)
+            g = torch.Generator(device=dev).manual_seed(3)
+
+            def rn(*shape):
+                return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+            qa, ka, va, do = (rn(1, 200, 8, 64) for _ in range(4))
+            o, lse = flash_attention(qa, ka, va, causal=True, return_lse=True)
+            for got, want in zip(flash_attention_bwd(qa, ka, va, o, do, lse, causal=True),
+                                 flash_attention_bwd_plain(qa, ka, va, o, do, lse, causal=True)):
+                torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+            xc = (torch.randn(8, 11, 11, 128, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+            w = (torch.randn(3, 3, 128, 128, generator=g, device=dev) * 0.04).to(torch.bfloat16)
+            torch.testing.assert_close(conv2d_fused(xc, w, 1, 1).float(),
+                                       conv2d_fused_plain(xc, w, 1, 1).float(), atol=2e-2,
+                                       rtol=2e-2)
+            torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_shard_kernels_match_unsharded(cuda_device, tp):
+    """What one rank of a tp mesh launches, at small widths: B1 on its kv
+    heads (every rank's output is the unsharded kernel's heads), B2 on its
+    column slice of q|k|v and row slice of o (the columns concatenated and
+    the partial products summed give the unsharded product), and B5 per
+    vocabulary shard merged by `decode/decoding.py::merge_select_shards`,
+    the merge `_fused_select_sharded` runs (the maxima and candidates
+    bit-equal, the normaliser within rtol 1e-5)."""
+    from omni_avsr_tpu_torch.decode.decoding import merge_select_shards, select_shard
+    from omni_avsr_tpu_torch.ops.quant import arrange_for_card, quantized_matmul
+
+    B, K, Hq, Hkv, D, P, N, step = 2, 4, 16, 4, 64, 64, 8, 5
+    inp = _beam_case(B, K, Hq, Hkv, D, P, N, cuda_device, seed=tp)
+    full = beam_decode_attention(**inp, step=step, num_beams=K)
+    hq, hkv = Hq // tp, Hkv // tp
+    parts = []
+    for r in range(tp):
+        qs, ks = slice(r * hq, (r + 1) * hq), slice(r * hkv, (r + 1) * hkv)
+        shard = dict(inp, q=inp["q"][:, :, qs].contiguous(),
+                     **{k: inp[k][:, ks].contiguous() for k in ("pk", "pv", "gk", "gv",
+                                                                "k_cur", "v_cur")})
+        parts.append(beam_decode_attention(**shard, step=step, num_beams=K))
+    torch.testing.assert_close(torch.cat(parts, 2).float(), full.float(), atol=2e-2, rtol=2e-2)
+
+    x, q = _quant_inputs(8, 512, 768, cuda_device, seed=7)
+    want = quantized_matmul(x, arrange_for_card(q), out_dtype=torch.float32)
+    n = 768 // tp
+    cols = [quantized_matmul(x, arrange_for_card({"w": q["w"][:, r * n:(r + 1) * n].contiguous(),
+                                                  "s": q["s"][r * n:(r + 1) * n].contiguous()}),
+                             out_dtype=torch.float32) for r in range(tp)]
+    torch.testing.assert_close(torch.cat(cols, 1), want, atol=1e-4, rtol=1e-5)
+    k = 512 // tp
+    rows = sum(quantized_matmul(x[:, r * k:(r + 1) * k].contiguous(),
+                                arrange_for_card({"w": q["w"][r * k:(r + 1) * k].contiguous(),
+                                                  "s": q["s"]}), out_dtype=torch.float32)
+               for r in range(tp))
+    torch.testing.assert_close(rows, want, atol=1e-3, rtol=1e-4)
+
+    V, k2 = 32768, 8
+    logits = torch.randn(2, 4, V, device=cuda_device) * 4
+    mx, se, vals, idx = select_shard(logits, k2, True)
+    Vs = V // tp
+    shards = [select_shard(logits[..., r * Vs:(r + 1) * Vs].contiguous(), k2, True, r * Vs)
+              for r in range(tp)]
+    m_mx, m_lse, m_vals, m_idx = merge_select_shards(
+        *(torch.stack([sh[i] for sh in shards], -1) for i in (0, 1)),
+        *(torch.cat([sh[i] for sh in shards], -1) for i in (2, 3)), k2)
+    assert torch.equal(m_mx[..., 0], mx)
+    assert torch.equal(m_vals, vals)
+    assert torch.equal(m_idx, idx)
+    torch.testing.assert_close(m_lse[..., 0], torch.log(se), rtol=1e-5, atol=1e-6)

@@ -1,0 +1,216 @@
+"""The port's partition specs and tensor-parallel serving
+(`omni_avsr_tpu_torch/parallel/`, `Transcriber(mesh=...)`) against the JAX
+package on its 8-device CPU mesh (tests/conftest.py), at the tiny flagship
+widths in f32. The port's ranks run in one group of two gloo ranks for the
+whole file (`parallel/launch.py::RankPool`: a file-store rendezvous in
+tmp_path, a 60 s collective timeout, one torch thread per rank).
+
+  - the spec tables: every leaf of the tiny Omni LLM, the MoE LLM and the
+    int8 serving tree gets the JAX package's spec (as tuples), clamped
+    alike on several meshes;
+  - tensor-parallel serving at tp=2 (beam 2 and greedy, int8 and float)
+    gives the JAX Transcriber's tokens, and so does the JAX Transcriber
+    on its tp mesh on the kernel and the non-kernel route; indivisible heads take the non-kernel
+    route;
+  - `_fused_select_sharded` is exact: values and indices equal, lse within
+    1e-6.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tests import torch_parallel_ranks as R
+from tests.torch_parity import (clips, jax_in_f32, jax_moe_flagship, jax_tiny_flagship,
+                                jax_tiny_params)
+
+
+
+@pytest.fixture(scope="module")
+def pool(tmp_path_factory):
+    from omni_avsr_tpu_torch.parallel.launch import RankPool
+
+    p = RankPool(2, str(tmp_path_factory.mktemp("rdzv")), timeout_s=60)
+    yield p
+    p.close()
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    jm = jax_tiny_flagship()
+    return jm, jax.tree_util.tree_map(np.asarray, jax_tiny_params(jm))
+
+
+@pytest.fixture(scope="module")
+def moe_params():
+    return jax.tree_util.tree_map(np.asarray, jax_tiny_params(jax_moe_flagship()))
+
+
+# ---------------------------------------------------------------------------
+# spec tables
+# ---------------------------------------------------------------------------
+
+def _tuples(tree):
+    from jax.sharding import PartitionSpec as P
+
+    return jax.tree_util.tree_map(lambda s: tuple(s), tree, is_leaf=lambda x: isinstance(x, P))
+
+
+@pytest.mark.parametrize("fsdp,ep", [(False, False), (True, False), (False, True)])
+def test_llm_specs_match_jax(tiny, moe_params, fsdp, ep):
+    from omni_avsr_tpu.parallel import partitioning as jp
+
+    from omni_avsr_tpu_torch.parallel import partitioning as pp_
+
+    jm, params = tiny
+    trees = [params["llm"]]
+    if ep:
+        trees = [moe_params["llm"]]
+    for llm in trees:
+        want = _tuples(jp.llm_partition_specs(llm, fsdp=fsdp, ep=ep))
+        assert pp_.llm_partition_specs(llm, fsdp=fsdp, ep=ep) == want
+        meshes = ({"dp": 2, "tp": 2}, {"dp": 1, "tp": 4}, {"dp": 4, "tp": 2})
+        if ep:
+            meshes = ({"dp": 1, "ep": 2, "tp": 2}, {"dp": 1, "ep": 4, "tp": 1},
+                      {"dp": 2, "ep": 4, "tp": 1})
+        for sizes in meshes:
+            jmesh = _jax_mesh(**sizes)
+            with _no_check():
+                jc = _tuples(jp.clamp_specs_to_shapes(jmesh, llm, jp.llm_partition_specs(
+                    llm, fsdp=fsdp, ep=ep)))
+                pc = pp_.clamp_specs_to_shapes(sizes, llm, pp_.llm_partition_specs(
+                    llm, fsdp=fsdp, ep=ep))
+            assert pc == jc, sizes
+
+
+def test_decode_and_moe_specs_match_jax(tiny, moe_params):
+    from omni_avsr_tpu.models.moe import moe_partition_specs as jax_moe_specs
+    from omni_avsr_tpu.ops.quant import quantize_for_decode
+    from omni_avsr_tpu.parallel import partitioning as jp
+
+    from omni_avsr_tpu_torch.models.moe import moe_partition_specs
+    from omni_avsr_tpu_torch.parallel import partitioning as pp_
+
+    jm, params = tiny
+    merged = jax.tree_util.tree_map(jnp.asarray, params)
+    for tree in (merged, quantize_for_decode(merged, "int8", fuse_projections=False)):
+        tree = jax.tree_util.tree_map(np.asarray, tree)
+        want = _tuples(jp.decode_partition_specs(tree))
+        assert pp_.decode_partition_specs(tree) == want
+        jmesh = _jax_mesh(dp=1, tp=4)
+        with _no_check():
+            assert pp_.clamp_specs_to_shapes({"dp": 1, "tp": 4}, tree, want) == _tuples(
+                jp.clamp_specs_to_shapes(jmesh, tree, jp.decode_partition_specs(tree)))
+    layer = moe_params["llm"]["layers"]["moe"]
+    tlayer = jax.tree_util.tree_map(torch.from_numpy, layer)
+    assert moe_partition_specs(tlayer) == _tuples(jax_moe_specs(layer))
+
+
+class _no_check:
+    """Collect the replication warnings (both packages warn alike)."""
+
+    def __enter__(self):
+        import warnings
+
+        self._w = warnings.catch_warnings()
+        self._w.__enter__()
+        warnings.simplefilter("ignore")
+
+    def __exit__(self, *a):
+        self._w.__exit__(*a)
+
+
+def _jax_mesh(dp: int = 1, tp: int = 1, pp: int = 1, ep: int = 1):
+    from omni_avsr_tpu.config import MeshConfig
+    from omni_avsr_tpu.parallel.mesh import make_mesh
+
+    n = dp * tp * pp * ep
+    return make_mesh(MeshConfig(dp=dp, tp=tp, pp=pp, ep=ep), devices=jax.devices()[:n])
+
+
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quantize,num_beams,route,jax_meshed", [
+    ("int8", 2, "kernel", True), ("int8", 1, "kernel", False), (None, 2, "kernel", False),
+    ("int8", 2, "xla", True),
+])
+def test_tp_serving_matches_jax(monkeypatch, pool, tiny, quantize, num_beams, route,
+                                jax_meshed):
+    """The port's tp=2 ranks give the JAX Transcriber's tokens; in the int8
+    beam cases, on both routes, the JAX Transcriber on its own tp=2 mesh
+    gives them too."""
+    from omni_avsr_tpu.serve import Transcriber as JaxTranscriber
+
+    jm, params = tiny
+    monkeypatch.setenv("OMNI_BEAM_ATTN", route)
+    jax_in_f32(monkeypatch)
+    items = clips((40, 33), seed=0)
+    tree = jax.tree_util.tree_map(jnp.asarray, params)
+    want = JaxTranscriber(jm, tree, num_beams=num_beams, quantize=quantize).transcribe_many(items)
+    if jax_meshed:
+        with _no_check():
+            meshed = JaxTranscriber(jm, tree, num_beams=num_beams, quantize=quantize,
+                                    mesh=_jax_mesh(dp=1, tp=2)).transcribe_many(items)
+        assert meshed == want
+    ranks = pool.run(R.serve_case, params, items, 2, quantize=quantize, num_beams=num_beams,
+                     attn_route=route)
+    for texts, used_route, blocks in ranks:
+        assert texts == want
+        assert used_route == route
+        assert "llm.attn" in blocks and "llm.mlp" in blocks
+        assert ("llm.lm_head" in blocks) == (quantize == "int8")
+
+
+def test_indivisible_heads_take_the_reorder_route(pool):
+    """One kv head does not divide tp=2: the attention runs replicated on the
+    reorder route (the JAX package's "xla"), the MLP still tensor-parallel;
+    the tokens are the meshless Transcriber's."""
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.serve import Transcriber
+
+    pm = R.kv_twin(1)
+    params = init_params(pm.cfg, torch.Generator().manual_seed(0), "cpu")
+    tree = _unflat(R.flat(params))
+    items = clips((40,), seed=1)
+    want = Transcriber(pm, params, num_beams=2, quantize="int8",
+                       device="cpu").transcribe_many(items)
+    for texts, route, blocks in pool.run(R.serve_case, tree, items, 2, quantize="int8",
+                                         kv_heads=1):
+        assert texts == want and route == "xla"
+        assert "llm.attn" not in blocks and "llm.mlp" in blocks
+
+
+def _unflat(flat):
+    out = {}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split(".")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def test_sharded_select_is_exact(pool):
+    """Per-shard stats and top-2K, merged over tp: the values and indices of
+    the one-device fused selection, the lse within 1e-6."""
+    from omni_avsr_tpu_torch.decode.decoding import topk_chunked
+
+    x = np.random.RandomState(0).randn(2, 3, 4096).astype(np.float32) * 3
+    k2 = 6
+    xt = torch.from_numpy(x)
+    mx = xt.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(xt - mx).sum(dim=-1, keepdim=True))
+    vals, idx = topk_chunked(xt, k2)
+    for out in pool.run(R.select_case, x, k2):
+        np.testing.assert_array_equal(out[0], mx.numpy())
+        np.testing.assert_allclose(out[1], lse.numpy(), atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(out[2], vals.numpy())
+        np.testing.assert_array_equal(out[3], idx.numpy())

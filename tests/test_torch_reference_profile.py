@@ -260,8 +260,8 @@ def test_profiles_resolve_like_jax(monkeypatch, capsys, env):
     assert num.beam_attn == ours.get("OMNI_BEAM_ATTN")
     assert num.prng == ("threefry" if ours.get("OMNI_PRNG") == "threefry" else "torch")
     assert num.select_kernel == (ours.get("OMNI_SELECT_KERNEL", "0") not in ("0", ""))
-    with pytest.raises(NotImplementedError, match="A5"):
-        resolve({**given, "OMNI_SP": "1"})
+    # OMNI_SP=1 is `--sequence-parallel`: it reaches the engine under a tp mesh
+    assert resolve({**given, "OMNI_SP": "1"}).sp
 
 
 def test_engine_steps_match_jax_with_augment_and_dropout(monkeypatch, tiny):

@@ -156,6 +156,11 @@ def test_no_jax_imports(target):
                 "preprocess/retinaface.py", "preprocess/fan.py", "preprocess/detector.py",
                 "preprocess/noise_prep.py", "convert/detector_torch.py",
                 "cli/preprocess_video.py", "cli/prepare_dataset.py", "cli/make_noise.py"} <= names
+        # and the parallelism slice's: meshes, start-up, specs, collectives,
+        # the pipeline and the launcher
+        assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
+                "parallel/partitioning.py", "parallel/pipeline.py", "parallel/collectives.py",
+                "parallel/launch.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
