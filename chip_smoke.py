@@ -160,6 +160,21 @@ Phases, each printing lines with the elapsed seconds:
      recompute), a train step's layer-0 assignments bit-equal, and one
      step's grads kernel against plain; the routing kernel timed at the
      prefill's, a decode step's and the train step's rows;
+  4b. after (p): (q) the last modules at full width: `llm_loss` forward
+     and backward on Llama-3.2-1B at Llama-3's 128256-token vocabulary
+     (random weights from a seed, every LoRA leaf drawn), B 4 x T 512 bf16
+     embeddings with -100 on a prefix of each row's labels: B3 32 (16
+     layers and the "dots" recompute) and B4 16 asserted, the loss and the
+     grads of the embeddings and the audiovisual adapter held against the
+     plain route (relative L2 2e-2), s per forward + backward and peak
+     memory; `llm_logits` with an explicit padding mask (no launch), held
+     against the CPU in f32 on two rows' first 128 positions;
+     `lightweight_conv` and `dynamic_conv` at lightconv_wmt_en_de_big's
+     width (C 1024, 16 heads; K 3, 7, 15, 31, causal and centred; B 4 x T
+     1024 bf16) against float64 on the CPU, ms a call; `checkify_step`
+     around (t)'s first train step (the unwrapped step's loss bit for bit,
+     the same launches, `count_nonfinite` of the trainables 0), a step fed
+     a NaN and a backward dividing by zero on the card, both raising;
   9. the CLIs as a user runs them, as subprocesses on the card, three at a
      time after the first:
      `serve_http --synthetic` (/healthz, one audio request, then stopped),
@@ -180,7 +195,11 @@ Phases, each printing lines with the elapsed seconds:
      frozen encoder, `eval_avhubert_s2s` on a synthetic fairseq checkpoint
      and dictionary (beam 3), `pretrain_avhubert --synthetic 4` for 2
      steps, and `cluster_units` on its corpus with `--features mfcc` and
-     with `--features avhubert` on its checkpoint.
+     with `--features avhubert` on its checkpoint; and `gen_subword` (bpe,
+     char, word) on (f)'s transcripts, its dictionary loaded in
+     `FairseqDictionary` (bpe: with the `BPEEncoder`'s ids), the token-block
+     utilities on the transcripts' BPE sizes in every mode against their
+     Python references.
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -221,6 +240,12 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16
 DECODE_MATS = [("qkv", 2048, 3072), ("o", 2048, 2048), ("gateup", 2048, 16384),
                ("down", 8192, 2048)]
 TOWER_MAT = ("tower fc1", 4500, 1024, 4096)  # M = 3 x 1500 at the 30 s window
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def log(phase: str, msg: str) -> None:
@@ -1952,6 +1977,276 @@ def parallel_phase(flush, items_b) -> dict:
                             shards=shards, launches={k: fn.launches for k, fn in fns.items()})
     log("parallel", f"(p) in {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+# ------------------------------------------------- (q): the last modules
+
+Q_B, Q_T = 4, 512  # llm_loss's batch: B 4 x T 512 bf16 embeddings, over the flash gate of 256
+Q_PREFIX = (200, 250, 300, 350)  # each row's labels are -100 before these positions
+Q_LENGTHS = (512, 100, 300, 64)  # the explicit padding mask's valid keys, a row
+Q_CPU_ROWS, Q_CPU_T = (1, 3), 128  # the masked forward's CPU reference: padding inside
+LC_B, LC_T, LC_C, LC_H = 4, 1024, 1024, 16  # fairseq's lightconv_wmt_en_de_big: C 1024, H 16
+LC_KERNELS = (3, 7, 15, 31)
+
+
+def q_llm_loss(flush) -> dict:
+    """`llm_loss` (forward and backward) on the full-width Llama-3.2-1B at
+    Llama-3's vocabulary, random weights from a seed (every LoRA leaf
+    drawn), B 4 x T 512: the kernel route (B3 in every layer's forward and
+    again in the "dots" recompute, B4 in every layer's backward, counts
+    asserted) against the plain route (`plain_train_route`) for the loss
+    and the grads of the embeddings and the task's adapter; then
+    `llm_logits` with an explicit padding mask, which launches nothing, held
+    against the same call on the CPU in f32."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_llm
+    from omni_avsr_tpu_torch.models.llm import llm_logits, llm_loss
+    from omni_avsr_tpu_torch.models.omni import flagship
+
+    t0 = time.perf_counter()
+    cfg = with_vocab(flagship(tiny=False), VOCAB_D).cfg.llm
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    params = init_llm(cfg, gen, DEV)
+    for pair in params["layers"]["lora"].values():  # the downs start at zero
+        for name in ("down_q", "down_v"):
+            pair[name]["w"].normal_(0.0, 0.02, generator=gen)
+    task = params["layers"]["lora"]["audiovisual"]
+    leaves = [task[n]["w"].requires_grad_(True) for n in ("down_q", "up_q", "down_v", "up_v")]
+    rng = np.random.RandomState(20)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (Q_B, Q_T))).to(DEV)
+    embeds = params["embed"]["w"][ids].detach().requires_grad_(True)  # (B, T, 2048) bf16
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (Q_B, Q_T))).to(DEV)
+    for r, p in enumerate(Q_PREFIX):
+        labels[r, :p] = -100
+
+    def fwd_bwd():
+        loss = llm_loss(params, cfg, embeds, labels, modality="audiovisual")
+        return loss, torch.autograd.grad(loss, [embeds] + leaves)
+
+    L = cfg.num_layers
+    fns = counters()
+    result = {}
+    for route in ("kernel", "plain"):
+        with plain_train_route() if route == "plain" else contextlib.nullcontext():
+            reset_counts(fns)
+            loss, grads = fwd_bwd()
+            torch.cuda.synchronize()
+            used = {n: fn.launches for n, fn in fns.items()}
+        want = counts(B3=2 * L, B4=L) if route == "kernel" else counts()
+        if used != want:
+            raise RuntimeError(f"(q) llm_loss, {route} route: launches {used}, expected {want}")
+        flat = torch.cat([g.float().reshape(-1) for g in grads])
+        if not (bool(torch.isfinite(loss)) and bool(torch.isfinite(flat).all())):
+            raise RuntimeError(f"(q) llm_loss, {route} route: non-finite loss or grads")
+        result[route] = (float(loss.detach()), flat, used)
+    (lk, gk, used), (lp, gp, _) = result["kernel"], result["plain"]
+    grad_rel = float((gk - gp).norm() / gp.norm())
+    if grad_rel > REL_L2_TOL or abs(lk - lp) > REL_L2_TOL * abs(lp):
+        raise RuntimeError(f"(q) llm_loss kernel vs plain: loss {lk} vs {lp}, grads relative L2 "
+                           f"{grad_rel:.3g}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile_batch("(q) llm_loss forward + backward", fwd_bwd)
+    row = dict(config=f"(q) llm_loss Llama-3.2-1B, B {Q_B} x T {Q_T}, V {cfg.vocab_size}, bf16, "
+               f"remat dots", loss_kernel=lk, loss_plain=lp, grad_rel_l2=grad_rel,
+               grad_norm=float(gp.norm()), s_per_fwd_bwd=float(np.median(times)),
+               s_each=times, peak_gib=peak, card=card(), launches=used)
+    log("q", json.dumps(row))
+
+    # an explicit padding mask: the plain attention in every layer, no B3
+    lengths = torch.tensor(Q_LENGTHS, device=DEV)
+    valid = torch.arange(Q_T, device=DEV)[None] < lengths[:, None]
+    mask = torch.ones(Q_T, Q_T, dtype=torch.bool, device=DEV).tril()[None, None] \
+        & valid[:, None, None, :]
+    reset_counts(fns)
+    with torch.no_grad():
+        t = time.perf_counter()
+        logits = llm_logits(params, cfg, embeds.detach(), mask=mask, modality="audiovisual")
+        torch.cuda.synchronize()
+        masked_s = time.perf_counter() - t
+    used_masked = {n: fn.launches for n, fn in fns.items()}
+    if used_masked != counts():
+        raise RuntimeError(f"(q) llm_logits with a mask launched {used_masked}")
+    rows_ = list(Q_CPU_ROWS)
+    cpu = _cpu_f32(params)
+    with torch.no_grad():
+        t = time.perf_counter()
+        ref = llm_logits(cpu, cfg, embeds.detach()[rows_, :Q_CPU_T].float().cpu(),
+                         mask=mask[rows_][:, :, :Q_CPU_T, :Q_CPU_T].cpu(),
+                         modality="audiovisual", remat="off")
+        cpu_s = time.perf_counter() - t
+    rel = rel_l2(logits[rows_, :Q_CPU_T], ref)
+    if rel > REL_L2_TOL or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"(q) masked llm_logits, card vs CPU: relative L2 {rel:.3g}")
+    masked = dict(config=f"(q) llm_logits with a padding mask {list(Q_LENGTHS)}, B {Q_B} x T "
+                  f"{Q_T}", s=masked_s, cpu_rows=rows_, cpu_positions=Q_CPU_T,
+                  rel_l2_vs_cpu_f32=rel, cpu_s=cpu_s, launches=used_masked)
+    log("q", json.dumps(masked))
+    del params, cpu, grads, logits
+    torch.cuda.empty_cache()
+    log("q", f"llm_loss and masked llm_logits in {time.perf_counter() - t0:.1f} s")
+    return {"q llm_loss": row, "q llm_logits masked": masked}
+
+
+def _cpu_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu_f32(v) for k, v in tree.items()}
+    return tree.detach().float().cpu()
+
+
+def q_lightconv(flush) -> dict:
+    """`lightweight_conv` and `dynamic_conv` at the width of fairseq's
+    `lightconv_wmt_en_de_big` (Wu et al. 2019: C 1024, 16 heads), K 3, 7,
+    15 and 31, causal and centred, B 4 x T 1024 in bf16 on the card, each
+    held against the same call in float64 on the CPU (relative L2 within
+    REL_L2_TOL: the bf16 output's rounding), with its device ms a call.
+    Plain torch ops, no kernel: nothing launches."""
+    import torch
+
+    from omni_avsr_tpu_torch.ops.lightconv import dynamic_conv, lightweight_conv
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(21)
+    x = torch.from_numpy(rng.randn(LC_B, LC_T, LC_C).astype(np.float32)).to(DEV, torch.bfloat16)
+    x64 = x.double().cpu()
+    bias = torch.from_numpy(rng.randn(LC_C).astype(np.float32) * 0.1).to(DEV)
+    fns = counters()
+    reset_counts(fns)
+    cases = []
+    for K in LC_KERNELS:
+        w = torch.from_numpy(rng.randn(LC_H, K).astype(np.float32)).to(DEV)
+        wl = torch.from_numpy((rng.randn(LC_C, LC_H * K) / np.sqrt(LC_C)).astype(np.float32)) \
+            .to(DEV, torch.bfloat16)
+        for pad_name, padding_l in (("causal", K - 1), ("centred", K // 2)):
+            for fn_name in ("lightweight", "dynamic"):
+                if fn_name == "lightweight":
+                    args = (w, bias)
+                    call = lambda xx, ww, bb: lightweight_conv(  # noqa: E731
+                        xx, ww, padding_l, weight_softmax=True, bias=bb)
+                else:
+                    args = (wl, bias)
+                    call = lambda xx, ww, bb: dynamic_conv(  # noqa: E731
+                        xx, xx, ww, LC_H, K, padding_l, weight_softmax=True, conv_bias=bb)
+                y = call(x, *args)
+                ref = call(x64, *(a.double().cpu() for a in args))
+                rel = rel_l2(y, ref)
+                err = float((y.double().cpu() - ref).abs().max())
+                if rel > REL_L2_TOL or y.dtype != torch.bfloat16 or y.shape != x.shape:
+                    raise RuntimeError(f"(q) {fn_name} K {K} {pad_name}: relative L2 {rel:.3g} "
+                                       f"vs float64 on the CPU, dtype {y.dtype}")
+                ms = time_ms(lambda: call(x, *args), flush, iters=20)
+                cases.append(dict(fn=fn_name, K=K, padding=pad_name, padding_l=padding_l,
+                                  ms=ms, rel_l2_vs_cpu_f64=rel, max_abs_err=err))
+                log("q", f"lightconv {json.dumps(cases[-1])}")
+    used = {n: fn.launches for n, fn in fns.items()}
+    if used != counts():
+        raise RuntimeError(f"(q) lightconv launched {used}")
+    log("q", f"lightconv in {time.perf_counter() - t0:.1f} s")
+    return {"q lightconv": dict(config=f"(q) lightconv_wmt_en_de_big: B {LC_B} x T {LC_T} x C "
+                                f"{LC_C}, H {LC_H}, bf16", cases=cases, launches=used)}
+
+
+def q_checkify() -> dict:
+    """`checkify_step` around (t)'s full-width train step: the first step
+    of a fresh engine wrapped returns the loss of the same first step
+    unwrapped (another fresh engine, the same weights, seed and draws) bit
+    for bit, launching the same kernels; `count_nonfinite` of the trainable
+    tree after it is 0; a step fed one NaN in its audio raises
+    FloatingPointError naming an op, and so does a division by zero in a
+    backward on the card."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.config import TrainConfig
+    from omni_avsr_tpu_torch.models.omni import flagship
+    from omni_avsr_tpu_torch.ops.audio_frontend import whisper_token_len
+    from omni_avsr_tpu_torch.train.engine import OmniEngine
+    from omni_avsr_tpu_torch.utils.profiling import checkify_step, count_nonfinite
+
+    t0 = time.perf_counter()
+    model = flagship(tiny=False)
+    bank = (np.random.RandomState(1234).randn(10 * 16000) * 0.1).astype(np.float32)
+    batch = train_batch(model.tok, B_TRAIN, FRAMES_TRAIN, TOKENS_TRAIN)
+    trim = -(-int(whisper_token_len(FRAMES_TRAIN * 640)) // 25) * 25
+    fns = counters()
+
+    def first_step(wrap: bool):
+        params = init_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+        engine = OmniEngine(model, params, TrainConfig(lr=1e-3), noise_bank=bank, seed=0,
+                            device=DEV)
+        del params
+        engine.sample_rates = lambda: (4, 2)
+        step = checkify_step(engine.train_step) if wrap else engine.train_step
+        reset_counts(fns)
+        t = time.perf_counter()
+        loss = step({**batch, "audio_trim_len": trim})
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        return engine, step, loss.detach().float().cpu(), dt, {
+            n: fn.launches for n, fn in fns.items()}
+
+    engine, _, plain, plain_s, plain_used = first_step(False)
+    del engine
+    torch.cuda.empty_cache()
+    engine, step, checked, checked_s, checked_used = first_step(True)
+    if not (torch.equal(plain.view(torch.int32), checked.view(torch.int32))
+            and checked_used == plain_used and bool(torch.isfinite(checked))):
+        raise RuntimeError(f"(q) checkify_step: loss {checked.item()!r} vs unwrapped "
+                           f"{plain.item()!r}, launches {checked_used} vs {plain_used}")
+    nonfinite = int(count_nonfinite(engine.state.trainable))
+    if nonfinite:
+        raise RuntimeError(f"(q) {nonfinite} non-finite trainable elements after the step")
+    bad = {**batch, "audio": batch["audio"].copy(), "audio_trim_len": trim}
+    bad["audio"][0, 1000] = np.nan
+    raised = None
+    try:
+        step(bad)
+    except FloatingPointError as e:
+        raised = str(e)
+    if raised is None or "op: aten." not in raised:
+        raise RuntimeError(f"(q) checkify_step on a step fed a NaN: {raised!r}")
+    # the mode follows the autograd engine onto the card's backward thread:
+    # the gradient of sqrt(x * x) at 0 divides by zero there
+    x = torch.zeros(4, device=DEV, requires_grad=True)
+    backward_raised = None
+    try:
+        checkify_step(lambda v: torch.autograd.grad(torch.sqrt(v * v).sum(), v)[0])(x)
+    except FloatingPointError as e:
+        backward_raised = str(e)
+    if backward_raised is None or "division by zero" not in backward_raised:
+        raise RuntimeError(f"(q) checkify_step missed a division by zero in a backward on the "
+                           f"card: {backward_raised!r}")
+    del engine, step
+    torch.cuda.empty_cache()
+    row = dict(config=f"(q) checkify_step, train B {B_TRAIN} x {FRAMES_TRAIN} frames, pad30s",
+               loss=checked.item(), loss_unwrapped=plain.item(), bit_equal=True,
+               s_first_step_unwrapped=plain_s, s_first_step_checked=checked_s,
+               count_nonfinite_after=nonfinite, nan_step_raised=raised,
+               backward_raised=backward_raised, launches=checked_used)
+    log("q", json.dumps(row))
+    log("q", f"checkify in {time.perf_counter() - t0:.1f} s")
+    return {"q checkify": row}
+
+
+def last_modules_phase(flush) -> dict:
+    """(q): `llm_loss` and the masked `llm_logits`, lightconv and
+    `checkify_step` at full width (the host-only entry points run in the
+    CLI phase)."""
+    t0 = time.perf_counter()
+    rows = q_llm_loss(flush)
+    rows.update(q_lightconv(flush))
+    rows.update(q_checkify())
+    log("q", f"(q) in {time.perf_counter() - t0:.1f} s")
+    return rows
+
 
 
 def _padded(items):
@@ -3698,6 +3993,46 @@ def family_cli_result(label: str, stdout: str, work: Path) -> dict:
 
 
 CLI_WORKERS = 3  # CLI subprocesses at once on the card
+SUBWORD_VOCAB = 64  # gen_subword's --vocab-size on (f)'s 8 transcripts
+
+
+def subword_result(kind: str, stdout: str, work: Path) -> dict:
+    """gen_subword's output: the dictionary loads in `FairseqDictionary`
+    (for bpe with the ids of the `BPEEncoder` it saved beside it); then, on
+    the corpus's token sizes (each transcript's BPE pieces), the
+    token-block utilities in every break mode against their plain Python
+    references."""
+    from omni_avsr_tpu_torch.cli.eval_avhubert_s2s import FairseqDictionary
+    from omni_avsr_tpu_torch.cli.gen_subword import read_texts
+    from omni_avsr_tpu_torch.data.subword import BPEEncoder
+    from omni_avsr_tpu_torch.utils import native
+
+    out = work / f"subword_{kind}"
+    d = FairseqDictionary(str(out / ("dict.ltr.txt" if kind == "char" else "dict.wrd.txt")))
+    texts = read_texts(str(work / "corpus" / "train.csv"))
+    result = dict(files=sorted(p.name for p in out.iterdir()), symbols=len(d))
+    if d.symbols[:4] != ["<s>", "<pad>", "</s>", "<unk>"] or f"{len(texts)} transcripts" \
+            not in stdout:
+        raise RuntimeError(f"gen_subword {kind}: symbols {d.symbols[:8]}\n{stdout[-2000:]}")
+    if kind == "bpe":
+        enc = BPEEncoder.load(str(out / f"spm_bpe{SUBWORD_VOCAB}"))
+        ids = [enc.encode(t) for t in texts]
+        if d.symbols != enc.symbols or any(enc.decode(i) != " ".join(t.split())
+                                           for i, t in zip(ids, texts)):
+            raise RuntimeError(f"gen_subword bpe: the dictionary's ids are not the encoder's, "
+                               f"or a transcript does not survive encode / decode")
+        sizes = [len(i) for i in ids]
+        blocks = {}
+        for mode in ("none", "complete", "complete_doc", "eos"):
+            sl = native.token_block_slices_native(sizes, mode, 16)
+            idx = native.block_to_dataset_index_native(sizes, sl)
+            if not (np.array_equal(sl, native.token_block_slices_py(sizes, mode, 16))
+                    and np.array_equal(idx, native.block_to_dataset_index_py(sizes, sl))):
+                raise RuntimeError(f"token blocks, {mode}: the library and the Python "
+                                   f"reference differ on sizes {sizes}")
+            blocks[mode] = len(sl)
+        result.update(pieces=len(enc.pieces), token_sizes=sizes, token_blocks=blocks)
+    return result
 
 
 def cli_phase(work: Path, raw_clip_path: Path):
@@ -3763,6 +4098,12 @@ def cli_phase(work: Path, raw_clip_path: Path):
                                        "--output", str(work / "noise" / "noise.wav"),
                                        "--num-per-mixture", "3", "--min-seconds", "1"]))
     runs += family_cli_runs(work)
+    # the host-only vocabulary CLI on (f)'s transcripts, in its three kinds
+    runs += [(f"gen_subword {kind}", ["gen_subword", "--input", str(work / "corpus" / "train.csv"),
+                                      "--output-dir", str(work / f"subword_{kind}"),
+                                      "--model-type", kind, "--vocab-size", str(SUBWORD_VOCAB)])
+             for kind in ("bpe", "char", "word")]
+
     def run(item):
         label, argv = item
         # two torch threads a process: CLI_WORKERS processes share the host's
@@ -3871,6 +4212,8 @@ def cli_phase(work: Path, raw_clip_path: Path):
             result = dict(rows=manifest, roi_shapes=shapes)
         elif label in FAMILY_CLIS:
             result = family_cli_result(label, proc.stdout, work)
+        elif label.startswith("gen_subword"):
+            result = subword_result(label.split()[1], proc.stdout, work)
         elif label == "make_noise babble":
             from omni_avsr_tpu_torch.preprocess.noise_prep import read_wav_int16
 
@@ -4023,8 +4366,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     log("device", f"{kind} | {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -4227,6 +4569,8 @@ def main() -> int:
     rows.update(rows_o)
     # (p): NCCL at world size 1, and the per-rank kernels of a tp mesh
     rows.update(parallel_phase(flush, items_b))
+    # (q): the causal-LM loss (B3, B4), lightconv and checkify_step at full width
+    rows.update(last_modules_phase(flush))
     del flush
     torch.cuda.empty_cache()
 

@@ -277,6 +277,14 @@ def init_params(cfg: OmniConfig, generator: torch.Generator, device="cuda",
     return params
 
 
+def init_llm(cfg: LLMConfig, generator: torch.Generator, device="cuda",
+             dtype=torch.bfloat16) -> Params:
+    """The decoder's tree alone (`omni_avsr_tpu/models/llm.py::init_llm`):
+    embeddings, the stacked layers with their LoRA adapters, the final norm
+    and an untied head, in `dtype` on `device`."""
+    return _init_llm(_Init(generator, device, dtype), cfg)
+
+
 def init_serving_params(cfg: OmniConfig, generator: torch.Generator, quantize: str,
                         device="cuda", frozen_dtype=torch.bfloat16,
                         train_dtype=torch.float32) -> Params:

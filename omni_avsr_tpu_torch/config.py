@@ -16,10 +16,12 @@ the same model as its JAX twin.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 MODALITIES: Tuple[str, ...] = ("audio", "video", "audiovisual")
+Modality = str  # "audio" | "video" | "audiovisual"
 
 
 @dataclass(frozen=True)
@@ -318,3 +320,9 @@ class MeshConfig:
     ep: int = 1
     axis_dp: str = "dp"
     axis_tp: str = "tp"
+
+
+def asdict(cfg: Any) -> Dict[str, Any]:
+    """A config as nested plain dicts (`dataclasses.asdict`), as the JAX
+    package's `config.py::asdict` writes it."""
+    return dataclasses.asdict(cfg)

@@ -55,6 +55,22 @@ def conv1d_from_torch(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarra
     return out
 
 
+def conv2d_from_torch(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    """Conv2d weight (O, I, Kh, Kw) -> (Kh, Kw, I, O)."""
+    out = {"w": t2n(sd[f"{prefix}.weight"]).transpose(2, 3, 1, 0)}
+    if f"{prefix}.bias" in sd:
+        out["b"] = t2n(sd[f"{prefix}.bias"])
+    return out
+
+
+def conv3d_from_torch(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    """Conv3d weight (O, I, Kt, Kh, Kw) -> (Kt, Kh, Kw, I, O)."""
+    out = {"w": t2n(sd[f"{prefix}.weight"]).transpose(2, 3, 4, 1, 0)}
+    if f"{prefix}.bias" in sd:
+        out["b"] = t2n(sd[f"{prefix}.bias"])
+    return out
+
+
 def batch_norm_from_torch(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
     return {"scale": t2n(sd[f"{prefix}.weight"]), "bias": t2n(sd[f"{prefix}.bias"]),
             "mean": t2n(sd[f"{prefix}.running_mean"]), "var": t2n(sd[f"{prefix}.running_var"])}

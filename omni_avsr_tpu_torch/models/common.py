@@ -12,7 +12,7 @@ the card layout) (`ops/quant.py`).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Sequence, Tuple
 
 import torch
 
@@ -56,3 +56,33 @@ def tp_ffn(h: torch.Tensor, fc1: Params, fc2: Params, block: str, act,
     y = par.reduce_from(linear(h, {k: v for k, v in fc2.items() if k != "b"}), tp)
     b = fc2.get("b")
     return y + b.to(y.dtype) if b is not None else y
+
+
+def stack_layers(layer_params: Sequence[Params]) -> Params:
+    """Per-layer trees stacked along a new leading (L, ...) axis."""
+    first = layer_params[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([p[k] for p in layer_params]) for k in first}
+    return torch.stack(list(layer_params), dim=0)
+
+
+def tree_paths(params: Params, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(dotted path, leaf) of every leaf, in the tree's order."""
+    for k, v in params.items():
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from tree_paths(v, path)
+        else:
+            yield path, v
+
+
+def count_params(params: Params) -> int:
+    """The number of elements over every leaf."""
+    return sum(int(v.numel()) for _, v in tree_paths(params))
+
+
+def cast_tree(params: Params, dtype: torch.dtype) -> Params:
+    """The tree with its floating leaves in `dtype`; integer leaves (int8
+    codes) as they are."""
+    return {k: cast_tree(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}

@@ -7,7 +7,9 @@
     and head dim 64 or 128, its attention is the trainable flash kernel
     (B3 causal forward, B4 backward), else dense with a causal mask;
     `llm_span_stats` puts only the label-active span through the lm_head
-    and the CE;
+    and the CE; `llm_logits` / `llm_loss` run the whole sequence through
+    it (the HF CausalLM loss, `causal_lm_loss`), and an explicit mask
+    takes the plain attention;
   - `llm_prefill_masked` runs the gap-tolerant prefix once and fills a
     static KV cache; `llm_prefill` is its contiguous-prefix form;
   - `llm_decode_step_beam_anc` is one beam step on the no-reorder ancestor
@@ -269,16 +271,21 @@ def maybe_remat(fn, remat: str, *args):
 
 def run_layers(layers: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                positions: torch.Tensor, modality: Optional[str] = None,
-               remat: str = "dots") -> torch.Tensor:
-    """The causal stack of `layers` (an (L', ...)-stacked tree: the whole
-    decoder, or a pipeline stage's slice) over (B, T, H) at (B, T) rope
-    positions. Under sequence parallelism T is padded to a multiple of tp,
-    the residual stream between layers is this rank's slice of T, and the
-    padding is sliced off at the end (causal: it reaches no real row)."""
+               remat: str = "dots", mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The stack of `layers` (an (L', ...)-stacked tree: the whole decoder,
+    or a pipeline stage's slice) over (B, T, H) at (B, T) rope positions,
+    causal unless `mask` (bool (B, 1, T, T), True = attend) is given, which
+    then takes the plain attention in every layer. Under sequence
+    parallelism (causal only) T is padded to a multiple of tp, the residual
+    stream between layers is this rank's slice of T, and the padding is
+    sliced off at the end (causal: it reaches no real row)."""
     check_remat(remat)
     B, T, _ = inputs_embeds.shape
     sp = par.sp_axis()
     x = inputs_embeds
+    if sp is not None and mask is not None:
+        raise ValueError("sequence parallelism runs the pure-causal stack only (mask must be "
+                         "None)")
     if sp is not None:
         Tp = -(-T // sp.size) * sp.size
         if Tp != T:
@@ -288,8 +295,10 @@ def run_layers(layers: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         T = Tp
         x = par.scatter(x, sp, 1)
     cos, sin = rope_cos_sin(cfg, positions)
-    flash_causal = inputs_embeds.is_cuda and cfg.head_dim in (64, 128) and T >= FLASH_MIN_T_TRAIN
-    mask = None if flash_causal else causal_mask(T, T, device=inputs_embeds.device)
+    flash_causal = (mask is None and inputs_embeds.is_cuda and cfg.head_dim in (64, 128)
+                    and T >= FLASH_MIN_T_TRAIN)
+    if mask is None and not flash_causal:
+        mask = causal_mask(T, T, device=inputs_embeds.device)
     n = next(iter(_stacked_leaves(layers))).shape[0]
     for i in range(n):
         x = maybe_remat(_decoder_layer, remat, layer_slice(layers, i), cfg, x, cos, sin, mask,
@@ -309,23 +318,47 @@ def _stacked_leaves(tree):
 
 def llm_backbone(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                  positions: torch.Tensor, modality: Optional[str] = None,
-                 remat: str = "dots", pipeline=None) -> torch.Tensor:
-    """The causal decoder stack over (B, T, H) embeddings at (B, T) rope
+                 remat: str = "dots", pipeline=None,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The decoder stack over (B, T, H) embeddings at (B, T) rope
     positions; returns the final hidden states before the final norm
-    (`omni_avsr_tpu/models/llm.py:316-372`). Each layer runs under the
+    (`omni_avsr_tpu/models/llm.py:316-372`). Causal when `mask` is None
+    (the flash kernels on the card at T >= FLASH_MIN_T_TRAIN and head dim
+    64 or 128, as the JAX gate sends it there); an explicit bool mask
+    (B, 1, T, T) takes the plain attention. Each layer runs under the
     remat policy `remat` (`maybe_remat`); the values are the same under
     every policy. With a `PipelinePlan` the stack runs the GPipe schedule
     over the plan's pp axis (`parallel/pipeline.py`; `params["layers"]` is
-    then this stage's slice)."""
+    then this stage's slice; causal only)."""
     check_remat(remat)
     if pipeline is not None:
+        if mask is not None:
+            raise ValueError("pipelined backbone supports the pure-causal training path only "
+                             "(mask must be None)")
         from ..parallel.pipeline import pipeline_backbone
 
         return pipeline_backbone(
             pipeline.mesh, params["layers"], cfg, inputs_embeds, positions, modality=modality,
             num_microbatches=pipeline.num_microbatches, remat=remat,
             axis_name=pipeline.axis, dp_axis=pipeline.dp_axis)
-    return run_layers(params["layers"], cfg, inputs_embeds, positions, modality, remat)
+    return run_layers(params["layers"], cfg, inputs_embeds, positions, modality, remat, mask)
+
+
+def llm_logits(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
+               positions: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+               modality: Optional[str] = None, remat: str = "dots") -> torch.Tensor:
+    """The backbone, then `lm_head`: f32 logits (B, T, V)
+    (`omni_avsr_tpu/models/llm.py:411-422`). `positions` default to
+    arange(T) in every row; `mask` as in `llm_backbone` (None: causal, on
+    the card through B3 forward and B4 backward where the gate admits it).
+    The JAX function's `remat: bool` is the port's policy string: True
+    there is the policy its `OMNI_REMAT` names ("dots" by default), False
+    is "off"."""
+    B, T, _ = inputs_embeds.shape
+    if positions is None:
+        positions = torch.arange(T, device=inputs_embeds.device)[None].expand(B, T)
+    x = llm_backbone(params, cfg, inputs_embeds, positions, modality, remat, mask=mask)
+    return gather_vocab(lm_head(params, cfg, x), cfg)
 
 
 def token_ce_stats(logits: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -338,6 +371,31 @@ def token_ce_stats(logits: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.T
     token_lp = torch.gather(logp, -1, safe[..., None].long())[..., 0]
     total = torch.where(valid, -token_lp, torch.zeros_like(token_lp)).sum(dim=1)
     return total, valid.sum(dim=1)
+
+
+def causal_lm_token_stats(logits: torch.Tensor,
+                          labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (sum of -log p, valid-token count) of the HF CausalLM loss:
+    logits[:, t] predict labels[:, t + 1] (`:443-448`)."""
+    return token_ce_stats(logits[:, :-1], labels[:, 1:])
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The HF CausalLM loss: shift by one, the f32 mean of the CE over the
+    labels != IGNORE_INDEX, at least one in the denominator (`:478-481`)."""
+    total, count = causal_lm_token_stats(logits, labels)
+    return total.sum() / count.sum().clamp(min=1)
+
+
+def llm_loss(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, labels: torch.Tensor,
+             modality: Optional[str] = None, remat: str = "dots") -> torch.Tensor:
+    """The whole-sequence training loss of the reference's LLM
+    (`modeling_OmniAVSR.py:263-306`, `omni_avsr_tpu/models/llm.py:484-497`):
+    pure causal masking, since the reference passes no attention mask with
+    its right-padded embeddings and -100 labels; on the card at T >= 256
+    every layer's attention is B3 forward and B4 backward."""
+    logits = llm_logits(params, cfg, inputs_embeds, modality=modality, remat=remat)
+    return causal_lm_loss(logits, labels)
 
 
 def llm_span_stats(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,

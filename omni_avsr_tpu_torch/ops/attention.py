@@ -63,6 +63,16 @@ def dot_product_attention(
     return out.reshape(B, T, Hq, D)
 
 
+def combine_masks(*masks: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The logical and of the masks given (None ones skipped); None when
+    none is given."""
+    out = None
+    for m in masks:
+        if m is not None:
+            out = m if out is None else torch.logical_and(out, m)
+    return out
+
+
 def causal_mask(T: int, S: int, device=None) -> torch.Tensor:
     """(1, 1, T, S) bool: query i sees keys <= i."""
     qi = torch.arange(T, device=device)[:, None]

@@ -7,6 +7,12 @@ from __future__ import annotations
 import torch
 
 
+def compressed_len(T: int, rate: int) -> int:
+    """Frames left after compressing T frames at `rate` (the remainder
+    dropped)."""
+    return T // rate
+
+
 def avg_pool_time(x: torch.Tensor, rate: int) -> torch.Tensor:
     """(B, T, D) -> (B, T//rate, D), mean (accumulated in f32) per window."""
     if rate == 1:

@@ -481,6 +481,13 @@ def int8_codes(q: Leaf, k: int) -> torch.Tensor:
     return q["w"]
 
 
+def dequantize(q: Leaf, dtype=torch.bfloat16) -> torch.Tensor:
+    """The (K, N) weight of an int8 leaf {"w", "s"} in the JAX layout, codes
+    times the per-column scale in f32, cast to `dtype`
+    (`omni_avsr_tpu/ops/quant.py:43-44`)."""
+    return (q["w"].float() * q["s"].float()[None, :]).to(dtype)
+
+
 def int4_codes(q4: Leaf, k: int) -> torch.Tensor:
     """The int4 codes (K, N) as int8 of a packed-int4 leaf in either
     layout."""

@@ -26,6 +26,7 @@ Each rank feeds only its rows of the deterministic global batch
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 from typing import Any, Optional
@@ -87,7 +88,9 @@ def maybe_initialize_distributed(
     initialised. The backend is NCCL for a CUDA `device` and gloo for the
     CPU; on the card the rank's device is set to LOCAL_RANK before any
     collective. `timeout_s` (else OMNI_DIST_TIMEOUT, else 600 s) bounds
-    every collective."""
+    every collective. The group it starts is destroyed at the process's
+    exit (`atexit`), before the interpreter tears its modules down, so the
+    group and its store never end in that teardown's arbitrary order."""
     if dist.is_initialized():
         return True
     cuda = torch.device(device).type == "cuda"
@@ -107,7 +110,13 @@ def maybe_initialize_distributed(
     if cuda:
         kwargs["device_id"] = torch.device("cuda", local_rank)
     dist.init_process_group(**kwargs)
+    atexit.register(_destroy_at_exit)
     return True
+
+
+def _destroy_at_exit() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_index() -> int:

@@ -10,7 +10,11 @@ rendezvous in a fresh directory, so no port is probed) and
 OMNI_DIST_TIMEOUT; `parallel/distributed.py::maybe_initialize_distributed`
 reads them (gloo with `--device cpu`, NCCL on the card, one card per rank).
 The launcher waits for every rank, stops them all when one fails or the
-time limit passes, and exits with the first failing rank's code.
+time limit passes, and exits with the first failing rank's code (128 + N
+for a rank ended by signal N, as a shell reports it; 124 when the time
+limit stopped the run). Each rank's standard error passes through with a
+`[rank r]` prefix, and a run that fails ends with one line per rank on
+standard error saying how that rank ended and what stopped the run.
 
 `RankPool` is the same start-up for a Python process: N ranks that stay up
 and run the functions they are handed, one group for many calls (the
@@ -21,9 +25,11 @@ from __future__ import annotations
 
 import argparse
 import os
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Any, Callable, List, Optional, Sequence
 
@@ -37,36 +43,92 @@ def rank_env(rank: int, world: int, init_file: str, timeout_s: float,
     return env
 
 
+def describe_exit(code: Optional[int]) -> str:
+    """How a process ended, from its `Popen.returncode`."""
+    if code is None:
+        return "still running"
+    if code < 0:
+        try:
+            return f"killed by signal {signal.Signals(-code).name} ({-code})"
+        except ValueError:
+            return f"killed by signal {-code}"
+    return f"exit {code}"
+
+
+def shell_code(code: int) -> int:
+    """A `Popen.returncode` as an exit status: 128 + N for signal N."""
+    return 128 - code if code < 0 else code
+
+
+class _Rank:
+    """One rank's process; a thread passes its standard error on with a
+    `[rank r]` prefix."""
+
+    def __init__(self, rank: int, cmd: Sequence[str], env: dict):
+        self.rank, self.t0, self.seconds = rank, time.monotonic(), None
+        self.proc = subprocess.Popen(list(cmd), env=env, stderr=subprocess.PIPE)
+        self.stopped = False  # stopped by the launcher
+        self._pump = threading.Thread(target=self._relay, daemon=True)
+        self._pump.start()
+
+    def _relay(self) -> None:
+        for raw in iter(self.proc.stderr.readline, b""):
+            sys.stderr.write(f"[rank {self.rank}] {raw.decode(errors='replace')}")
+            sys.stderr.flush()
+
+    def poll(self) -> Optional[int]:
+        code = self.proc.poll()
+        if code is not None and self.seconds is None:
+            self.seconds = time.monotonic() - self.t0
+        return code
+
+    def stop(self) -> None:
+        if self.poll() is None:
+            self.stopped = True
+            self.proc.kill()
+        self.proc.wait()
+        self.poll()
+        self._pump.join(timeout=5)
+
+    def report(self) -> str:
+        how = describe_exit(self.proc.returncode)
+        if self.stopped:
+            how = f"stopped by the launcher ({how})"
+        return f"rank {self.rank}: {how} after {self.seconds:.1f} s"
+
+
 def launch(cmd: Sequence[str], nproc: int, timeout_s: float = 3600.0,
            dist_timeout_s: float = 600.0, threads: Optional[int] = None) -> int:
-    """Run `cmd` as `nproc` ranks; returns 0 or the first failing rank's
-    exit code (124 when the time limit stopped them)."""
+    """Run `cmd` as `nproc` ranks; returns 0, the first failing rank's exit
+    status (128 + N for signal N) or 124 when the time limit stopped them.
+    A failed run ends with `launch:` lines on standard error: what stopped
+    it, and how each rank ended."""
     with tempfile.TemporaryDirectory(prefix="omni_rdzv_") as tmp:
         init_file = os.path.join(tmp, "store")
-        procs = [subprocess.Popen(list(cmd), env=rank_env(r, nproc, init_file, dist_timeout_s,
-                                                            threads))
+        ranks = [_Rank(r, cmd, rank_env(r, nproc, init_file, dist_timeout_s, threads))
                  for r in range(nproc)]
         deadline = time.monotonic() + timeout_s
-        rc = 0
+        rc, why = 0, ""
         try:
             while True:
-                codes = [p.poll() for p in procs]
-                failed = [c for c in codes if c not in (None, 0)]
+                codes = [r.poll() for r in ranks]
+                failed = [r for r, c in zip(ranks, codes) if c not in (None, 0)]
                 if failed:
-                    rc = failed[0]
+                    rc = shell_code(failed[0].proc.returncode)
+                    why = f"rank {failed[0].rank} failed ({describe_exit(codes[failed[0].rank])})"
                     break
                 if all(c == 0 for c in codes):
                     break
                 if time.monotonic() > deadline:
-                    rc = 124
+                    rc, why = 124, f"the time limit of {timeout_s:g} s passed"
                     break
                 time.sleep(0.2)
         finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-            for p in procs:
-                p.wait()
+            for r in ranks:
+                r.stop()
+        if rc:
+            lines = [f"launch: exit {rc}: {why}"] + [f"launch: {r.report()}" for r in ranks]
+            print("\n".join(lines), file=sys.stderr, flush=True)
         return rc
 
 

@@ -58,6 +58,14 @@ def restore_checkpoint(path: str, device="cuda") -> TrainState:
     return TrainState(raw["step"], trainable, raw["opt_state"])
 
 
+def restore_raw(path: str) -> dict:
+    """A checkpoint of this package as saved, without building a
+    `TrainState`: {"step", "trainable", "opt_state"} with its tensors on
+    the CPU (the JAX package's `restore_raw` reads its orbax directories
+    the same way, without a template)."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
 def restore_trainable(path: str, device="cuda"):
     """Only the saved trainable tree (f32 masters, not requiring grad), on
     `device`: what serving merges over the frozen base weights."""

@@ -21,6 +21,13 @@ Params = Dict[str, Any]
 PathPredicate = Callable[[str], bool]
 
 
+def default_trainable_predicate(path: str) -> bool:
+    """Trainable = the LoRA adapters and the projectors (`_unfreeze_PETF`,
+    `modeling_OmniAVSR.py:234-260`; projectors are never frozen), the JAX
+    package's default split (`omni_avsr_tpu/train/state.py:23-26`)."""
+    return ("lora" in path) or ("proj" in path)
+
+
 def split_params(params: Params, is_trainable: PathPredicate, prefix: str = ""
                  ) -> Tuple[Optional[Params], Optional[Params]]:
     """Split a nested dict into (trainable, frozen) trees by the dotted path

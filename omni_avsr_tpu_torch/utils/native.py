@@ -1,8 +1,7 @@
 """ctypes bindings for the repository's host-side C++ library
 (`native/editdist.cpp`): word edit distance, BLEU n-gram statistics,
-frame-budget bucket packing and the auction solver of balanced assignment
-(port of the subset of `omni_avsr_tpu/utils/native.py` that WER, BLEU,
-batching and MoE routing studies use).
+frame-budget bucket packing, the auction solver of balanced assignment and
+fairseq's token-block utilities (port of `omni_avsr_tpu/utils/native.py`).
 
 The library is built with `g++` at first use into `build/native/` at the
 repository root, under a file name that carries a hash of the source, so
@@ -73,6 +72,12 @@ def load() -> ctypes.CDLL:
             lib.balanced_assignment.restype = ctypes.c_int64
             lib.balanced_assignment.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
                                                 ctypes.c_int64, _I64P]
+            lib.token_block_slices.restype = ctypes.c_int64
+            lib.token_block_slices.argtypes = [_I64P, ctypes.c_int64, ctypes.c_int64,
+                                               ctypes.c_int64, ctypes.c_int64, _I64P]
+            lib.block_to_dataset_index.restype = None
+            lib.block_to_dataset_index.argtypes = [_I64P, ctypes.c_int64, _I64P,
+                                                   ctypes.c_int64, _I64P]
             _lib = lib
         return _lib
 
@@ -234,3 +239,102 @@ def balanced_assignment_py(scores: np.ndarray) -> np.ndarray:
             base.max() if counter < max_iterations else base.reshape(-1)[retained])
         counter += 1
     return top_index[:, :k].reshape(-1).astype(np.int64)
+
+
+BLOCK_MODES = {"none": 0, None: 0, "complete": 1, "complete_doc": 2, "eos": 3}
+
+
+def _block_mode(break_mode: Optional[str]) -> int:
+    if break_mode not in BLOCK_MODES:
+        raise ValueError(f"Invalid break_mode: {break_mode}")
+    return BLOCK_MODES[break_mode]
+
+
+def token_block_slices_native(sizes: Sequence[int], break_mode: Optional[str], block_size: int,
+                              document_sep_len: int = 1) -> np.ndarray:
+    """Chop per-sentence token sizes into contiguous (start, end) token
+    blocks, fairseq's `token_block_utils_fast.pyx::_get_slice_indices_fast`:
+    "none" (or None) fixed windows of `block_size` over the concatenated
+    stream, "complete" whole sentences packed greedily up to `block_size`
+    (a longer sentence alone), "complete_doc" the same without crossing a
+    separator sentence of `document_sep_len` tokens (blocks of <= 1 token
+    dropped), "eos" one block a sentence. Returns int64 (num_blocks, 2)."""
+    mode = _block_mode(break_mode)
+    ls = np.ascontiguousarray(sizes, np.int64)
+    n = len(ls)
+    total = int(ls.sum())
+    max_blocks = max(1, -(-total // block_size) if mode == 0 else n)
+    out = np.zeros(2 * max_blocks, np.int64)
+    m = int(load().token_block_slices(_ptr(ls, ctypes.c_int64), n, mode, block_size,
+                                      document_sep_len, _ptr(out, ctypes.c_int64)))
+    return out[:2 * m].reshape(m, 2)
+
+
+def token_block_slices_py(sizes: Sequence[int], break_mode: Optional[str], block_size: int,
+                          document_sep_len: int = 1) -> np.ndarray:
+    """The same blocks in Python (`omni_avsr_tpu/utils/native.py:255-283`)."""
+    mode = _block_mode(break_mode)
+    ls = [int(s) for s in sizes]
+    total = sum(ls)
+    blocks = []
+    if mode == 0:
+        blocks = [(i * block_size, min((i + 1) * block_size, total))
+                  for i in range(-(-total // block_size))]
+    elif mode in (1, 2):
+        least = 0 if mode == 1 else 1  # "complete_doc" drops blocks of <= 1 token
+        tok = cur = sz = 0
+        while sz < len(ls):
+            fits = cur + ls[sz] <= block_size or cur == 0
+            is_sep = mode == 2 and ls[sz] == document_sep_len
+            if fits and not is_sep:
+                cur += ls[sz]
+                sz += 1
+            else:
+                if cur > least:
+                    blocks.append((tok, tok + cur))
+                tok, cur = tok + cur, 0
+                if is_sep:
+                    tok += ls[sz]
+                    sz += 1
+        if cur > least:
+            blocks.append((tok, tok + cur))
+    else:
+        tok = 0
+        for s in ls:
+            blocks.append((tok, tok + s))
+            tok += s
+    return np.asarray(blocks, np.int64).reshape(len(blocks), 2)
+
+
+def block_to_dataset_index_native(sizes: Sequence[int], slices: np.ndarray) -> np.ndarray:
+    """Each (start, end) token slice in dataset coordinates: (first
+    sentence, offset in it, last sentence), fairseq's
+    `_get_block_to_dataset_index_fast`. Returns int64 (num_blocks, 3)."""
+    ls = np.ascontiguousarray(sizes, np.int64)
+    sl = np.ascontiguousarray(slices, np.int64).reshape(-1, 2)
+    m = sl.shape[0]
+    # the library walks the sentences with one cursor that only moves
+    # forward: a slice past the last token would read past `sizes`, and
+    # starts out of order would give wrong coordinates
+    if m and not (np.all(sl[:, 0] >= 0) and np.all(sl[:, 0] < ls.sum())
+                  and np.all(sl[:, 1] >= sl[:, 0]) and np.all(sl[:, 1] <= ls.sum())
+                  and np.all(np.diff(sl[:, 0]) >= 0)):
+        raise ValueError("slices must lie within the sentences' tokens, in order of their "
+                         "starts")
+    out = np.zeros(3 * m, np.int64)
+    load().block_to_dataset_index(_ptr(ls, ctypes.c_int64), len(ls), _ptr(sl, ctypes.c_int64),
+                                  m, _ptr(out, ctypes.c_int64))
+    return out.reshape(m, 3)
+
+
+def block_to_dataset_index_py(sizes: Sequence[int], slices: np.ndarray) -> np.ndarray:
+    """The same coordinates by binary search over the sentence offsets
+    (`omni_avsr_tpu/utils/native.py:296-303`)."""
+    cum = np.concatenate([[0], np.cumsum(np.asarray(sizes, np.int64))])
+    sl = np.asarray(slices, np.int64).reshape(-1, 2)
+    out = np.zeros((len(sl), 3), np.int64)
+    for i, (s, e) in enumerate(sl):
+        a = int(np.searchsorted(cum, s, side="right") - 1)
+        b = int(np.searchsorted(cum, max(s, e - 1), side="right") - 1)
+        out[i] = (a, s - cum[a], b)
+    return out

@@ -219,12 +219,13 @@ def test_native_library_location():
 
 
 def test_load_hf_tokenizer_matches_jax(tmp_path):
-    """A local byte-level BPE tokenizer (Llama-style and Qwen-style)
-    through both packages' `load_hf_tokenizer`: the same special ids,
-    vocabulary, encodings, prompt slices and decodings."""
+    """A local byte-level BPE tokenizer (Llama-style and Qwen-style), built
+    by the port's `build_local_bpe_tokenizer`, through both packages'
+    `load_hf_tokenizer`: the same special ids, vocabulary, encodings,
+    prompt slices and decodings."""
     pytest.importorskip("transformers")
-    from omni_avsr_tpu.data.local_tokenizer import build_local_bpe_tokenizer
     from omni_avsr_tpu.data.tokenizer import load_hf_tokenizer as jax_load
+    from omni_avsr_tpu_torch.data.local_tokenizer import build_local_bpe_tokenizer
     from omni_avsr_tpu_torch.data.tokenizer import load_hf_tokenizer
 
     for family, name in (("llama", "Llama-3.2-1B-local"), ("qwen", "Qwen2.5-0.5B-local")):

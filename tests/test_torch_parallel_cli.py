@@ -114,12 +114,50 @@ def test_launcher_starts_ranks(tmp_path):
             "open(f'{sys.argv[1]}/rank{dist.get_rank()}', 'w').write(str(x.item()))\n")
     script = tmp_path / "prog.py"
     script.write_text("import sys\n" + prog)
-    rc = subprocess.run([sys.executable, "-m", "omni_avsr_tpu_torch.parallel.launch", "--nproc",
-                         "2", "--timeout", "120", "--dist-timeout", "60", "--threads", "1", "--",
-                         sys.executable, str(script), str(tmp_path)], cwd=ROOT,
-                        env={**os.environ, "PYTHONPATH": ROOT}, timeout=180).returncode
-    assert rc == 0
+    run = subprocess.run([sys.executable, "-m", "omni_avsr_tpu_torch.parallel.launch", "--nproc",
+                          "2", "--timeout", "120", "--dist-timeout", "60", "--threads", "1", "--",
+                          sys.executable, str(script), str(tmp_path)], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": ROOT}, timeout=180,
+                         capture_output=True, text=True)
+    # on failure: the launcher's exit status, its report of how each rank
+    # ended, and every rank's standard error (`[rank r]` lines)
+    assert run.returncode == 0, f"launcher exit {run.returncode}\n{run.stderr}"
     assert [(tmp_path / f"rank{r}").read_text() for r in range(2)] == ["3.0", "3.0"]
+
+
+@pytest.mark.parametrize("case, rc, report", [
+    ("exit", 3, ["launch: exit 3: rank 1 failed (exit 3)", "rank 0: exit 0", "rank 1: exit 3",
+                 "[rank 1] rank 1 fails"]),
+    ("abort", 134, ["launch: exit 134: rank 1 failed (killed by signal SIGABRT (6))",
+                    "rank 0: stopped by the launcher (killed by signal SIGKILL (9))",
+                    "rank 1: killed by signal SIGABRT (6)"]),
+    ("hang", 124, ["launch: exit 124: the time limit of 3 s passed",
+                   "rank 0: stopped by the launcher", "rank 1: stopped by the launcher"]),
+])
+def test_launcher_reports_how_ranks_end(tmp_path, case, rc, report):
+    """The launcher's exit status says what stopped the run (a rank's own
+    code, 128 + N for a rank ended by signal N, 124 for the time limit),
+    its last lines how each rank ended, and each rank's standard error
+    comes through with a `[rank r]` prefix."""
+    script = tmp_path / "prog.py"
+    script.write_text(
+        "import os, sys, time\n"
+        "rank = int(os.environ['RANK'])\n"
+        f"case = {case!r}\n"
+        "if case == 'exit' and rank == 1:  # after rank 0 has ended\n"
+        "    time.sleep(2.0); print('rank 1 fails', file=sys.stderr); sys.exit(3)\n"
+        "if case == 'abort' and rank == 1:\n"
+        "    time.sleep(0.5); os.abort()\n"
+        "if case != 'exit':\n"
+        "    time.sleep(60)\n")
+    limit = "3" if case == "hang" else "50"
+    run = subprocess.run([sys.executable, "-m", "omni_avsr_tpu_torch.parallel.launch", "--nproc",
+                          "2", "--timeout", limit, "--", sys.executable, str(script)], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": ROOT}, timeout=120,
+                         capture_output=True, text=True)
+    assert run.returncode == rc, run.stderr
+    for line in report:
+        assert line in run.stderr, (line, run.stderr)
 
 
 @pytest.mark.parametrize("environ, devices, local", [

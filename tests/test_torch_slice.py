@@ -161,6 +161,10 @@ def test_no_jax_imports(target):
         assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
                 "parallel/partitioning.py", "parallel/pipeline.py", "parallel/collectives.py",
                 "parallel/launch.py"} <= names
+        # and the last module slice's: lightweight and dynamic convolutions,
+        # the subword vocabularies, their CLI and the offline tokenizer
+        assert {"ops/lightconv.py", "data/subword.py", "cli/gen_subword.py",
+                "data/local_tokenizer.py", "utils/profiling.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
