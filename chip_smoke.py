@@ -175,6 +175,20 @@ Phases, each printing lines with the elapsed seconds:
      around (t)'s first train step (the unwrapped step's loss bit for bit,
      the same launches, `count_nonfinite` of the trainables 0), a step fed
      a NaN and a backward dividing by zero on the card, both raising;
+  4c. after (q): (r) sequence parallelism on gloo ranks that share the
+     card (`parallel/launch.py::RankPool`, one process a rank, each with
+     its engine on the card; NCCL takes one rank a device): a probe of
+     gloo's and the port's collectives on card tensors, then one train step
+     of (t)'s batch on (o)'s MoE flagship (balanced routing, full width
+     and depth) at tp 2 with SP and without it on two ranks, and on the
+     flagship with the registry's Qwen2.5-0.5B (14 / 2 heads: the attention
+     replicates, the MLP runs four-way) at tp 4 with SP on four ranks;
+     each run's loss and whole trainable grads (the routing replayed from
+     the meshless run, the calls whose own choice differs counted) against
+     the meshless step in this process (loss 1e-3 relative, grads 2e-2
+     relative L2), each rank's B3, B4 and routing launches equal to the
+     meshless step's, each rank's peak GiB and s/step (the ranks share the
+     SMs and stage collectives through host memory);
   9. the CLIs as a user runs them, as subprocesses on the card, three at a
      time after the first:
      `serve_http --synthetic` (/healthz, one audio request, then stopped),
@@ -1510,11 +1524,15 @@ def train_launches(model, flash_tasks: int, video_layers: int, remat: str = "dot
     every LLM layer of a task whose sequence reaches the flash gate, B4
     once and B3 once in the forward and, under the remat policies "dots"
     (the engine's default) and "full", once more where the backward
-    recomputes the layer; nothing else."""
-    n = flash_tasks * model.cfg.llm.num_layers
+    recomputes the layer; in an MoE decoder with balanced routing, the
+    routing kernel in every layer of the three tasks' forwards and
+    recomputes; nothing else."""
+    llm = model.cfg.llm
+    n = flash_tasks * llm.num_layers
     again = 1 if remat == "off" else 2
+    moe = llm.moe_experts and llm.moe_routing == "balanced"
     return counts(B3=model.cfg.whisper.num_layers + again * (video_layers + n),
-                  B4=video_layers + n)
+                  B4=video_layers + n, MOE=again * 3 * llm.num_layers if moe else 0)
 
 
 def check_route_launches(route: str, used) -> None:
@@ -2249,6 +2267,332 @@ def last_modules_phase(flush) -> dict:
 
 
 
+# ------------------------------ (r): sequence parallelism, several ranks
+
+R_QWEN = "Qwen/Qwen2.5-0.5B"  # 14 / 2 heads: neither divides by tp 4, the attention replicates
+R_GRAD_SEED, R_STEP_SEED = 20261018, 7  # the draws of (r)'s grads runs and timed steps
+R_LOSS_RTOL = 1e-3  # (r)'s losses against the reference run; the grads REL_L2_TOL
+R_DIST_TIMEOUT_S = 300.0  # any collective of (r)'s gloo ranks
+
+
+def qwen_small_model():
+    """The flagship on the registry's Qwen2.5-0.5B (24 layers, hidden 896,
+    FFN 4864, 14 / 2 heads at D 64, tied embeddings), the 30 s window."""
+    from omni_avsr_tpu_torch.data.tokenizer import synthetic_tokenizer
+    from omni_avsr_tpu_torch.models.omni import registry_model
+
+    return registry_model(R_QWEN, synthetic_tokenizer("qwen", base_vocab=QWEN_BASE_VOCAB))
+
+
+@contextlib.contextmanager
+def routed(own: list, replay=None):
+    """Each balanced routing call's assignments (the kernel's, on the card)
+    appended to `own` on the host; with `replay` (another run's `own`) each
+    call returns that run's assignments instead, call for call. Routing is
+    discrete: tp's partial sums move the router logits at bf16 level and
+    flip near-tied choices (`moe_routes`), so runs compare their grads on
+    one set of choices and count the calls whose own choice differs."""
+    import omni_avsr_tpu_torch.models.moe as moe_mod
+
+    fn = moe_mod.balanced_assignment
+
+    def route(scores, capacity):
+        out = fn(scores, capacity)
+        own.append(out.cpu())
+        if replay is None:
+            return out
+        want = replay[len(own) - 1]
+        if want.shape != out.shape:
+            raise RuntimeError(f"routing replay: call {len(own) - 1} routes {out.shape[0]} rows, "
+                               f"the recorded run {want.shape[0]}")
+        return want.to(device=out.device, dtype=out.dtype)
+
+    moe_mod.balanced_assignment = route
+    try:
+        yield
+    finally:
+        moe_mod.balanced_assignment = fn
+    if replay is not None and len(own) != len(replay):
+        raise RuntimeError(f"routing replay: {len(own)} calls, recorded {len(replay)}")
+
+
+def routes_differing(a: list, b: list) -> tuple:
+    """(calls, rows) of two runs' routing whose assignments differ."""
+    if len(a) != len(b):
+        raise RuntimeError(f"routing calls: {len(a)} against {len(b)}")
+    rows = [int((x != y).sum()) for x, y in zip(a, b)]
+    return sum(r > 0 for r in rows), sum(rows)
+
+
+def r_grads(engine, batch, trim: int):
+    """One train step's loss and trainable grads before the optimizer, as
+    `OmniEngine._update` reduces them (under the engine's mesh gathered
+    from every rank's slices, on every rank), draws from R_GRAD_SEED."""
+    import torch
+
+    from omni_avsr_tpu_torch.parallel import collectives as par
+    from omni_avsr_tpu_torch.parallel.partitioning import gather_params
+    from omni_avsr_tpu_torch.train.engine import _unflatten
+    from omni_avsr_tpu_torch.train.state import tree_leaves
+
+    arrays, trim_len = engine._arrays({**batch, "audio_trim_len": trim})
+    engine._rows(arrays)
+    leaves = list(tree_leaves(engine.state.trainable))
+    engine.generator.manual_seed(R_GRAD_SEED)
+    with par.scope(engine.par):
+        total, _ = engine._loss(arrays, 4, 2, trim_len, is_train=True)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        if engine.par is not None:
+            grads = par.reduce_grads(grads, list(tree_leaves(engine.specs)), engine.par)
+            grads = list(tree_leaves(gather_params(
+                engine.mesh, _unflatten(engine.state.trainable, grads), engine.specs)))
+            total = par.all_reduce(total, engine.par.dp)
+    return float(total.detach()), torch.cat([g.detach().float().reshape(-1) for g in grads]).cpu()
+
+
+def r_step(engine, batch, trim: int, fns) -> dict:
+    """The timed `OmniEngine.train_step` (the entry point a user calls),
+    every kernel counter set to 0 just before and read just after, its draws
+    from R_STEP_SEED (so every run drops the same AV-HuBERT layers)."""
+    import torch
+
+    engine.generator.manual_seed(R_STEP_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fns)
+    t = time.perf_counter()
+    loss = float(engine.train_step({**batch, "audio_trim_len": trim}))  # a host sync
+    dt = time.perf_counter() - t
+    if not np.isfinite(loss):
+        raise RuntimeError(f"(r) train step: loss {loss}")
+    return dict(step_loss=loss, s_per_step=dt, launches={k: fn.launches for k, fn in fns.items()},
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                avhubert_layers_run=engine.model.last_video_layers)
+
+
+def stub_card_counters() -> None:
+    """A CPU rehearsal of a rank function: the card's synchronise and memory
+    counters as no-ops, as the parent's rehearsal stubs them."""
+    import torch
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        setattr(torch.cuda, name, lambda *a, **k: None)
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+
+
+def r_probe_rank(dev: str) -> dict:
+    """One gloo rank of (r)'s probe: a tensor on the card through gloo's
+    all_gather and all_reduce, and through the port's gather and
+    reduce-scatter over a (1, world) mesh's tp axis (gloo's reduce-scatter
+    is an all-reduce and a slice), each held to the values it must give."""
+    import torch
+    import torch.distributed as dist
+
+    from omni_avsr_tpu_torch.config import MeshConfig
+    from omni_avsr_tpu_torch.parallel import collectives as par
+    from omni_avsr_tpu_torch.parallel.mesh import axis, make_mesh
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    base = torch.arange(4 * n, dtype=torch.float32, device=dev)
+    x = base + 100 * r
+    every = torch.stack([base + 100 * i for i in range(n)])
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x)
+    total = x.clone()
+    dist.all_reduce(total)
+    tp = axis(make_mesh(MeshConfig(dp=1, tp=n)), "tp")
+    gathered = par.all_gather(x[None], tp, 0)
+    scattered = par._reduce_scatter(x, tp, 0)
+    checks = {"all_gather": torch.equal(torch.stack(parts), every),
+              "all_reduce": torch.equal(total, every.sum(0)),
+              "port gather": torch.equal(gathered, every),
+              "port reduce_scatter": torch.equal(scattered, every.sum(0)[4 * r:4 * (r + 1)])}
+    devices = {str(t.device) for t in (*parts, total, gathered, scattered)}
+    if not all(checks.values()) or devices != {str(x.device)}:
+        raise RuntimeError(f"(r) gloo probe, rank {r}: {checks}, results on {devices}")
+    return dict(rank=r, backend=dist.get_backend(), device=str(x.device), checks=checks)
+
+
+def r_rank_run(build, build_args, batch, trim: int, bank, tp: int, runs, replay, dev: str):
+    """What each of (r)'s gloo ranks runs (a `RankPool` process a rank, every
+    rank on the one card): `build(*build_args)` with random weights from
+    seed 0, and for each (label, sequence_parallel) of `runs` an engine on
+    a (1, tp) mesh: the grads run (`r_grads`, the routing replayed from
+    `replay`, each call's own choice recorded), then the timed step
+    (`r_step`). Returns {label: row}: this rank's loss, step, launches,
+    peak and routing choices, and on rank 0 the whole grads."""
+    import torch
+    import torch.distributed as dist
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.config import MeshConfig, TrainConfig
+    from omni_avsr_tpu_torch.parallel.mesh import make_mesh
+    from omni_avsr_tpu_torch.train.engine import OmniEngine
+
+    if dev != "cuda":
+        stub_card_counters()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    model = build(*build_args)
+    params = init_params(model.cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    mesh = make_mesh(MeshConfig(dp=1, tp=tp))
+    fns = counters()
+    out = {}
+    for label, sp in runs:
+        engine = OmniEngine(model, params, TrainConfig(lr=1e-3), noise_bank=bank, seed=0,
+                            device=dev, mesh=mesh, sequence_parallel=sp)
+        engine.sample_rates = lambda: (4, 2)
+        own = []
+        with routed(own, replay):
+            loss, grads = r_grads(engine, batch, trim)
+        row = dict(loss=loss, routes=own, setup_and_grads_s=time.perf_counter() - t,
+                   tp_blocks=sorted(engine.par.tp_blocks), **r_step(engine, batch, trim, fns))
+        if dist.get_rank() == 0:
+            row["grads"] = grads
+        out[label] = row
+        del engine, grads
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+    return out
+
+
+def r_meshless(build, build_args, batch, trim: int, bank, fns) -> dict:
+    """The reference: the same grads run and timed step in this process
+    without a mesh, its routing recorded; the step's launches held to what
+    the path must give."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.config import TrainConfig
+    from omni_avsr_tpu_torch.ops.attention import FLASH_MIN_T_TRAIN
+    from omni_avsr_tpu_torch.train.engine import OmniEngine
+
+    model = build(*build_args)
+    params = init_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    engine = OmniEngine(model, params, TrainConfig(lr=1e-3), noise_bank=bank, seed=0, device=DEV)
+    del params
+    engine.sample_rates = lambda: (4, 2)
+    own = []
+    with routed(own):
+        loss, grads = r_grads(engine, batch, trim)
+    row = dict(loss=loss, routes=own, grads=grads, **r_step(engine, batch, trim, fns))
+    lengths = llm_lengths(model, trim, 4, 2, FRAMES_TRAIN, TOKENS_TRAIN)
+    flash = [m for m, n in lengths.items() if n >= FLASH_MIN_T_TRAIN]
+    want = train_launches(model, len(flash), row["avhubert_layers_run"])
+    if row["launches"] != want:
+        raise RuntimeError(f"(r) meshless step: kernel launches {row['launches']}, expected "
+                           f"{want}")
+    row["llm_lengths"] = lengths
+    return row
+
+
+def r_compare(label: str, got: dict, ref: dict, ref_label: str) -> dict:
+    """A run's loss and grads against a reference run's (loss within
+    R_LOSS_RTOL relative, grads within REL_L2_TOL relative L2, both on one
+    set of routing choices), and the routing calls whose own choice
+    differed."""
+    rel = ((got["grads"] - ref["grads"]).norm() / ref["grads"].norm()).item()
+    dl = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    if not (np.isfinite(got["loss"]) and np.isfinite(rel)):
+        raise RuntimeError(f"{label}: loss {got['loss']}, grads relative L2 {rel}")
+    if rel > REL_L2_TOL or dl > R_LOSS_RTOL:
+        raise RuntimeError(f"{label} vs {ref_label}: loss {got['loss']} vs {ref['loss']}, grads "
+                           f"relative L2 {rel:.3g}")
+    calls, rows = routes_differing(got["routes"], ref["routes"])
+    return dict(vs=ref_label, loss=got["loss"], ref_loss=ref["loss"], loss_rel_diff=dl,
+                grad_rel_l2=rel, routing_calls=len(got["routes"]),
+                routing_rows=sum(len(r) for r in got["routes"]),
+                routing_calls_differing=calls, routing_rows_differing=rows)
+
+
+def r_case(label: str, pool, build, build_args, tp: int, runs, fns, smi: str) -> dict:
+    """One (r) case: the meshless reference in this process (freed before the
+    ranks step), then `runs` on the pool's ranks; every rank's launches held
+    to the reference step's, every rank's routing to rank 0's, each run's
+    loss and grads to the reference's (and the SP run's to the run without
+    SP where there is one)."""
+    import torch
+
+    from omni_avsr_tpu_torch.ops.audio_frontend import whisper_token_len
+
+    t0 = time.perf_counter()
+    bank = (np.random.RandomState(1234).randn(10 * 16000) * 0.1).astype(np.float32)
+    trim = -(-int(whisper_token_len(FRAMES_TRAIN * 640)) // 25) * 25
+    batch = train_batch(build(*build_args).tok, B_TRAIN, FRAMES_TRAIN, TOKENS_TRAIN)
+    ref = r_meshless(build, build_args, batch, trim, bank, fns)
+    torch.cuda.empty_cache()
+    rows = {f"{label} meshless": dict(
+        config=f"{label} meshless train step on the card, alone", loss=ref["loss"],
+        step_loss=ref["step_loss"], s_per_step=ref["s_per_step"], peak_gib=ref["peak_gib"],
+        launches=ref["launches"], llm_lengths=ref["llm_lengths"],
+        avhubert_layers_run=ref["avhubert_layers_run"], routing_calls=len(ref["routes"]))}
+    log("r", json.dumps(rows[f"{label} meshless"]))
+    t = time.perf_counter()
+    ranks = pool.run(r_rank_run, build, build_args, batch, trim, bank, tp, runs, ref["routes"],
+                     DEV, timeout_s=1200)
+    log("r", f"{label}: {len(ranks)} gloo ranks, runs {[r for r, _ in runs]}, in "
+        f"{time.perf_counter() - t:.1f} s")
+    for run, sp in runs:
+        rr = [ranks[i][run] for i in range(len(ranks))]
+        for i, row in enumerate(rr):
+            if row["launches"] != ref["launches"]:
+                raise RuntimeError(f"{label} {run} rank {i}: kernel launches {row['launches']}, "
+                                   f"the meshless step's {ref['launches']}")
+            if routes_differing(row["routes"], rr[0]["routes"])[0]:
+                raise RuntimeError(f"{label} {run}: rank {i}'s routing differs from rank 0's")
+        agree = [r_compare(f"{label} {run}", rr[0], ref, "meshless")]
+        if sp and any(not s for _, s in runs):
+            other = next(r for r, s in runs if not s)
+            agree.append(r_compare(f"{label} {run}", rr[0], ranks[0][other], other))
+        rows[f"{label} {run}"] = dict(
+            config=f"{label} tp {tp}{' with SP' if sp else ''}, {len(rr)} gloo ranks on one card",
+            tp_blocks=rr[0]["tp_blocks"], agreement=agree, launches=rr[0]["launches"],
+            launches_by_rank=[r["launches"] for r in rr],
+            s_per_step_by_rank=[r["s_per_step"] for r in rr],
+            peak_gib_by_rank=[r["peak_gib"] for r in rr],
+            step_loss_by_rank=[r["step_loss"] for r in rr],
+            setup_and_grads_s_by_rank=[r["setup_and_grads_s"] for r in rr], card=smi)
+        log("r", json.dumps(rows[f"{label} {run}"]))
+    log("r", f"{label} in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def sp_phase() -> dict:
+    """(r): sequence parallelism on the card at full width, on gloo ranks
+    that share the one card (NCCL takes one rank a device; gloo stages each
+    collective through host memory). First a probe of gloo on card tensors;
+    then (r1) the MoE flagship (8 experts a layer, balanced routing) at tp
+    2 with and without SP on two ranks, and (r2) the flagship on
+    Qwen2.5-0.5B at tp 4 with SP on four ranks (its 14 / 2 heads replicate
+    the attention, the MLP runs four-way); each against the meshless step
+    in this process. The ranks share the card's SMs: their s/step is not a
+    multi-card number."""
+    import shutil
+
+    from omni_avsr_tpu_torch.parallel.launch import RankPool
+
+    t0 = time.perf_counter()
+    smi = card()
+    fns = counters()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_sp"
+    shutil.rmtree(work, ignore_errors=True)
+    rows = {}
+    for world in (2, 4):
+        (work / str(world)).mkdir(parents=True)
+    with RankPool(2, str(work / "2"), timeout_s=R_DIST_TIMEOUT_S) as pool:
+        probe = pool.run(r_probe_rank, DEV)
+        log("r", f"gloo probe on {smi}: {json.dumps(probe)}")
+        rows.update(r_case("(r1) MoE", pool, moe_model, ("balanced", "pad30s"), 2,
+                           (("sp", True), ("no sp", False)), fns, smi))
+    with RankPool(4, str(work / "4"), timeout_s=R_DIST_TIMEOUT_S) as pool:
+        rows.update(r_case("(r2) Qwen2.5-0.5B", pool, qwen_small_model, (), 4,
+                           (("sp", True),), fns, smi))
+    log("r", f"(r) in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def _padded(items):
     """(batch, modality, rates, trim) of `items` for `Transcriber.decode_ids`."""
     from omni_avsr_tpu_torch.serve import pad_batch
@@ -2399,8 +2743,7 @@ def moe_phase(items, flush):
             loss = float(engine.train_step({**batch, "audio_trim_len": trim}))
         times.append(time.perf_counter() - t)
         launches = {name: fn.launches for name, fn in fns.items()}
-        want = {**train_launches(model, len(flash_tasks), model.last_video_layers),
-                "MOE": 2 * 3 * L}
+        want = train_launches(model, len(flash_tasks), model.last_video_layers)
         if launches != want:
             raise RuntimeError(f"(o) train step: kernel launches {launches}, expected {want}")
         if not np.isfinite(loss):
@@ -4571,6 +4914,8 @@ def main() -> int:
     rows.update(parallel_phase(flush, items_b))
     # (q): the causal-LM loss (B3, B4), lightconv and checkify_step at full width
     rows.update(last_modules_phase(flush))
+    # (r): sequence parallelism with an MoE decoder and a replicated attention, gloo ranks
+    rows.update(sp_phase())
     del flush
     torch.cuda.empty_cache()
 

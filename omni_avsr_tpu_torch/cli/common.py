@@ -3,11 +3,14 @@ reference's flag surface (`train_OmniAVSR.py:75-391`) mapped onto the
 port's configs, and the model, parameter and data builders.
 
 One flag is the port's own: `--device` (default "cuda"). Without a CUDA
-device the CLIs stop with an error unless given `--device cpu`. The flags
-of work the port does not have yet (multi-host, meshes, FSDP, sequence
-parallelism, MoE) raise `NotImplementedError` naming the ROADMAP item,
-rather than being ignored. `--compilation-cache-dir` is accepted and
-prints one line: the port compiles no XLA program.
+device the CLIs stop with an error unless given `--device cpu`. The
+parallel flags (`--num-nodes`, `--mesh-*`, `--fsdp`,
+`--sequence-parallel`, `--moe-experts`) run as the JAX package's do
+(`setup_parallelism`; one rank per device, started by
+`parallel/launch.py`, torchrun or SLURM): sequence parallelism with an MoE
+decoder and with a replicated attention or MLP included.
+`--compilation-cache-dir` is accepted and prints one line: the port
+compiles no XLA program.
 
 The JAX package's numerics variables (`OMNI_PROFILE`, `OMNI_PRNG`,
 `OMNI_BN_STATS`, `OMNI_BEAM_SELECT`, `OMNI_BEAM_ATTN`, `OMNI_SELECT_KERNEL`,

@@ -81,24 +81,36 @@ def local_heads(cfg: LLMConfig) -> Tuple[int, int]:
     return cfg.num_heads // n, cfg.num_kv_heads // n
 
 
+# The MoE FFN's block name: it never runs tensor-parallel (its experts
+# replicate over tp and shard over ep only), so `par.tp_axis(MOE_BLOCK)` is
+# None in every scope.
+MOE_BLOCK = "llm.moe"
+
+
 def _enter(x: torch.Tensor, block: str) -> torch.Tensor:
-    """A block's input: under tensor parallelism (and not sequence
-    parallelism, whose all-gather over T is the entry) its gradient is
-    summed over tp, each rank's being the part its columns give."""
-    if par.sp_axis() is not None:
-        return x
-    return par.copy_to(x, par.tp_axis(block))
+    """A block's input. Under sequence parallelism, x over the whole of T
+    from this rank's slice: a tensor-parallel block's rank computes its own
+    part of the objective, so the gradient is reduce-scattered ("sum"); a
+    replicated block runs the whole of T on every tp rank, each of which
+    then holds the whole output gradient and keeps its own slice ("slice").
+    Else, under tensor parallelism, x with its gradient summed over tp, each
+    rank's being the part its columns give. `_leave` is the matching exit."""
+    tp, sp = par.tp_axis(block), par.sp_axis()
+    if sp is not None:
+        return par.gather(x, sp, 1, grad="sum" if tp is not None else "slice")
+    return par.copy_to(x, tp)
 
 
 def _leave(y: torch.Tensor, block: str) -> torch.Tensor:
-    """A row-split linear's partial sums -> the block's output: an
-    all-reduce over tp, or a reduce-scatter over T under sequence
-    parallelism."""
-    tp = par.tp_axis(block)
-    if tp is None:
-        return y
-    sp = par.sp_axis()
-    return par.reduce_scatter(y, sp, 1) if sp is not None else par.reduce_from(y, tp)
+    """A block's output -> the residual stream. Tensor-parallel (a row-split
+    linear's partial sums): an all-reduce over tp, or a reduce-scatter over
+    T under sequence parallelism. Replicated: as it is, or this rank's slice
+    of T under sequence parallelism (the backward all-gathers the slices,
+    so every tp rank computes the same whole weight grads)."""
+    tp, sp = par.tp_axis(block), par.sp_axis()
+    if sp is not None:
+        return par.reduce_scatter(y, sp, 1) if tp is not None else par.scatter(y, sp, 1)
+    return par.reduce_from(y, tp) if tp is not None else y
 
 
 # The modality of the fused three-task training forward: the rows of x are
@@ -145,15 +157,22 @@ def _qkv_with_lora(layer: Params, cfg: LLMConfig, x: torch.Tensor,
     return q, k, v
 
 
-def _mlp_block(layer: Params, x: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
+def _mlp_block(layer: Params, x: torch.Tensor, cfg: LLMConfig,
+               n_real: Optional[int] = None) -> torch.Tensor:
     """The layer's SwiGLU MLP (fused gate|up in decode trees), or its MoE FFN
     when the layer has one (`cfg.moe_experts > 0`, `models/moe.py`; the
     aux loss is dropped, as the JAX decoder drops it,
     `omni_avsr_tpu/models/llm.py:244-252`). The MoE routes every row of
-    `x` together, in `x.reshape(-1, H)` order, as the JAX decoder does."""
+    `x` together, in `x.reshape(-1, H)` order, as the JAX decoder does;
+    under sequence parallelism x holds T padded past the `n_real` real
+    positions, and only the real ones are routed (padding rows would take
+    capacity and expert slots), the output padded back with zeros."""
     if "moe" in layer:
-        y, _ = moe_ffn(layer["moe"], x, cfg.moe_capacity_factor, cfg.moe_routing)
-        return y
+        x = _enter(x, MOE_BLOCK)
+        T = x.shape[1]
+        n = T if n_real is None else n_real
+        y, _ = moe_ffn(layer["moe"], x[:, :n], cfg.moe_capacity_factor, cfg.moe_routing)
+        return _leave(F.pad(y, (0, 0, 0, T - n)), MOE_BLOCK)
     mlp = layer["mlp"]
     x = _enter(x, "llm.mlp")
     if "gateup" in mlp:
@@ -200,22 +219,20 @@ def gather_vocab(logits: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
 
 def _decoder_layer(layer: Params, cfg: LLMConfig, x: torch.Tensor, cos: torch.Tensor,
                    sin: torch.Tensor, mask: Optional[torch.Tensor], modality: Optional[str],
-                   flash_causal: bool) -> torch.Tensor:
-    """One pre-norm layer over the whole (B, T, H) sequence (training).
-    Under sequence parallelism x is this rank's slice of T: the norms run
-    on it, and an all-gather over T feeds q|k|v and gate|up."""
+                   flash_causal: bool, n_real: int) -> torch.Tensor:
+    """One pre-norm layer over the whole (B, T, H) sequence (training), of
+    which the first `n_real` positions are real. Under sequence parallelism
+    x is this rank's slice of T: the norms run on it, and each block
+    gathers its input over T (`_enter`) and leaves through `_leave`."""
     layer = par.fsdp_layer(layer)
     sp = par.sp_axis()
 
     def norm(x, p):  # under SP a norm's scale sees this rank's rows only
         return rms_norm(x, par.copy_to(p["scale"], sp), cfg.rms_norm_eps)
 
-    h = norm(x, layer["input_norm"])
-    if sp is not None:
-        h = par.gather(h, sp, 1, grad="sum")
-    B, T, _ = h.shape
+    q, k, v = _qkv_with_lora(layer, cfg, norm(x, layer["input_norm"]), modality)
+    B, T = q.shape[:2]
     hq, hkv = local_heads(cfg)
-    q, k, v = _qkv_with_lora(layer, cfg, h, modality)
     q = q.reshape(B, T, hq, cfg.head_dim)
     k = k.reshape(B, T, hkv, cfg.head_dim)
     v = v.reshape(B, T, hkv, cfg.head_dim)
@@ -225,10 +242,7 @@ def _decoder_layer(layer: Params, cfg: LLMConfig, x: torch.Tensor, cos: torch.Te
     else:
         out = dot_product_attention(q, k, v, mask=mask)
     x = x + _leave(linear(out.reshape(B, T, -1), layer["attn"]["o"]), "llm.attn")
-    h = norm(x, layer["post_attn_norm"])
-    if sp is not None:
-        h = par.gather(h, sp, 1, grad="sum")
-    return x + _mlp_block(layer, h, cfg)
+    return x + _mlp_block(layer, norm(x, layer["post_attn_norm"]), cfg, n_real)
 
 
 REMAT_POLICIES = ("dots", "off", "full")
@@ -258,15 +272,47 @@ def maybe_remat(fn, remat: str, *args):
       "off"  checkpoints nothing;
       "full" recomputes the whole of `fn` in the backward.
     Under "dots" and "full" a kernel inside `fn` (the flash forward B3)
-    runs again in the backward. Nothing is checkpointed without grad."""
+    runs again in the backward. Nothing is checkpointed without grad. The
+    recompute runs inside the backward, which on the card runs on the
+    autograd engine's device thread, outside the caller's parallel scope
+    (`parallel/collectives.py::scope`): `fn` takes that scope with it."""
     check_remat(remat)
     if remat == "off" or not torch.is_grad_enabled():
         return fn(*args)
+    scope = par.current()
+    if scope is not None:
+        fn = functools.partial(_in_scope, scope, fn)
     if remat == "full":
         return checkpoint(fn, *args, use_reentrant=False)
     return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                    _dots_policy))
+
+
+def flash_causal_gate(T: int, head_dim: int, on_card: bool) -> bool:
+    """Whether a causal stack over T real positions runs the flash kernels
+    (B3 forward, B4 backward): on the card, at head dim 64 or 128, from
+    FLASH_MIN_T_TRAIN positions. Under sequence parallelism T is the
+    unpadded length, as the JAX gate sees the global T
+    (`omni_avsr_tpu/models/llm.py:345-351`)."""
+    return on_card and head_dim in (64, 128) and T >= FLASH_MIN_T_TRAIN
+
+
+def pad_mask(mask: torch.Tensor, Tp: int) -> torch.Tensor:
+    """A bool (..., T, T) attention mask at Tp >= T positions: the padding
+    keys masked for every row, and each padding query attending to itself
+    (no row is all -inf, so no NaN reaches a gradient)."""
+    T = mask.shape[-1]
+    out = mask.new_zeros((*mask.shape[:-2], Tp, Tp))
+    out[..., :T, :T] = mask
+    pad = torch.arange(T, Tp, device=mask.device)
+    out[..., pad, pad] = True
+    return out
+
+
+def _in_scope(scope: par.Parallel, fn, *args):
+    with par.scope(scope):
+        return fn(*args)
 
 
 def run_layers(layers: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
@@ -276,35 +322,33 @@ def run_layers(layers: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     or a pipeline stage's slice) over (B, T, H) at (B, T) rope positions,
     causal unless `mask` (bool (B, 1, T, T), True = attend) is given, which
     then takes the plain attention in every layer. Under sequence
-    parallelism (causal only) T is padded to a multiple of tp, the residual
-    stream between layers is this rank's slice of T, and the padding is
-    sliced off at the end (causal: it reaches no real row)."""
+    parallelism T is padded to a multiple of tp (an explicit mask by
+    `pad_mask`), the residual stream between layers is this rank's slice
+    of T, and the padding is sliced off at the end (it reaches no real
+    row)."""
     check_remat(remat)
     B, T, _ = inputs_embeds.shape
+    flash_causal = mask is None and flash_causal_gate(T, cfg.head_dim, inputs_embeds.is_cuda)
     sp = par.sp_axis()
-    x = inputs_embeds
-    if sp is not None and mask is not None:
-        raise ValueError("sequence parallelism runs the pure-causal stack only (mask must be "
-                         "None)")
+    x, Tp = inputs_embeds, T
     if sp is not None:
         Tp = -(-T // sp.size) * sp.size
         if Tp != T:
             x = F.pad(x, (0, 0, 0, Tp - T))
             positions = torch.cat([positions, positions[:, -1:] + torch.arange(
                 1, Tp - T + 1, device=positions.device)[None]], dim=1)
-        T = Tp
+            if mask is not None:
+                mask = pad_mask(mask, Tp)
         x = par.scatter(x, sp, 1)
     cos, sin = rope_cos_sin(cfg, positions)
-    flash_causal = (mask is None and inputs_embeds.is_cuda and cfg.head_dim in (64, 128)
-                    and T >= FLASH_MIN_T_TRAIN)
     if mask is None and not flash_causal:
-        mask = causal_mask(T, T, device=inputs_embeds.device)
+        mask = causal_mask(Tp, Tp, device=inputs_embeds.device)
     n = next(iter(_stacked_leaves(layers))).shape[0]
     for i in range(n):
         x = maybe_remat(_decoder_layer, remat, layer_slice(layers, i), cfg, x, cos, sin, mask,
-                        modality, flash_causal)
+                        modality, flash_causal, T)
     if sp is not None:
-        x = par.gather(x, sp, 1, grad="slice")[:, :inputs_embeds.shape[1]]
+        x = par.gather(x, sp, 1, grad="slice")[:, :T]
     return x
 
 

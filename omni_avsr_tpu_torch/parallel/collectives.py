@@ -19,6 +19,17 @@ where a gradient passes through it (the Megatron pairs):
   all_reduce_grad forward all-reduce, backward all-reduce (a statistic of
                 the global batch, such as BatchNorm's sums).
 
+Sequence parallelism (`Parallel.sequence_parallel`, over the tp ranks):
+the residual stream between decoder layers is each rank's slice of T
+(padded to a multiple of tp). A tensor-parallel block gathers its input
+over T (`gather`, "sum") and leaves by a reduce-scatter over T. A block
+that runs replicated (an attention whose heads do not divide by tp, an MLP
+whose leaves do not, every MoE FFN) gathers with "slice", runs the whole
+of T on every tp rank and keeps the rank's slice of its output
+(`scatter`): each tp rank then holds the whole output gradient and
+computes the same whole weight grads, so no reduction over tp is needed
+(`models/llm.py::_enter`, `_leave`).
+
 `Parallel` is the context: the mesh's axes as this rank sees them, which
 blocks run tensor-parallel, sequence parallelism, and the rows of the
 global batch this rank holds (so that every random draw is the global
@@ -196,7 +207,7 @@ class Parallel:
     mesh: object = None
     # the blocks that run tensor-parallel, of "llm.attn", "llm.mlp",
     # "llm.lm_head", "whisper.ffn" and "avhubert.ffn": the ones whose leaves
-    # all divide the tp axis (`partitioning.coherent_specs`)
+    # all divide by tp (`partitioning.coherent_specs`)
     tp_blocks: FrozenSet[str] = frozenset()
     sequence_parallel: bool = False
     # (first row, global batch) of this rank's rows while a step runs

@@ -175,9 +175,6 @@ class OmniEngine:
         mesh, llm = self.mesh, params["llm"]
         if sequence_parallel:
             assert axis(mesh, "tp").size > 1, "--sequence-parallel needs --mesh-tp > 1"
-            if self.cfg.llm.moe_experts:
-                raise ValueError("sequence parallelism with an MoE decoder is not ported "
-                                 "(ROADMAP A5)")
         specs = llm_partition_specs(llm, fsdp=fsdp, ep=axis(mesh, "ep").size > 1)
         if self.pipeline is not None:
             specs["layers"] = pipeline_layer_specs(llm["layers"])
@@ -185,9 +182,6 @@ class OmniEngine:
         heads_divide = self.cfg.llm.num_heads % tp == 0 and self.cfg.llm.num_kv_heads % tp == 0
         specs, blocks = coherent_specs(clamp_specs_to_shapes(mesh, llm, specs), "llm",
                                        replicate=() if heads_divide else ("llm.attn",))
-        if sequence_parallel and not {"llm.attn", "llm.mlp"} <= blocks:
-            raise ValueError("sequence parallelism needs the attention and MLP blocks to "
-                             "divide the tp axis")
         tree_specs = {k: (specs if k == "llm" else tree_map(lambda x: (), v)
                           if isinstance(v, dict) else ()) for k, v in params.items()}
         self.specs, self.frozen_specs = split_params(tree_specs, pred)

@@ -175,7 +175,7 @@ def test_indivisible_heads_take_the_reorder_route(pool):
     from omni_avsr_tpu_torch.bridge import init_params
     from omni_avsr_tpu_torch.serve import Transcriber
 
-    pm = R.kv_twin(1)
+    pm = R.tiny_model(kv_heads=1)
     params = init_params(pm.cfg, torch.Generator().manual_seed(0), "cpu")
     tree = _unflat(R.flat(params))
     items = clips((40,), seed=1)

@@ -26,15 +26,34 @@ def flat(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def tiny_model(moe_experts: int = 0, routing: str = "balanced"):
+def numpy_tree(tree):
+    """A tree of tensors as the nested numpy f32 tree the rank functions take."""
+    return {k: numpy_tree(v) if isinstance(v, dict) else v.detach().float().numpy()
+            for k, v in tree.items()}
+
+
+def tiny_model(moe_experts: int = 0, routing: str = "balanced", kv_heads: Optional[int] = None,
+               ffn: Optional[int] = None):
+    """The tiny flagship in f32; with `moe_experts` an MoE decoder routed by
+    `routing`, with `kv_heads` kv heads, with an FFN width `ffn` (a tree of
+    a twin's shapes comes from `bridge.init_params`)."""
     import dataclasses
 
     from omni_avsr_tpu_torch.models.omni import OmniAVSR, flagship
 
     pm = flagship(tiny=True, dtype=torch.float32, whisper_input_mode="bucket")
+    llm = pm.cfg.llm
+    kw: Dict[str, Any] = {}
     if moe_experts:
-        cfg = dataclasses.replace(pm.cfg, llm=dataclasses.replace(
-            pm.cfg.llm, moe_experts=moe_experts, moe_routing=routing))
+        kw.update(moe_experts=moe_experts, moe_routing=routing)
+    if kv_heads is not None:
+        # the LoRA v up-projection's width is the kv width: hidden / v_out_divisor
+        kw.update(num_kv_heads=kv_heads, lora=dataclasses.replace(
+            llm.lora, v_out_divisor=llm.hidden_size // (kv_heads * llm.head_dim)))
+    if ffn is not None:
+        kw.update(intermediate_size=ffn)
+    if kw:
+        cfg = dataclasses.replace(pm.cfg, llm=dataclasses.replace(llm, **kw))
         pm = OmniAVSR(cfg, pm.tok, dtype=torch.float32)
     return pm
 
@@ -63,9 +82,11 @@ def rank_rows(mesh, batch: Dict[str, Any]) -> Dict[str, Any]:
 
 def train_steps(params_np, batch, mesh_sizes: Dict[str, int], steps: int = 1,
                 moe_experts: int = 0, pp_microbatches: Optional[int] = None,
-                single: Optional[str] = None, **engine_kw):
-    """`steps` optimizer steps of the tiny flagship on `mesh_sizes`; returns
-    (losses, the whole trainable tree after the steps) on rank 0."""
+                single: Optional[str] = None, model: Optional[Dict[str, Any]] = None,
+                **engine_kw):
+    """`steps` optimizer steps of the tiny flagship (`tiny_model(moe_experts,
+    **model)`) on `mesh_sizes`; returns (losses, the whole trainable tree
+    after the steps) on rank 0."""
     import torch.distributed as dist
 
     from omni_avsr_tpu_torch.bridge import params_from_numpy
@@ -78,7 +99,7 @@ def train_steps(params_np, batch, mesh_sizes: Dict[str, int], steps: int = 1,
         from omni_avsr_tpu_torch.parallel.pipeline import PipelinePlan
 
         plan = PipelinePlan(mesh, num_microbatches=pp_microbatches, dp_axis="dp")
-    pm = tiny_model(moe_experts)
+    pm = tiny_model(moe_experts, **(model or {}))
     engine = OmniEngine(pm, params_from_numpy(params_np, "cpu"), TrainConfig(lr=1e-3),
                         device="cpu", seed=3, mesh=mesh, pipeline=plan, **engine_kw)
     mine = rank_rows(mesh, batch)
@@ -95,13 +116,14 @@ def train_steps(params_np, batch, mesh_sizes: Dict[str, int], steps: int = 1,
 
 
 def one_process_steps(params_np, batch, steps: int = 1, moe_experts: int = 0,
-                      single: Optional[str] = None, **engine_kw):
+                      single: Optional[str] = None, model: Optional[Dict[str, Any]] = None,
+                      **engine_kw):
     """The same steps in one process on the global batch (no mesh)."""
     from omni_avsr_tpu_torch.bridge import params_from_numpy
     from omni_avsr_tpu_torch.config import TrainConfig
     from omni_avsr_tpu_torch.train.engine import OmniEngine
 
-    pm = tiny_model(moe_experts)
+    pm = tiny_model(moe_experts, **(model or {}))
     engine = OmniEngine(pm, params_from_numpy(params_np, "cpu"), TrainConfig(lr=1e-3),
                         device="cpu", seed=3, **engine_kw)
     losses = []
@@ -122,27 +144,41 @@ def serve_case(params_np, items, tp: int, quantize=None, num_beams: int = 2,
     from omni_avsr_tpu_torch.serve import Transcriber
 
     mesh = make_mesh(dp=1, tp=tp)
-    pm = tiny_model() if kv_heads is None else kv_twin(kv_heads)
+    pm = tiny_model(kv_heads=kv_heads)
     t = Transcriber(pm, params_from_numpy(params_np, "cpu"), num_beams=num_beams,
                     quantize=quantize, device="cpu", attn_route=attn_route, mesh=mesh)
     texts = t.transcribe_many(items, modality=modality)
     return texts, t.attn_route, sorted(t.par.tp_blocks)
 
 
-def kv_twin(kv_heads: int):
-    """The tiny flagship with `kv_heads` kv heads (a tree of its shapes comes
-    from `bridge.init_params`)."""
-    import dataclasses
+def llm_case(cfg, llm_np, embeds_np, mask_np, tp: int, sequence_parallel: bool,
+             modality: str, cot_np, remat: str = "off"):
+    """`models/llm.py::llm_logits` of an LLM tree on a (1, tp) mesh, each
+    block tensor-parallel where its leaves and heads divide by tp (as the
+    engine shards it), with or without sequence parallelism, under the
+    remat policy `remat`; returns the logits and the gradient of
+    sum(logits * cot) by the embeddings. The backward runs outside the
+    parallel scope, as the autograd engine runs a card's backward on its
+    own thread."""
+    from omni_avsr_tpu_torch.bridge import params_from_numpy
+    from omni_avsr_tpu_torch.models.llm import llm_logits
+    from omni_avsr_tpu_torch.parallel import collectives as par
+    from omni_avsr_tpu_torch.parallel.partitioning import (clamp_specs_to_shapes,
+                                                           coherent_specs, llm_partition_specs,
+                                                           shard_params)
 
-    from omni_avsr_tpu_torch.models.omni import OmniAVSR
-
-    pm = tiny_model()
-    llm = pm.cfg.llm
-    # the LoRA v up-projection's width is the kv width: hidden / v_out_divisor
-    lora = dataclasses.replace(llm.lora, v_out_divisor=llm.hidden_size // (kv_heads * llm.head_dim))
-    cfg = dataclasses.replace(pm.cfg, llm=dataclasses.replace(llm, num_kv_heads=kv_heads,
-                                                              lora=lora))
-    return OmniAVSR(cfg, pm.tok, dtype=torch.float32)
+    mesh = make_mesh(dp=1, tp=tp)
+    llm = params_from_numpy(llm_np, "cpu")
+    heads_divide = cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0
+    specs, blocks = coherent_specs(clamp_specs_to_shapes(mesh, llm, llm_partition_specs(llm)),
+                                   "llm", replicate=() if heads_divide else ("llm.attn",))
+    mine = shard_params(mesh, llm, specs)
+    x = torch.from_numpy(embeds_np).requires_grad_(True)
+    mask = None if mask_np is None else torch.from_numpy(mask_np)
+    with par.scope(par.Parallel.of(mesh, blocks, sequence_parallel)):
+        logits = llm_logits(mine, cfg, x, mask=mask, modality=modality, remat=remat)
+    (grad,) = torch.autograd.grad((logits * torch.from_numpy(cot_np)).sum(), x)
+    return logits.detach().numpy(), grad.numpy(), sorted(blocks)
 
 
 def select_case(x_np, k2: int, use_kernel: bool = False):
