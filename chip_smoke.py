@@ -77,7 +77,8 @@ Phases, each printing lines with the elapsed seconds:
      plain version, the ResNet of (d)'s batch (480 frames) through B7 and
      through its plain version, and B5 on the logits of (d)'s first decode
      step against its plain version;
-  6. where the device time goes, one profiled batch per configuration;
+  6. where the device time goes, one profiled batch per configuration
+     (the device's records only, summed from the profiler's raw records);
   7. training: `OmniEngine.train_step` on the full-width flagship (30 s
      Whisper window, random weights from a seed, augmentation with a
      babble bank made with numpy from a seed), 4 clips of 320 frames
@@ -175,7 +176,8 @@ Phases, each printing lines with the elapsed seconds:
      around (t)'s first train step (the unwrapped step's loss bit for bit,
      the same launches, `count_nonfinite` of the trainables 0), a step fed
      a NaN and a backward dividing by zero on the card, both raising;
-  4c. after (q): (r) sequence parallelism on gloo ranks that share the
+  4c. after (q): (r), (u), (v) on gloo ranks that share the card; (r)
+     sequence parallelism on gloo ranks that share the
      card (`parallel/launch.py::RankPool`, one process a rank, each with
      its engine on the card; NCCL takes one rank a device): a probe of
      gloo's and the port's collectives on card tensors, then one train step
@@ -188,7 +190,19 @@ Phases, each printing lines with the elapsed seconds:
      the meshless step in this process (loss 1e-3 relative, grads 2e-2
      relative L2), each rank's B3, B4 and routing launches equal to the
      meshless step's, each rank's peak GiB and s/step (the ranks share the
-     SMs and stage collectives through host memory);
+     SMs and stage collectives through host memory), each run's state after
+     the step (masters and AdamW moments, 2e-2 relative L2); in the same
+     pools (u) `Transcriber(mesh=...)` through `transcribe_many` at tp 2
+     and tp 4 on the flagship with (d)'s 128256-token vocabulary and
+     `select_kernel` (B5 per vocabulary shard where the kernel takes it)
+     and Qwen2.5-7B at tp 2 (the ranks building in turns), each rank's
+     B1 / B2 / B5 launches held to its shard's path, the logits of a
+     prefill and two decode steps on the meshless run's prefix and tokens
+     within 2e-2 relative L2 of the meshless Transcriber's; and (v) the
+     flagship's train step at dp 2 with and without FSDP and the MoE
+     flagship's at ep 2, as (r) holds its cases; gloo's isend / recv of a
+     card tensor probed in a pool of its own, and pp 2 run only if it
+     passes;
   9. the CLIs as a user runs them, as subprocesses on the card, three at a
      time after the first:
      `serve_http --synthetic` (/healthz, one audio request, then stopped),
@@ -561,7 +575,9 @@ def check_b4(flush):
     """B4 against its plain version at the training phase's shapes (the
     fused three-task step's (3B, T) backbone among them), each timed
     against the backward of scaled_dot_product_attention (a yardstick; the
-    port never calls it) and the bound. Returns the rows."""
+    port never calls it) and the bound; at AV-HuBERT's dropout shape, rows
+    2-3 run as a dp rank's (`dropout_row0=2`) through B3 and B4, bit-equal
+    to the whole batch's rows. Returns the rows."""
     import torch
     import torch.nn.functional as F
 
@@ -599,6 +615,14 @@ def check_b4(flush):
                 raise RuntimeError(f"B4 {name}: non-finite {label}")
             torch.testing.assert_close(x.float(), y.float(), **BF16_TOL)
             errs[label] = (x.float() - y.float()).abs().max().item()
+        if rate:  # a dp rank's rows 2-3: B3 and B4 hash each row's mask by its global index
+            mine = dict(kw, kv_lengths=kv[2:].clone(), dropout_row0=2)  # 16-byte aligned
+            po, plse = flash_attention(q[2:], k[2:], v[2:], return_lse=True, **mine)
+            pg = flash_attention_bwd(q[2:], k[2:], v[2:], po, do[2:], plse, **mine)
+            if not (torch.equal(po, o[2:]) and torch.equal(plse, lse[2 * Hq:])
+                    and all(torch.equal(a, b[2:]) for a, b in zip(pg, got))):
+                raise RuntimeError(f"B4 {name}: rows 2-3 with dropout_row0=2 differ from the "
+                                   f"whole batch's")
         # the library yardstick: SDPA's backward at the same shape and masks
         qh, kh, vh = (t.transpose(1, 2).detach().clone().requires_grad_(True) for t in (q, k, v))
         mask = None
@@ -613,6 +637,7 @@ def check_b4(flush):
         row = dict(case=name, B=B, T=T, S=T, Hq=Hq, Hkv=Hkv, D=D, causal=causal,
                    kv_lengths=list(lens) if lens else None, dropout=rate,
                    max_abs_err=max(errs.values()), max_abs_err_each=errs,
+                   dp_rows_bit_equal=True if rate else None,
                    ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw), flush),
                    plain_ms=time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do, lse, **kw),
                                     flush, iters=10),
@@ -1170,66 +1195,95 @@ def plain_route():
             setattr(mod, name, fn)
 
 
+def served_prefix(t, item):
+    """One request's prefix through t's towers and projectors, and its valid
+    slots, padded as its served batch pads them (to a multiple of 16 slots),
+    under t's parallel scope."""
+    import torch
+
+    from omni_avsr_tpu_torch.ops.augment import audio_pipeline, video_pipeline
+    from omni_avsr_tpu_torch.parallel.collectives import scope
+    from omni_avsr_tpu_torch.serve import pad_batch
+
+    batch, trim = pad_batch([item], "audiovisual")
+    arrays = {k: torch.as_tensor(v).to(t.device) for k, v in batch.items()}
+    with torch.inference_mode(), scope(t.par):
+        arrays["video"] = video_pipeline(arrays["video"], arrays["video_len"])
+        arrays["audio"] = audio_pipeline(arrays["audio"], arrays["audio_len"])
+        prefix, valid = t.model.infer_prefix_masked(t.params, arrays, "audiovisual", 4, 2, trim)
+    pad = -(-prefix.shape[1] // 16) * 16 - prefix.shape[1]
+    return (torch.nn.functional.pad(prefix, (0, 0, 0, pad)),
+            torch.nn.functional.pad(valid, (0, pad)))
+
+
+def llm_steps(t, prefix, valid, tokens=None, steps: int = 2):
+    """The prefill and `steps` decode steps at K beams of t's LLM (B2 or B6,
+    and B1) over one request's prefix, under t's parallel scope: each
+    step's logits over the whole vocabulary (a tensor-parallel head's
+    slices gathered), and the tokens fed. The steps feed `tokens` (the
+    prefill's K, then each step's K), or with None their own: the
+    prefill's top K, then each beam's argmax."""
+    import torch
+
+    import omni_avsr_tpu_torch.models.llm as llm_mod
+    from omni_avsr_tpu_torch.decode.decoding import full_logits
+    from omni_avsr_tpu_torch.parallel.collectives import scope
+
+    model, cfg, llm = t.model, t.model.cfg.llm, t.params["llm"]
+    dev, Pp = prefix.device, prefix.shape[1]
+    own = tokens is None
+    tokens = [] if own else list(tokens)
+    with torch.inference_mode(), scope(t.par):
+        layers = llm_mod.unstack_layers(llm, cfg)
+        positions = torch.cumsum(valid.long(), dim=1) - 1
+        last = Pp - 1 - torch.argmax(valid.flip(1).int(), dim=1)
+        n_valid = valid.sum(dim=1).repeat_interleave(K)
+        cache0 = llm_mod.KVCache.create(cfg, 1, Pp, dtype=model.dtype, device=dev)
+        lg, cache0 = llm_mod.llm_prefill_masked(llm, cfg, prefix, valid, positions, last, cache0,
+                                                "audiovisual", layers=layers)
+        out = [full_logits(lg, cfg.vocab_size)]
+        cache = llm_mod.AncSplitCache.from_prefill(cache0, Pp, K, N)
+        anc = torch.arange(K, dtype=torch.int32, device=dev)[None, :, None].expand(
+            1, K, N).contiguous()
+        if own:
+            tokens.append(torch.topk(out[0][0], K).indices)
+        for step in range(steps):
+            flat_idx = torch.roll(torch.arange(K, device=dev), step)  # exercise ancestry
+            anc = llm_mod.update_ancestors(anc, flat_idx, step, K)
+            emb = llm_mod.embed_tokens(llm, tokens[step][:, None], model.dtype)
+            lg, cache = llm_mod.llm_decode_step_beam_anc(
+                llm, cfg, emb, step, n_valid, valid, cache, anc, K, "audiovisual",
+                layers=layers)
+            out.append(full_logits(lg, cfg.vocab_size))
+            if own:
+                tokens.append(out[-1].argmax(dim=-1))
+    return out, tokens
+
+
+def worst_rel_l2(got, want) -> float:
+    """The largest relative L2 difference of `got`'s tensors from `want`'s,
+    pair by pair; raises on a non-finite value in `got`."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if not bool(a.isfinite().all()):
+            raise RuntimeError("non-finite logits")
+        worst = max(worst, ((a.float() - b.float()).norm() / b.float().norm()).item())
+    return worst
+
+
 def decode_agreement(t, item, steps: int = 2) -> float:
     """Reference check on served inputs: the prefill and the first decode
     steps of the full-width LLM through the kernels (B1 and B2 or B6) and
     through their plain versions, on the same prefix, with the kernel
     route's tokens (and an MoE decoder's routing, `moe_routes`) fed to
     both. Returns the largest relative L2 logit difference."""
-    import torch
-
-    import omni_avsr_tpu_torch.models.llm as llm_mod
-    from omni_avsr_tpu_torch.ops.augment import audio_pipeline, video_pipeline
-    from omni_avsr_tpu_torch.serve import pad_batch
-
-    model, cfg = t.model, t.model.cfg.llm
-    batch, trim = pad_batch([item], "audiovisual")
-    arrays = {k: torch.as_tensor(v).to(DEV) for k, v in batch.items()}
-    logits = {}
-    with torch.inference_mode():
-        arrays["video"] = video_pipeline(arrays["video"], arrays["video_len"])
-        arrays["audio"] = audio_pipeline(arrays["audio"], arrays["audio_len"])
-        prefix, valid = model.infer_prefix_masked(t.params, arrays, "audiovisual", 4, 2, trim)
-        P0 = prefix.shape[1]
-        Pp = -(-P0 // 16) * 16
-        prefix = torch.nn.functional.pad(prefix, (0, 0, 0, Pp - P0))
-        valid = torch.nn.functional.pad(valid, (0, Pp - P0))
-        llm = t.params["llm"]
-        layers = llm_mod.unstack_layers(llm, cfg)
-        positions = torch.cumsum(valid.long(), dim=1) - 1
-        last = Pp - 1 - torch.argmax(valid.flip(1).int(), dim=1)
-        n_valid = valid.sum(dim=1).repeat_interleave(K)
-        tokens = []
-        routes = []
-        for route in ("kernel", "plain"):
-            with plain_route() if route == "plain" else contextlib.nullcontext(), \
-                    moe_routes(routes, route):
-                cache0 = llm_mod.KVCache.create(cfg, 1, Pp, dtype=model.dtype, device=DEV)
-                lg, cache0 = llm_mod.llm_prefill_masked(llm, cfg, prefix, valid, positions, last,
-                                                        cache0, "audiovisual", layers=layers)
-                out = [lg]
-                cache = llm_mod.AncSplitCache.from_prefill(cache0, Pp, K, N)
-                anc = torch.arange(K, dtype=torch.int32, device=DEV)[None, :, None].expand(
-                    1, K, N).contiguous()
-                if route == "kernel":
-                    tokens.append(torch.topk(lg[0], K).indices)
-                for step in range(steps):
-                    flat_idx = torch.roll(torch.arange(K, device=DEV), step)  # exercise ancestry
-                    anc = llm_mod.update_ancestors(anc, flat_idx, step, K)
-                    emb = llm_mod.embed_tokens(llm, tokens[step][:, None], model.dtype)
-                    lg, cache = llm_mod.llm_decode_step_beam_anc(
-                        llm, cfg, emb, step, n_valid, valid, cache, anc, K, "audiovisual",
-                        layers=layers)
-                    out.append(lg)
-                    if route == "kernel":
-                        tokens.append(lg.argmax(dim=-1))
-                logits[route] = out
-    worst = 0.0
-    for a, b in zip(logits["kernel"], logits["plain"]):
-        if not bool(torch.isfinite(a).all()):
-            raise RuntimeError("non-finite logits on the kernel route")
-        worst = max(worst, ((a - b).norm() / b.norm()).item())
-    return worst
+    prefix, valid = served_prefix(t, item)
+    routes = []
+    with moe_routes(routes, "kernel"):
+        kernel, tokens = llm_steps(t, prefix, valid, steps=steps)
+    with plain_route(), moe_routes(routes, "plain"):
+        plain, _ = llm_steps(t, prefix, valid, tokens, steps)
+    return worst_rel_l2(kernel, plain)
 
 
 def whisper_layer_agreement(t) -> float:
@@ -1518,7 +1572,8 @@ def plain_train_route():
             setattr(mod, name, fn)
 
 
-def train_launches(model, flash_tasks: int, video_layers: int, remat: str = "dots"):
+def train_launches(model, flash_tasks: int, video_layers: int, remat: str = "dots",
+                   llm_layers=None):
     """What one train step must launch: B3 in Whisper's layers (at T 1500,
     forward only); in every AV-HuBERT layer that runs (layerdrop) and in
     every LLM layer of a task whose sequence reaches the flash gate, B4
@@ -1526,13 +1581,15 @@ def train_launches(model, flash_tasks: int, video_layers: int, remat: str = "dot
     (the engine's default) and "full", once more where the backward
     recomputes the layer; in an MoE decoder with balanced routing, the
     routing kernel in every layer of the three tasks' forwards and
-    recomputes; nothing else."""
+    recomputes; nothing else. `llm_layers`: the LLM layers this rank runs
+    (a pipeline stage's), else all."""
     llm = model.cfg.llm
-    n = flash_tasks * llm.num_layers
+    layers = llm.num_layers if llm_layers is None else llm_layers
+    n = flash_tasks * layers
     again = 1 if remat == "off" else 2
     moe = llm.moe_experts and llm.moe_routing == "balanced"
     return counts(B3=model.cfg.whisper.num_layers + again * (video_layers + n),
-                  B4=video_layers + n, MOE=again * 3 * llm.num_layers if moe else 0)
+                  B4=video_layers + n, MOE=again * 3 * layers if moe else 0)
 
 
 def check_route_launches(route: str, used) -> None:
@@ -1802,19 +1859,17 @@ def shard_b1(flush, tp: int, Hq: int, Hkv: int, D: int, layers: int) -> dict:
 
 def shard_b5(flush, tp: int, V: int) -> dict:
     """One tp rank's B5 launch and chunked top-2K on V/tp of 45 rows of
-    logits (`decode/decoding.py::select_shard`), every rank's merged by
+    logits (`decode/decoding.py::select_shard`, a shard that is no multiple
+    of 128 padded with -inf columns), every rank's merged by
     `merge_select_shards`, the merge `_fused_select_sharded` runs after its
     all-gathers: the maxima and the candidates bit-equal to the unsharded
-    selection's, the normaliser within rtol 1e-5. None where V/tp is not a
-    multiple of 128 (the JAX gate's refusal)."""
+    selection's, the normaliser within rtol 1e-5."""
     import torch
 
     from omni_avsr_tpu_torch.decode.decoding import merge_select_shards, select_shard
-    from omni_avsr_tpu_torch.ops.select_topk import row_stats_chunkmax, select_stats_supported
+    from omni_avsr_tpu_torch.ops.select_topk import CHUNK, row_stats_chunkmax
 
     Vs = V // tp
-    if V % tp or not select_stats_supported(Vs):
-        return None
     R, k2 = B_SERVE * K, 2 * K
     g = torch.Generator(device=DEV).manual_seed(V + tp)
     x = (torch.randn(B_SERVE, K, V, generator=g, device=DEV) * 4)
@@ -1828,10 +1883,11 @@ def shard_b5(flush, tp: int, V: int) -> dict:
             and torch.equal(m_idx, idx)):
         raise RuntimeError(f"B5 tp {tp} at V {V}: the merged maxima or candidates differ")
     torch.testing.assert_close(m_lse[..., 0], torch.log(se), rtol=1e-5, atol=0)
-    xs = x[..., :Vs].reshape(R, Vs).contiguous()
+    Vp = -(-Vs // CHUNK) * CHUNK  # the padded shard B5 reads
+    xs = torch.nn.functional.pad(x[..., :Vs].reshape(R, Vs), (0, Vp - Vs), value=float("-inf"))
     ms = time_ms(lambda: row_stats_chunkmax(xs), flush, iters=20)
-    nbytes = 4 * (R * Vs + R * (Vs // 128) + 2 * R)
-    return dict(V=V, Vs=Vs, ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+    nbytes = 4 * (R * Vp + R * (Vp // 128) + 2 * R)
+    return dict(V=V, Vs=Vs, padded_Vs=Vp, ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 lse_max_abs_err=(m_lse[..., 0] - torch.log(se)).abs().max().item())
 
 
@@ -1868,13 +1924,15 @@ def one_rank_world(work: Path):
 
 def nccl_kernels(run) -> list:
     """The NCCL kernels the profiler sees in `run` (empty when it records no
-    device activity)."""
+    device activity), from its raw device records (`profile_batch`)."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
-    return sorted({e.key for e in prof.key_averages() if "nccl" in e.key.lower()
-                   and getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) > 0})
+    return sorted({e.name() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and "nccl" in e.name().lower() and e.duration_ns() > 0})
 
 
 def parallel_phase(flush, items_b) -> dict:
@@ -1987,8 +2045,7 @@ def parallel_phase(flush, items_b) -> dict:
             shards[key] = dict(
                 B1=shard_b1(flush, tp, Hq, Hkv, D, layers),
                 B2=shard_b2(flush, tp, H, F, Hq, Hkv, D, vocab, layers, B_SERVE * K),
-                B5=shard_b5(flush, tp, vocab) or f"not run: V/tp = {vocab / tp:g} is not a "
-                                                  f"multiple of 128 (the JAX gate refuses it)")
+                B5=shard_b5(flush, tp, vocab))
             log("parallel", f"per-rank kernels, {key} (one rank's decode step): "
                 f"{json.dumps(shards[key])}")
     rows["p shards"] = dict(config="(p) per-rank shard kernels, checks and timing",
@@ -2327,11 +2384,13 @@ def routes_differing(a: list, b: list) -> tuple:
 def r_grads(engine, batch, trim: int):
     """One train step's loss and trainable grads before the optimizer, as
     `OmniEngine._update` reduces them (under the engine's mesh gathered
-    from every rank's slices, on every rank), draws from R_GRAD_SEED."""
+    from every rank's slices, on every rank; a pipeline's messages
+    drained), draws from R_GRAD_SEED."""
     import torch
 
     from omni_avsr_tpu_torch.parallel import collectives as par
     from omni_avsr_tpu_torch.parallel.partitioning import gather_params
+    from omni_avsr_tpu_torch.parallel.pipeline import anchors, drain
     from omni_avsr_tpu_torch.train.engine import _unflatten
     from omni_avsr_tpu_torch.train.state import tree_leaves
 
@@ -2341,9 +2400,11 @@ def r_grads(engine, batch, trim: int):
     engine.generator.manual_seed(R_GRAD_SEED)
     with par.scope(engine.par):
         total, _ = engine._loss(arrays, 4, 2, trim_len, is_train=True)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        extra = anchors() if engine.pipeline is not None else []  # the forward's receives
+        grads = torch.autograd.grad(total, leaves + extra, allow_unused=True)[:len(leaves)]
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         if engine.par is not None:
+            drain()
             grads = par.reduce_grads(grads, list(tree_leaves(engine.specs)), engine.par)
             grads = list(tree_leaves(gather_params(
                 engine.mesh, _unflatten(engine.state.trainable, grads), engine.specs)))
@@ -2365,10 +2426,24 @@ def r_step(engine, batch, trim: int, fns) -> dict:
     loss = float(engine.train_step({**batch, "audio_trim_len": trim}))  # a host sync
     dt = time.perf_counter() - t
     if not np.isfinite(loss):
-        raise RuntimeError(f"(r) train step: loss {loss}")
+        raise RuntimeError(f"train step: loss {loss}")
     return dict(step_loss=loss, s_per_step=dt, launches={k: fn.launches for k, fn in fns.items()},
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 avhubert_layers_run=engine.model.last_video_layers)
+
+
+def state_vectors(state) -> dict:
+    """A train state's f32 masters and AdamW moments, each leaf list
+    flattened into one host vector."""
+    import torch
+
+    from omni_avsr_tpu_torch.train.state import tree_leaves
+
+    def flat(leaves):
+        return torch.cat([x.detach().float().reshape(-1) for x in leaves]).cpu()
+
+    opt = state.opt_state
+    return dict(masters=flat(tree_leaves(state.trainable)), mu=flat(opt.mu), nu=flat(opt.nu))
 
 
 def stub_card_counters() -> None:
@@ -2378,12 +2453,26 @@ def stub_card_counters() -> None:
 
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         setattr(torch.cuda, name, lambda *a, **k: None)
-    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    for name in ("max_memory_allocated", "memory_allocated", "memory_reserved"):
+        setattr(torch.cuda, name, lambda *a, **k: 0)
+
+
+def release_card() -> None:
+    """A rank function's last act: its tensors collected and the caching
+    allocator's blocks handed back, so that the next case's ranks (other
+    processes) find the card's memory free."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def r_probe_rank(dev: str) -> dict:
-    """One gloo rank of (r)'s probe: a tensor on the card through gloo's
-    all_gather and all_reduce, and through the port's gather and
+    """One gloo rank of the multi-rank phase's probe: tensors on the card
+    through gloo's all_gather (f32 and the int64 of the sharded selection's
+    indices), all_reduce and broadcast, and through the port's gathers and
     reduce-scatter over a (1, world) mesh's tp axis (gloo's reduce-scatter
     is an all-reduce and a slice), each held to the values it must give."""
     import torch
@@ -2399,35 +2488,96 @@ def r_probe_rank(dev: str) -> dict:
     every = torch.stack([base + 100 * i for i in range(n)])
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x)
+    ids = torch.arange(3, dtype=torch.int64, device=dev) + (2**40 + 10 * r)  # past 32 bits
+    every_ids = torch.stack([ids - 10 * r + 10 * i for i in range(n)])
+    id_parts = [torch.empty_like(ids) for _ in range(n)]
+    dist.all_gather(id_parts, ids)
     total = x.clone()
     dist.all_reduce(total)
+    sent = base.clone() if r == 0 else torch.zeros_like(base)
+    dist.broadcast(sent, 0)
     tp = axis(make_mesh(MeshConfig(dp=1, tp=n)), "tp")
     gathered = par.all_gather(x[None], tp, 0)
+    gathered_ids = par.all_gather(ids[None], tp, 0)
     scattered = par._reduce_scatter(x, tp, 0)
     checks = {"all_gather": torch.equal(torch.stack(parts), every),
+              "all_gather int64": torch.equal(torch.stack(id_parts), every_ids),
               "all_reduce": torch.equal(total, every.sum(0)),
+              "broadcast": torch.equal(sent, base),
               "port gather": torch.equal(gathered, every),
+              "port gather int64": torch.equal(gathered_ids, every_ids),
               "port reduce_scatter": torch.equal(scattered, every.sum(0)[4 * r:4 * (r + 1)])}
-    devices = {str(t.device) for t in (*parts, total, gathered, scattered)}
+    out = (*parts, *id_parts, total, sent, gathered, gathered_ids, scattered)
+    devices = {str(t.device) for t in out}
     if not all(checks.values()) or devices != {str(x.device)}:
-        raise RuntimeError(f"(r) gloo probe, rank {r}: {checks}, results on {devices}")
+        raise RuntimeError(f"gloo probe, rank {r}: {checks}, results on {devices}")
     return dict(rank=r, backend=dist.get_backend(), device=str(x.device), checks=checks)
 
 
-def r_rank_run(build, build_args, batch, trim: int, bank, tp: int, runs, replay, dev: str):
-    """What each of (r)'s gloo ranks runs (a `RankPool` process a rank, every
-    rank on the one card): `build(*build_args)` with random weights from
-    seed 0, and for each (label, sequence_parallel) of `runs` an engine on
-    a (1, tp) mesh: the grads run (`r_grads`, the routing replayed from
-    `replay`, each call's own choice recorded), then the timed step
-    (`r_step`). Returns {label: row}: this rank's loss, step, launches,
-    peak and routing choices, and on rank 0 the whole grads."""
+def p2p_probe_rank(dev: str) -> dict:
+    """One of two gloo ranks of the point-to-point probe: rank 0 sends a
+    tensor on the card with `dist.isend`, rank 1 receives it into a tensor
+    on the card with `dist.recv` and compares it with what was sent (the
+    pipeline's messages, `parallel/pipeline.py::_Link`)."""
+    import torch
+    import torch.distributed as dist
+
+    want = torch.arange(4096, dtype=torch.float32, device=dev) * 3 + 7
+    if dist.get_rank() == 0:
+        dist.isend(want, 1).wait()
+        return dict(rank=0, sent=True)
+    got = torch.zeros_like(want)
+    dist.recv(got, 0)
+    return dict(rank=1, equal=bool(torch.equal(got, want)), device=str(got.device))
+
+
+def p2p_probe(work: Path) -> dict:
+    """The point-to-point probe in a short-lived pool of two ranks of its
+    own (gloo may hand a card pointer to its TCP transport and kill the
+    process, which must not take down the cases' pools). Returns what
+    happened: "passed", "wrong values", "refused" (a rank raised), "a rank
+    died" or "no answer"; it does not raise."""
+    from omni_avsr_tpu_torch.parallel.launch import RankPool
+
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        with RankPool(2, str(work), timeout_s=30) as pool:
+            ranks = pool.run(p2p_probe_rank, DEV, timeout_s=90)
+    except TimeoutError as e:
+        return dict(outcome="a rank died" if "exited" in str(e) else "no answer", detail=str(e))
+    except RuntimeError as e:
+        return dict(outcome="refused", detail=str(e)[:600])
+    return dict(outcome="passed" if ranks[1]["equal"] else "wrong values", ranks=ranks)
+
+
+def r_rank_run(build, build_args, batch, trim: int, bank, mesh_sizes, runs, replay, dev: str):
+    """What each gloo rank of (r) and (v) runs (a `RankPool` process a rank,
+    every rank on the one card), `release_card` at the end."""
+    try:
+        return _r_rank_run(build, build_args, batch, trim, bank, mesh_sizes, runs, replay, dev)
+    finally:
+        release_card()
+
+
+def _r_rank_run(build, build_args, batch, trim: int, bank, mesh_sizes, runs, replay, dev: str):
+    """`build(*build_args)` with random weights from seed 0, and for each
+    (label, options) of `runs` an engine on a mesh of `mesh_sizes`
+    (options: `OmniEngine`'s `sequence_parallel` and `fsdp`, and
+    `microbatches` for a GPipe plan over pp) on this rank's dp rows of the
+    global `batch`: the grads run (`r_grads`), then the timed step
+    (`r_step`), each with the routing replayed from `replay` (the
+    reference's grads and step routing) and its own choices recorded.
+    Returns {label: row}: this rank's loss, step, launches, peak and routing
+    choices, and on rank 0 the whole grads and the whole state after the
+    step (`OmniEngine.full_state`: masters and AdamW moments)."""
     import torch
     import torch.distributed as dist
 
     from omni_avsr_tpu_torch.bridge import init_params
     from omni_avsr_tpu_torch.config import MeshConfig, TrainConfig
-    from omni_avsr_tpu_torch.parallel.mesh import make_mesh
+    from omni_avsr_tpu_torch.parallel.distributed import host_shard_slice
+    from omni_avsr_tpu_torch.parallel.mesh import axis, make_mesh
+    from omni_avsr_tpu_torch.parallel.pipeline import PipelinePlan
     from omni_avsr_tpu_torch.train.engine import OmniEngine
 
     if dev != "cuda":
@@ -2436,160 +2586,469 @@ def r_rank_run(build, build_args, batch, trim: int, bank, tp: int, runs, replay,
     torch.backends.cudnn.allow_tf32 = False
     t = time.perf_counter()
     model = build(*build_args)
-    params = init_params(model.cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    mesh = make_mesh(MeshConfig(dp=1, tp=tp))
+    mesh = make_mesh(MeshConfig(**mesh_sizes))
+    dp = axis(mesh, "dp")
+    rows = host_shard_slice(len(batch["tokens"]), dp.rank, dp.size)
+    mine = {k: v[rows] if isinstance(v, np.ndarray) else v for k, v in batch.items()}
     fns = counters()
     out = {}
-    for label, sp in runs:
+    for label, opts in runs:
+        opts = dict(opts)
+        m = opts.pop("microbatches", None)
+        plan = PipelinePlan(mesh, num_microbatches=m, dp_axis="dp") if m else None
+        params = init_params(model.cfg, torch.Generator(device=dev).manual_seed(0), dev)
         engine = OmniEngine(model, params, TrainConfig(lr=1e-3), noise_bank=bank, seed=0,
-                            device=dev, mesh=mesh, sequence_parallel=sp)
+                            device=dev, mesh=mesh, pipeline=plan, **opts)
+        del params  # the engine holds this rank's slices
         engine.sample_rates = lambda: (4, 2)
-        own = []
-        with routed(own, replay):
-            loss, grads = r_grads(engine, batch, trim)
-        row = dict(loss=loss, routes=own, setup_and_grads_s=time.perf_counter() - t,
-                   tp_blocks=sorted(engine.par.tp_blocks), **r_step(engine, batch, trim, fns))
+        own, own_step = [], []
+        with routed(own, replay[0]):
+            loss, grads = r_grads(engine, mine, trim)
+        setup = time.perf_counter() - t
+        with routed(own_step, replay[1]):
+            step = r_step(engine, mine, trim, fns)
+        state = engine.full_state()
+        row = dict(loss=loss, routes=own, step_routes=own_step, setup_and_grads_s=setup,
+                   tp_blocks=sorted(engine.par.tp_blocks), **step)
         if dist.get_rank() == 0:
-            row["grads"] = grads
+            row.update(grads=grads, **state_vectors(state))
         out[label] = row
-        del engine, grads
-        torch.cuda.empty_cache()
+        del engine, grads, state
+        release_card()
         t = time.perf_counter()
     return out
 
 
-def r_meshless(build, build_args, batch, trim: int, bank, fns) -> dict:
-    """The reference: the same grads run and timed step in this process
-    without a mesh, its routing recorded; the step's launches held to what
-    the path must give."""
+def r_reference(label: str, build, build_args, fns) -> dict:
+    """The meshless reference of (r) and (v) in this process on (t)'s batch
+    (B_TRAIN x FRAMES_TRAIN, rates (4, 2)): the grads run and the timed
+    step, the routing of each recorded, the state after the step; the
+    step's launches held to what the path must give. Freed before the
+    ranks run; returns its row, batch and trim."""
     import torch
 
     from omni_avsr_tpu_torch.bridge import init_params
     from omni_avsr_tpu_torch.config import TrainConfig
     from omni_avsr_tpu_torch.ops.attention import FLASH_MIN_T_TRAIN
+    from omni_avsr_tpu_torch.ops.audio_frontend import whisper_token_len
     from omni_avsr_tpu_torch.train.engine import OmniEngine
 
+    bank = (np.random.RandomState(1234).randn(10 * 16000) * 0.1).astype(np.float32)
+    trim = -(-int(whisper_token_len(FRAMES_TRAIN * 640)) // 25) * 25
     model = build(*build_args)
+    batch = train_batch(model.tok, B_TRAIN, FRAMES_TRAIN, TOKENS_TRAIN)
     params = init_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
     engine = OmniEngine(model, params, TrainConfig(lr=1e-3), noise_bank=bank, seed=0, device=DEV)
     del params
     engine.sample_rates = lambda: (4, 2)
-    own = []
+    own, own_step = [], []
     with routed(own):
         loss, grads = r_grads(engine, batch, trim)
-    row = dict(loss=loss, routes=own, grads=grads, **r_step(engine, batch, trim, fns))
+    with routed(own_step):
+        step = r_step(engine, batch, trim, fns)
+    ref = dict(loss=loss, routes=own, step_routes=own_step, grads=grads, **step,
+               **state_vectors(engine.state))
+    del engine
+    torch.cuda.empty_cache()
     lengths = llm_lengths(model, trim, 4, 2, FRAMES_TRAIN, TOKENS_TRAIN)
-    flash = [m for m, n in lengths.items() if n >= FLASH_MIN_T_TRAIN]
-    want = train_launches(model, len(flash), row["avhubert_layers_run"])
-    if row["launches"] != want:
-        raise RuntimeError(f"(r) meshless step: kernel launches {row['launches']}, expected "
+    ref["flash_tasks"] = sum(n >= FLASH_MIN_T_TRAIN for n in lengths.values())
+    want = train_launches(model, ref["flash_tasks"], ref["avhubert_layers_run"])
+    if ref["launches"] != want:
+        raise RuntimeError(f"{label} meshless step: kernel launches {ref['launches']}, expected "
                            f"{want}")
-    row["llm_lengths"] = lengths
-    return row
+    row = dict(config=f"{label} meshless train step on the card, alone", loss=loss,
+               step_loss=ref["step_loss"], s_per_step=ref["s_per_step"],
+               peak_gib=ref["peak_gib"], launches=ref["launches"], llm_lengths=lengths,
+               avhubert_layers_run=ref["avhubert_layers_run"], routing_calls=len(own))
+    log("multirank", json.dumps(row))
+    return dict(ref=ref, row=row, batch=batch, trim=trim, bank=bank, label=label)
 
 
 def r_compare(label: str, got: dict, ref: dict, ref_label: str) -> dict:
     """A run's loss and grads against a reference run's (loss within
     R_LOSS_RTOL relative, grads within REL_L2_TOL relative L2, both on one
-    set of routing choices), and the routing calls whose own choice
-    differed."""
-    rel = ((got["grads"] - ref["grads"]).norm() / ref["grads"].norm()).item()
+    set of routing choices), its state after the step (masters, AdamW's
+    first and second moments, each within REL_L2_TOL relative L2), and the
+    routing calls whose own choice differed."""
+    rel = rel_l2(got["grads"], ref["grads"])
     dl = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
     if not (np.isfinite(got["loss"]) and np.isfinite(rel)):
         raise RuntimeError(f"{label}: loss {got['loss']}, grads relative L2 {rel}")
     if rel > REL_L2_TOL or dl > R_LOSS_RTOL:
         raise RuntimeError(f"{label} vs {ref_label}: loss {got['loss']} vs {ref['loss']}, grads "
                            f"relative L2 {rel:.3g}")
+    state = {k: rel_l2(got[k], ref[k]) for k in ("masters", "mu", "nu")}
+    if not max(state.values()) <= REL_L2_TOL:
+        raise RuntimeError(f"{label} vs {ref_label}: the state after the step, relative L2 "
+                           f"{state}")
     calls, rows = routes_differing(got["routes"], ref["routes"])
     return dict(vs=ref_label, loss=got["loss"], ref_loss=ref["loss"], loss_rel_diff=dl,
-                grad_rel_l2=rel, routing_calls=len(got["routes"]),
+                grad_rel_l2=rel, state_rel_l2=state, routing_calls=len(got["routes"]),
                 routing_rows=sum(len(r) for r in got["routes"]),
                 routing_calls_differing=calls, routing_rows_differing=rows)
 
 
-def r_case(label: str, pool, build, build_args, tp: int, runs, fns, smi: str) -> dict:
-    """One (r) case: the meshless reference in this process (freed before the
-    ranks step), then `runs` on the pool's ranks; every rank's launches held
-    to the reference step's, every rank's routing to rank 0's, each run's
-    loss and grads to the reference's (and the SP run's to the run without
-    SP where there is one)."""
-    import torch
-
-    from omni_avsr_tpu_torch.ops.audio_frontend import whisper_token_len
-
-    t0 = time.perf_counter()
-    bank = (np.random.RandomState(1234).randn(10 * 16000) * 0.1).astype(np.float32)
-    trim = -(-int(whisper_token_len(FRAMES_TRAIN * 640)) // 25) * 25
-    batch = train_batch(build(*build_args).tok, B_TRAIN, FRAMES_TRAIN, TOKENS_TRAIN)
-    ref = r_meshless(build, build_args, batch, trim, bank, fns)
-    torch.cuda.empty_cache()
-    rows = {f"{label} meshless": dict(
-        config=f"{label} meshless train step on the card, alone", loss=ref["loss"],
-        step_loss=ref["step_loss"], s_per_step=ref["s_per_step"], peak_gib=ref["peak_gib"],
-        launches=ref["launches"], llm_lengths=ref["llm_lengths"],
-        avhubert_layers_run=ref["avhubert_layers_run"], routing_calls=len(ref["routes"]))}
-    log("r", json.dumps(rows[f"{label} meshless"]))
+def r_case(label: str, pool, reference: dict, build, build_args, mesh_sizes, runs, smi: str,
+           pairs=()) -> dict:
+    """One multi-rank training case: `runs` (label, options) on the pool's
+    ranks on a mesh of `mesh_sizes`, against `reference` (`r_reference`,
+    already freed): every rank's launches held to the reference step's (a
+    pipeline stage's to its own layers'), every rank's routing to rank
+    0's, each run's loss, grads and state to the reference's, and to
+    another run's for each (run, other) of `pairs`."""
+    ref = reference["ref"]
     t = time.perf_counter()
-    ranks = pool.run(r_rank_run, build, build_args, batch, trim, bank, tp, runs, ref["routes"],
-                     DEV, timeout_s=1200)
-    log("r", f"{label}: {len(ranks)} gloo ranks, runs {[r for r, _ in runs]}, in "
+    replay = (ref["routes"], ref["step_routes"])
+    ranks = pool.run(r_rank_run, build, build_args, reference["batch"], reference["trim"],
+                     reference["bank"], mesh_sizes, runs, replay, DEV, timeout_s=1200)
+    log("multirank", f"{label}: {len(ranks)} gloo ranks, runs {[r for r, _ in runs]}, in "
         f"{time.perf_counter() - t:.1f} s")
-    for run, sp in runs:
+    mesh = ", ".join(f"{k} {v}" for k, v in mesh_sizes.items() if v > 1)
+    rows = {}
+    for run, opts in runs:
         rr = [ranks[i][run] for i in range(len(ranks))]
+        want = ref["launches"]
+        if opts.get("microbatches"):  # a stage runs its share of the LLM's layers
+            model = build(*build_args)
+            want = train_launches(model, ref["flash_tasks"], ref["avhubert_layers_run"],
+                                  llm_layers=model.cfg.llm.num_layers // mesh_sizes["pp"])
         for i, row in enumerate(rr):
-            if row["launches"] != ref["launches"]:
+            if row["launches"] != want:
                 raise RuntimeError(f"{label} {run} rank {i}: kernel launches {row['launches']}, "
-                                   f"the meshless step's {ref['launches']}")
+                                   f"expected {want}")
             if routes_differing(row["routes"], rr[0]["routes"])[0]:
                 raise RuntimeError(f"{label} {run}: rank {i}'s routing differs from rank 0's")
         agree = [r_compare(f"{label} {run}", rr[0], ref, "meshless")]
-        if sp and any(not s for _, s in runs):
-            other = next(r for r, s in runs if not s)
-            agree.append(r_compare(f"{label} {run}", rr[0], ranks[0][other], other))
+        agree += [r_compare(f"{label} {run}", rr[0], ranks[0][other], other)
+                  for a, other in pairs if a == run]
+        options = "".join(f", {k} {v}" for k, v in opts.items())
         rows[f"{label} {run}"] = dict(
-            config=f"{label} tp {tp}{' with SP' if sp else ''}, {len(rr)} gloo ranks on one card",
+            config=f"{label} {mesh}{options}, {len(rr)} gloo ranks on one card",
             tp_blocks=rr[0]["tp_blocks"], agreement=agree, launches=rr[0]["launches"],
             launches_by_rank=[r["launches"] for r in rr],
             s_per_step_by_rank=[r["s_per_step"] for r in rr],
             peak_gib_by_rank=[r["peak_gib"] for r in rr],
             step_loss_by_rank=[r["step_loss"] for r in rr],
             setup_and_grads_s_by_rank=[r["setup_and_grads_s"] for r in rr], card=smi)
-        log("r", json.dumps(rows[f"{label} {run}"]))
-    log("r", f"{label} in {time.perf_counter() - t0:.1f} s")
+        log("multirank", json.dumps(rows[f"{label} {run}"]))
     return rows
 
 
-def sp_phase() -> dict:
-    """(r): sequence parallelism on the card at full width, on gloo ranks
+def flagship_model(window: str):
+    """The flagship at full width and depth with Whisper's `window`."""
+    from omni_avsr_tpu_torch.models.omni import flagship
+
+    return flagship(tiny=False, whisper_input_mode=window)
+
+
+def vocab_model(build, build_args, vocab: int):
+    """`build(*build_args)` with its LLM at `vocab` tokens (`with_vocab`)."""
+    return with_vocab(build(*build_args), vocab)
+
+
+def qwen7b_model():
+    """(e)'s model: the flagship on the registry's Qwen2.5-7B, the bucketed
+    window."""
+    from omni_avsr_tpu_torch.data.tokenizer import synthetic_tokenizer
+    from omni_avsr_tpu_torch.models.omni import registry_model
+
+    return registry_model(QWEN_E, synthetic_tokenizer("qwen", base_vocab=QWEN_BASE_VOCAB),
+                          whisper_input_mode="bucket")
+
+
+def u_launches(model, tp: int, steps: int, select_kernel: bool):
+    """What one served batch must launch on each rank of a tp mesh: B1 in
+    every LLM layer a decode step (its heads' shard), B2 in the towers'
+    6 matrices a layer and in the LLM's 4 a layer and its lm_head at the
+    prefill and each step (their shards), and with `select_kernel` B5 once
+    a step on the rank's vocabulary shard."""
+    llm = model.cfg.llm
+    tower = 6 * (model.cfg.whisper.num_layers + model.cfg.avhubert.encoder_layers)
+    return counts(B1=llm.num_layers * steps, B2=tower + (4 * llm.num_layers + 1) * (1 + steps),
+                  B5=steps if select_kernel else 0)
+
+
+def u_reference(build, build_args, items, select_kernel: bool) -> dict:
+    """The meshless int8 `Transcriber` in this process (freed on return):
+    the ids of `items` as one batch at K beams and N new tokens, and the
+    first request's prefix, prefill and first decode steps (`llm_steps`)."""
+    import torch
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.serve import Transcriber, pad_batch
+
+    t0 = time.perf_counter()
+    model = build(*build_args)
+    params = init_params(model.cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    t = Transcriber(model, params, num_beams=K, max_new_tokens=N, quantize="int8", device=DEV,
+                    select_kernel=select_kernel)
+    del params
+    batch, trim = pad_batch(items, "audiovisual")
+    ids = t.decode_ids(batch, "audiovisual", 4, 2, trim, K)
+    prefix, valid = served_prefix(t, items[0])
+    logits, tokens = llm_steps(t, prefix, valid)
+    out = dict(ids=ids.cpu(), steps=t.last_decode_steps, logits=[x.float().cpu() for x in logits],
+               tokens=[x.cpu() for x in tokens], prefix=prefix.cpu(), valid=valid.cpu())
+    del t
+    release_card()
+    log("multirank", f"the meshless Transcriber: {out['steps']} decode steps, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def u_rank_run(build, build_args, items, select_kernel: bool, tp: int, ref_prefix, ref_valid,
+               ref_tokens, turns: bool, dev: str) -> dict:
+    """What each gloo rank of (u) runs, `release_card` at the end."""
+    try:
+        return _u_rank_run(build, build_args, items, select_kernel, tp, ref_prefix, ref_valid,
+                           ref_tokens, turns, dev)
+    finally:
+        release_card()
+
+
+def _u_rank_run(build, build_args, items, select_kernel: bool, tp: int, ref_prefix, ref_valid,
+                ref_tokens, turns: bool, dev: str) -> dict:
+    """`Transcriber(mesh=...)` on a (1, tp) mesh at int8, K beams and N new
+    tokens, from `build(*build_args)`'s random weights of seed 0 (each rank
+    draws the whole tree, quantises and cuts its shard; with `turns` the
+    ranks build one after the other); the ids of `items` as one batch
+    (warm), then one timed `transcribe_many` batch, the kernel counters
+    set to 0 just before it and read just after; this rank's prefix of the
+    first request against the reference's, and the reference's prefix
+    through this rank's LLM with the reference's tokens (`llm_steps`, the
+    logits gathered over tp); on the first decode step's logits, the
+    selection `_fused_select_sharded` merges from this rank's vocabulary
+    shard and the others' held to the unsharded selection's: the maxima,
+    candidates and indices bit-equal, the lse within rtol 1e-5. Returns
+    this rank's row, with the logits on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.config import MeshConfig
+    from omni_avsr_tpu_torch.decode.decoding import (_fused_select_sharded,
+                                                     merge_select_shards, select_shard)
+    from omni_avsr_tpu_torch.parallel.mesh import axis, make_mesh
+    from omni_avsr_tpu_torch.serve import Transcriber, pad_batch
+
+    if dev != "cuda":
+        stub_card_counters()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh(MeshConfig(dp=1, tp=tp))
+    model = build(*build_args)
+    log("multirank", f"rank {rank}: {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
+        f"before the build")
+    t = built = None
+    for turn in range(world) if turns else (None,):
+        if turn in (None, rank):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = init_params(model.cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            t = Transcriber(model, params, num_beams=K, max_new_tokens=N, quantize="int8",
+                            device=dev, select_kernel=select_kernel, mesh=mesh)
+            del params
+            release_card()
+            torch.cuda.synchronize()
+            built = dict(build_s=time.perf_counter() - t0,
+                         build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         built_gib=torch.cuda.memory_allocated() / 2**30,
+                         reserved_gib=torch.cuda.memory_reserved() / 2**30)
+            log("multirank", f"rank {rank}: Transcriber(mesh) built: {json.dumps(built)}")
+        if turn is not None:
+            dist.barrier()
+    batch, trim = pad_batch(items, "audiovisual")
+    ids = t.decode_ids(batch, "audiovisual", 4, 2, trim, K)  # the first use of these shapes
+    log("multirank", f"rank {rank}: the first batch decoded, {t.last_decode_steps} steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns = counters()
+    reset_counts(fns)
+    t0 = time.perf_counter()
+    texts = t.transcribe_many(items)
+    torch.cuda.synchronize()
+    run = dict(s=time.perf_counter() - t0, steps=t.last_decode_steps, texts=texts,
+               launches={k: fn.launches for k, fn in fns.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prefix, _ = served_prefix(t, items[0])
+    logits, _ = llm_steps(t, ref_prefix.to(dev), ref_valid.to(dev), [x.to(dev) for x in ref_tokens])
+    x = logits[1].float().reshape(1, K, -1)
+    Vs, k2 = x.shape[-1] // tp, 2 * K
+    merged = _fused_select_sharded(x[..., rank * Vs:(rank + 1) * Vs].contiguous(), k2,
+                                   axis(mesh, "tp"), select_kernel)
+    mx, se, vals, idx = select_shard(x, k2, select_kernel)
+    want = merge_select_shards(mx[..., None], se[..., None], vals, idx, k2)
+    if not all(torch.equal(merged[i], want[i]) for i in (0, 2, 3)):
+        raise RuntimeError(f"rank {rank}: the merged selection's maxima, candidates or indices "
+                           f"differ from the unsharded selection's")
+    torch.testing.assert_close(merged[1], want[1], rtol=1e-5, atol=0)
+    row = dict(rank=rank, ids=ids.cpu(), steps=t.last_decode_steps, run=run, peak_gib=peak,
+               prefix_rel_l2=rel_l2(prefix, ref_prefix), attn_route=t.attn_route,
+               merged_lse_max_abs_err=(merged[1] - want[1]).abs().max().item(),
+               tp_blocks=sorted(t.par.tp_blocks), **built)
+    if rank == 0:
+        row["logits"] = [x.float().cpu() for x in logits]
+    return row
+
+
+def u_case(label: str, pool, ref: dict, build, build_args, tp: int, items, select_kernel: bool,
+           turns: bool, smi: str) -> dict:
+    """One (u) case against `ref` (`u_reference`, already freed):
+    `Transcriber(mesh=...)` on the pool's ranks (`u_rank_run`): every
+    rank's launches held to `u_launches` for its decode steps, every rank's
+    merged selection to the unsharded one (in the rank), every rank's ids
+    to rank 0's, and rank 0's logits (prefill and two decode steps on
+    the reference's prefix and tokens) and log-probabilities within
+    REL_L2_TOL of the reference's; the share of the ids equal to the
+    reference's printed (near-flat random logits: bf16 partial sums may
+    flip a beam)."""
+    import torch
+
+    t = time.perf_counter()
+    ranks = pool.run(u_rank_run, build, build_args, items, select_kernel, tp, ref["prefix"],
+                     ref["valid"], ref["tokens"], turns, DEV, timeout_s=1800)
+    model = build(*build_args)
+    for r in ranks:
+        run = r["run"]
+        want = u_launches(model, tp, run["steps"], select_kernel)
+        if run["launches"] != want:
+            raise RuntimeError(f"{label} rank {r['rank']}: kernel launches {run['launches']}, "
+                               f"expected {want} for {run['steps']} decode steps")
+        if len(run["texts"]) != len(items) or not all(run["texts"]):
+            raise RuntimeError(f"{label} rank {r['rank']}: transcripts {run['texts']!r}")
+        if not torch.equal(r["ids"], ranks[0]["ids"]):
+            raise RuntimeError(f"{label}: rank {r['rank']}'s ids differ from rank 0's")
+    logits = worst_rel_l2(ranks[0]["logits"], ref["logits"])
+    logp = worst_rel_l2([torch.log_softmax(x, -1) for x in ranks[0]["logits"]],
+                        [torch.log_softmax(x, -1) for x in ref["logits"]])
+    if not max(logits, logp) <= REL_L2_TOL:
+        raise RuntimeError(f"{label}: logits relative L2 {logits:.3g}, log-probabilities "
+                           f"{logp:.3g}, against the meshless Transcriber")
+    run0 = ranks[0]["run"]
+    row = dict(config=f"{label}: Transcriber(mesh) tp {tp}, int8, {len(items)} requests, "
+                      f"{len(ranks)} gloo ranks on one card",
+               tp=tp, tp_blocks=ranks[0]["tp_blocks"], attn_route=ranks[0]["attn_route"],
+               logits_rel_l2=logits, logprobs_rel_l2=logp,
+               prefix_rel_l2_by_rank=[r["prefix_rel_l2"] for r in ranks],
+               ids_equal_share=float((ranks[0]["ids"] == ref["ids"]).float().mean()),
+               merged_lse_max_abs_err_by_rank=[r["merged_lse_max_abs_err"] for r in ranks],
+               decode_steps=run0["steps"], meshless_decode_steps=ref["steps"],
+               launches=run0["launches"], launches_by_rank=[r["run"]["launches"] for r in ranks],
+               s_per_batch_by_rank=[r["run"]["s"] for r in ranks],
+               build_s_by_rank=[r["build_s"] for r in ranks],
+               build_peak_gib_by_rank=[r["build_peak_gib"] for r in ranks],
+               peak_gib_by_rank=[r["peak_gib"] for r in ranks], card=smi,
+               case_s=time.perf_counter() - t)
+    log("multirank", json.dumps(row))
+    log("multirank", f"{label} request 0: {run0['texts'][0][:120]}")
+    return {label: row}
+
+
+@contextlib.contextmanager
+def case_pool(world: int, work: Path):
+    """A `RankPool` of `world` ranks for the multi-rank cases, whose
+    processes hand what a case frees back to the card through PyTorch's
+    expandable segments: the next case's processes share the card (with
+    whole segments, 23.9 GiB of a Qwen2.5-7B rank's build stayed reserved
+    beside its 5.0 GiB tree on an NVIDIA H100 80GB HBM3, and the next
+    rank's build ran out of memory).
+    The spawned processes copy the environment as they start; this
+    process's own is left as it was."""
+    from omni_avsr_tpu_torch.parallel.launch import RankPool
+
+    key = "PYTORCH_CUDA_ALLOC_CONF"
+    old = os.environ.get(key)
+    os.environ[key] = "expandable_segments:True"
+    try:
+        pool = RankPool(world, str(work), timeout_s=R_DIST_TIMEOUT_S)
+    finally:
+        if old is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = old
+    with pool:
+        yield pool
+
+
+def multirank_phase(cases=None) -> dict:
+    """(r), (u), (v): multi-rank paths at full width and depth on gloo ranks
     that share the one card (NCCL takes one rank a device; gloo stages each
-    collective through host memory). First a probe of gloo on card tensors;
-    then (r1) the MoE flagship (8 experts a layer, balanced routing) at tp
-    2 with and without SP on two ranks, and (r2) the flagship on
-    Qwen2.5-0.5B at tp 4 with SP on four ranks (its 14 / 2 heads replicate
-    the attention, the MLP runs four-way); each against the meshless step
-    in this process. The ranks share the card's SMs: their s/step is not a
-    multi-card number."""
+    collective through host memory), each against the meshless run in this
+    process, the case names of `cases` (None: all) in two pools of two and
+    four ranks. First a probe of gloo on card tensors, and of its
+    point-to-point pair in a pool of its own. (r1) the MoE flagship at tp 2
+    with and without SP; (u1) the flagship with a 128256-token vocabulary
+    served at tp 2 and tp 4 (`Transcriber(mesh=...)`, B5 per vocabulary
+    shard); (u2) Qwen2.5-7B served at tp 2, the ranks building in turns;
+    (v1) the flagship's train step at dp 2 and at dp 2 with FSDP; (v2) the
+    MoE flagship at ep 2; the flagship at pp 2 only if the point-to-point
+    pair passed; (r2) the flagship on Qwen2.5-0.5B at tp 4 with SP. The
+    ranks share the card's SMs: their s/step and s/batch are not multi-card
+    numbers."""
     import shutil
 
-    from omni_avsr_tpu_torch.parallel.launch import RankPool
+    def on(name):
+        return cases is None or name in cases
 
     t0 = time.perf_counter()
     smi = card()
     fns = counters()
-    work = Path(__file__).resolve().parent / "build" / "chip_smoke_sp"
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_multirank"
     shutil.rmtree(work, ignore_errors=True)
-    rows = {}
     for world in (2, 4):
         (work / str(world)).mkdir(parents=True)
-    with RankPool(2, str(work / "2"), timeout_s=R_DIST_TIMEOUT_S) as pool:
+    p2p = p2p_probe(work / "p2p")
+    log("multirank", f"gloo isend / recv of a card tensor between two ranks on {smi}: "
+        f"{json.dumps(p2p)}")
+    items = make_items((160, 160, 160), seed=0)  # (b)'s requests
+    u1_model = (flagship_model, ("bucket",), VOCAB_D)  # (d)'s: Llama-3's 128256 tokens
+    rows = {}
+    moe = flagship = u1_ref = None
+    with case_pool(2, work / "2") as pool:
         probe = pool.run(r_probe_rank, DEV)
-        log("r", f"gloo probe on {smi}: {json.dumps(probe)}")
-        rows.update(r_case("(r1) MoE", pool, moe_model, ("balanced", "pad30s"), 2,
-                           (("sp", True), ("no sp", False)), fns, smi))
-    with RankPool(4, str(work / "4"), timeout_s=R_DIST_TIMEOUT_S) as pool:
-        rows.update(r_case("(r2) Qwen2.5-0.5B", pool, qwen_small_model, (), 4,
-                           (("sp", True),), fns, smi))
-    log("r", f"(r) in {time.perf_counter() - t0:.1f} s")
+        log("multirank", f"gloo probe on {smi}: {json.dumps(probe)}")
+        if on("u1"):
+            u1_ref = u_reference(vocab_model, u1_model, items, True)
+            rows.update(u_case("(u1) tp 2", pool, u1_ref, vocab_model, u1_model, 2, items, True,
+                               False, smi))
+        if on("u2"):
+            ref = u_reference(qwen7b_model, (), items, False)
+            rows.update(u_case("(u2) Qwen2.5-7B tp 2", pool, ref, qwen7b_model, (), 2, items,
+                               False, True, smi))
+        if on("r1") or on("v2"):
+            moe = r_reference("(r1, v2) MoE", moe_model, ("balanced", "pad30s"), fns)
+            rows[f"{moe['label']} meshless"] = moe["row"]
+        if on("r1"):
+            rows.update(r_case("(r1) MoE", pool, moe, moe_model, ("balanced", "pad30s"),
+                               dict(dp=1, tp=2), (("sp", dict(sequence_parallel=True)),
+                                                  ("no sp", {})), smi, pairs=(("sp", "no sp"),)))
+        if on("v1") or on("pp"):
+            flagship = r_reference("(v1) flagship", flagship_model, ("pad30s",), fns)
+            rows[f"{flagship['label']} meshless"] = flagship["row"]
+        if on("v1"):
+            rows.update(r_case("(v1) flagship", pool, flagship, flagship_model, ("pad30s",),
+                               dict(dp=2, tp=1), (("dp", {}), ("fsdp", dict(fsdp=True))), smi,
+                               pairs=(("fsdp", "dp"),)))
+        if on("v2"):
+            rows.update(r_case("(v2) MoE", pool, moe, moe_model, ("balanced", "pad30s"),
+                               dict(dp=1, tp=1, ep=2), (("ep", {}),), smi))
+        if on("pp") and p2p["outcome"] == "passed":
+            rows.update(r_case("(v1) flagship", pool, flagship, flagship_model, ("pad30s",),
+                               dict(dp=1, tp=1, pp=2), (("pp", dict(microbatches=2)),), smi))
+    if on("r2") or on("u1"):
+        with case_pool(4, work / "4") as pool:
+            if on("r2"):
+                qwen = r_reference("(r2) Qwen2.5-0.5B", qwen_small_model, (), fns)
+                rows[f"{qwen['label']} meshless"] = qwen["row"]
+                rows.update(r_case("(r2) Qwen2.5-0.5B", pool, qwen, qwen_small_model, (),
+                                   dict(dp=1, tp=4), (("sp", dict(sequence_parallel=True)),),
+                                   smi))
+            if on("u1"):
+                rows.update(u_case("(u1) tp 4", pool, u1_ref, vocab_model, u1_model, 4, items,
+                                   True, False, smi))
+    log("multirank", f"(r), (u), (v) in {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -4663,28 +5122,38 @@ def graph_census(run) -> list:
 
 def profile_batch(label: str, run) -> None:
     """Where the time goes: one more call of `run` (a served batch, a train
-    step) under torch.profiler, device kernels summed by name against its
-    wall time (which the profiler itself lengthens)."""
+    step) under torch.profiler, recording the device's activities only,
+    device kernels summed by name against the call's wall time (which the
+    profiler itself lengthens). The sums read the profiler's raw records,
+    without its event tree (`prof.events()` makes a Python object of every
+    record and finds each one's parent: many times the profiled call's own
+    time at 30k-110k records); the log line gives the seconds spent outside
+    the profiled call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    by_name: dict = {}
+    n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e3
+            n += 1
+    outside = time.perf_counter() - t0 - wall_us / 1e6
+    if not n:
         log("profile", f"{label}: the profiler saw no device activity: device time not measured")
         return
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     log("profile", f"{label}: one batch under the profiler: {wall_us / 1e3:.1f} ms wall, device "
         f"busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%, idle "
-        f"{100 - 100 * busy / wall_us:.1f}%), {len(kernels)} device activities")
+        f"{100 - 100 * busy / wall_us:.1f}%), {n} device activities; {outside:.2f} s outside "
+        f"the profiled call")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log("profile", f"{label}: {us / 1e3:8.2f} ms {100 * us / busy:5.1f}%  {name[:100]}")
 
@@ -4914,8 +5383,8 @@ def main() -> int:
     rows.update(parallel_phase(flush, items_b))
     # (q): the causal-LM loss (B3, B4), lightconv and checkify_step at full width
     rows.update(last_modules_phase(flush))
-    # (r): sequence parallelism with an MoE decoder and a replicated attention, gloo ranks
-    rows.update(sp_phase())
+    # (r), (u), (v): multi-rank training and serving on gloo ranks sharing the card
+    rows.update(multirank_phase())
     del flush
     torch.cuda.empty_cache()
 
@@ -4938,7 +5407,9 @@ def main() -> int:
                 "launches": rows[config]["launches"][key], "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": shape,
-                "launches_by_config": {c: r["launches"][key] for c, r in rows.items()}}
+                "launches_by_config": {c: r["launches"][key] for c, r in rows.items()},
+                "launches_by_rank": {c: [x[key] for x in r["launches_by_rank"]]
+                                     for c, r in rows.items() if "launches_by_rank" in r}}
 
     print(json.dumps({"kernels": [
         {**entry("B1", "beam_decode_attention", "omni_avsr_tpu_torch/csrc/beam_attention.cu",

@@ -260,7 +260,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_fwd_kernel(
     float* __restrict__ lse,                    // (B * Hq, T) or null
     const int32_t* __restrict__ kv_lens,        // (B,) or null
     int B, int T, int S, int Hq, int Hkv, float scale, int causal, int dropout, uint32_t seed,
-    int32_t thresh, float keep_scale) {
+    uint32_t bh0, int32_t thresh, float keep_scale) {
   using C = Cfg<D>;
   constexpr int BKV = C::BKV, STAGES = C::STAGES, NWG = C::NWG, BQ = C::BQ;
   extern __shared__ unsigned char smem_raw[];
@@ -344,7 +344,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_fwd_kernel(
     rows.wg_row0 = t.q0 + wg * 64;
     rows.row0 = rows.wg_row0 + (warp & 3) * 16 + (lane >> 2);
     rows.kv_limit = t.kv_limit;
-    rows.h_mix = (uint32_t)t.bh * 0x9E3779B9u;
+    rows.h_mix = (bh0 + (uint32_t)t.bh) * 0x9E3779B9u;
     float m_r[2] = {kNegInf, kNegInf};  // running max, log2 units
     float l_r[2] = {0.f, 0.f};          // this thread's share of the row sums
     float o[D / 2];
@@ -431,7 +431,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1) flash_fwd_kernel(
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            const void* kv_lens, int B, int T, int S, int Hq, int Hkv, float scale, int causal,
-           int dropout, int seed, int thresh, float keep_scale, cudaStream_t stream) {
+           int dropout, int seed, int bh0, int thresh, float keep_scale, cudaStream_t stream) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ;
   // the shared-memory attribute is set, and the SM count read, once on
@@ -464,7 +464,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   kernel<<<min(n_work, sms), C::THREADS, C::SMEM, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
       static_cast<const int32_t*>(kv_lens), B, T, S, Hq, Hkv, scale, causal, dropout,
-      (uint32_t)seed, (int32_t)thresh, keep_scale);
+      (uint32_t)seed, (uint32_t)bh0, (int32_t)thresh, keep_scale);
   return (int)cudaGetLastError();
 }
 
@@ -473,21 +473,23 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 // q (B, T, Hq, D), k and v (B, S, Hkv, D) bf16 contiguous, 16-byte aligned
 // -> out like q; lse (B * Hq, T) f32 when not null; kv_lens (B,) int32 when
 // not null. dropout != 0 applies the keep mask (seed, thresh) and scales
-// kept probabilities by keep_scale = 1 / (1 - rate).
+// kept probabilities by keep_scale = 1 / (1 - rate); the mask hashes
+// batch row b, head h as the flattened index bh0 + b * Hq + h (bh0: the
+// first row's index in the global batch, times Hq).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       void* lse, const void* kv_lens, int B, int T, int S,
                                       int Hq, int Hkv, int D, float scale, int causal,
-                                      int dropout, int seed, int thresh, float keep_scale,
-                                      void* stream) {
+                                      int dropout, int seed, int bh0, int thresh,
+                                      float keep_scale, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D == 64) {
     return launch<64>(q, k, v, out, lse, kv_lens, B, T, S, Hq, Hkv, scale, causal, dropout,
-                      seed, thresh, keep_scale, st);
+                      seed, bh0, thresh, keep_scale, st);
   }
   if (D == 128) {
     return launch<128>(q, k, v, out, lse, kv_lens, B, T, S, Hq, Hkv, scale, causal, dropout,
-                       seed, thresh, keep_scale, st);
+                       seed, bh0, thresh, keep_scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -88,6 +88,7 @@ struct Args {
   float scale;
   int causal, dropout;
   uint32_t seed;
+  uint32_t bh0;  // the keep mask's flattened index of batch row 0, head 0
   int32_t thresh;
   float keep_scale;
 };
@@ -228,7 +229,7 @@ __global__ void __launch_bounds__(DQ_THREADS) flash_bwd_dq_kernel(const Args a) 
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  const uint32_t h_mix = (uint32_t)bh * 0x9E3779B9u;
+  const uint32_t h_mix = (a.bh0 + (uint32_t)bh) * 0x9E3779B9u;
 
   for (int t = 0; t < n_tiles; ++t) {
     port::cp_async_wait<0>();
@@ -365,7 +366,7 @@ __global__ void __launch_bounds__(DKV_THREADS) flash_bwd_dkv_kernel(const Args a
     const float* tDs = sDs + (m & 1) * BQ;
     const int h = hkv * G + it / n_q;
     const int i0 = (q_begin + it % n_q) * BQ;
-    const uint32_t h_mix = (uint32_t)(b * a.Hq + h) * 0x9E3779B9u;
+    const uint32_t h_mix = (a.bh0 + (uint32_t)(b * a.Hq + h)) * 0x9E3779B9u;
 
     // S^T = k q^T and dP^T = v d_out^T: 64 keys x 64 queries
     float s[32], dp[32];
@@ -482,14 +483,14 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 // q, out, d_out (B, T, Hq, D) and k, v (B, S, Hkv, D) bf16 contiguous; lse
 // (B * Hq, T) f32; kv_lens (B,) int32 or null -> dq (B, T, Hq, D), dk and dv
 // (B, S, Hkv, D) bf16, and dsum (B * Hq, T) f32 (scratch between the two
-// kernels). dropout != 0 applies the forward's keep mask (seed, thresh) with
-// keep_scale = 1 / (1 - rate).
+// kernels). dropout != 0 applies the forward's keep mask (seed, bh0, thresh)
+// with keep_scale = 1 / (1 - rate).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* dsum, const void* kv_lens, void* dq, void* dk,
                                           void* dv, int B, int T, int S, int Hq, int Hkv, int D,
                                           float scale, int causal, int dropout, int seed,
-                                          int thresh, float keep_scale, void* stream) {
+                                          int bh0, int thresh, float keep_scale, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const __nv_bfloat16*>(q),
                static_cast<const __nv_bfloat16*>(k),
@@ -502,8 +503,8 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                static_cast<__nv_bfloat16*>(dq),
                static_cast<__nv_bfloat16*>(dk),
                static_cast<__nv_bfloat16*>(dv),
-               T, S, Hq, Hkv, scale, causal, dropout, (uint32_t)seed, (int32_t)thresh,
-               keep_scale};
+               T, S, Hq, Hkv, scale, causal, dropout, (uint32_t)seed, (uint32_t)bh0,
+               (int32_t)thresh, keep_scale};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D == 64) return launch<64>(a, B, st);
   if (D == 128) return launch<128>(a, B, st);

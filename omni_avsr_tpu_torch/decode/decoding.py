@@ -152,10 +152,16 @@ def select_shard(x: torch.Tensor, k2: int, use_kernel: bool, offset: int = 0):
     the columns [offset, offset + Vs) of the logits. Returns its row maxima
     and normalisers (B, K) and its per-beam top-k2 values with their
     global indices (B, K, k2), through B5 and the chunked top-k with
-    `use_kernel`, else torch ops."""
+    `use_kernel`, else torch ops. B5 takes whole 128-wide chunks: a shard
+    that is no multiple of 128 (Llama-3's 128256 at tp 4) is padded with
+    -inf columns, which change no maximum and add 0 to the normaliser, and
+    which no top-k2 of a row with k2 finite values selects."""
     B, K, Vs = x.shape
     if use_kernel:
-        cm, mx_s, se_s = row_stats_chunkmax(x.reshape(B * K, Vs))
+        if Vs % CHUNK:
+            pad = x.new_full((B, K, CHUNK - Vs % CHUNK), float("-inf"))
+            x = torch.cat([x, pad], dim=-1)
+        cm, mx_s, se_s = row_stats_chunkmax(x.reshape(B * K, x.shape[-1]))
         mx_s, se_s = mx_s.reshape(B, K), se_s.reshape(B, K)
         vals_s, vidx_s = topk_chunked(x, k2, chunk_maxima=cm.reshape(B, K, -1))
     else:
@@ -443,7 +449,8 @@ def beam_search(
     `no_repeat_ngram_size > 0` bans repeated n-grams (on the grid).
     `attn_mesh`, a tp mesh whose heads B1 shards, also shards the fused
     selection over the vocabulary (`beam_loop(select_mesh=...)`), as the
-    JAX package passes its `attn_mesh` on."""
+    JAX package passes its `attn_mesh` on; B5 then runs on each rank's
+    shard (`select_shard`)."""
     B, P, _ = prefix_embeds.shape
     K = num_beams
     V = cfg.vocab_size
@@ -451,9 +458,8 @@ def beam_search(
     route = decode_route(attn_route, cfg.head_dim, dev)
     if attn_route == "xla":
         select_kernel = False
-    shard_v = V // axis(attn_mesh, "tp").size if attn_mesh is not None else V
-    if select_kernel and not select_kernel_supported(shard_v):
-        raise ValueError(f"select_kernel: vocabulary {shard_v} is not supported by the selection "
+    if select_kernel and not select_kernel_supported(V):
+        raise ValueError(f"select_kernel: vocabulary {V} is not supported by the selection "
                          f"stats kernel (needs V % {CHUNK} == 0 and 16384 <= V <= 212992)")
     dtype = prefix_embeds.dtype
     layers = unstack_layers(params, cfg)

@@ -57,7 +57,7 @@ from ..ops.attention import FLASH_MIN_T_TRAIN, dot_product_attention, padding_ma
 from ..ops.augment import is_key, subkeys
 from ..ops.flash_attention_bwd import flash_attention_trainable
 from ..ops.norms import layer_norm
-from ..parallel.collectives import draw_rows
+from ..parallel.collectives import draw_rows, first_row
 from ..utils import prng
 from .common import Params, layer_slice, linear, tp_ffn
 from .llm import maybe_remat
@@ -102,7 +102,8 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: Optio
         if rate > 0.0 and seed is None:  # a key: the JAX package's seed draw
             seed = int(prng.randint(rng, (), 0, 2**31 - 1))
         return flash_attention_trainable(q, k, v, kv_lengths=lens, dropout_rate=rate,
-                                         dropout_seed=seed if rate > 0.0 else None)
+                                         dropout_seed=seed if rate > 0.0 else None,
+                                         dropout_row0=first_row())
     mask = None
     if lengths is not None:
         mask = padding_mask_from_lengths(lengths, k.shape[1])[:, None, None, :]

@@ -28,7 +28,7 @@ from ..kernels import check, load
 NEG_INF = -1e30  # the TPU kernel's mask value
 _M32 = 0xFFFFFFFF
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 \
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 5 \
     + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -38,6 +38,11 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     lo = x * (c & 0xFFFF)
     hi = ((x * (c >> 16)) & 0xFFFF) << 16
     return (lo + hi) & _M32
+
+
+def _int32(x: int) -> int:
+    """`x` mod 2^32 as a signed 32-bit int, for ctypes."""
+    return ((x & _M32) ^ 2**31) - 2**31
 
 
 def _threshold(rate: float) -> int:
@@ -76,6 +81,7 @@ def flash_attention_plain(
     return_lse: bool = False,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[Union[int, torch.Tensor]] = None,
+    dropout_row0: int = 0,
 ):
     """The kernel's function in torch: f32 logits, masked entries -1e30,
     softmax denominator before dropout, kept probabilities scaled by
@@ -101,7 +107,7 @@ def flash_attention_plain(
     if dropout_rate > 0.0:
         if dropout_seed is None:
             raise ValueError("dropout_rate > 0 needs a dropout_seed")
-        heads = torch.arange(B * Hq, device=dev)
+        heads = torch.arange(B * Hq, device=dev) + dropout_row0 * Hq
         keep = keep_mask(int(dropout_seed), heads, 0, 0, T, S, S, dropout_rate)
         keep = keep.reshape(B, Hkv, G, T, S)
         p = torch.where(keep, p, torch.zeros((), device=dev)) * (1.0 / (1.0 - dropout_rate))
@@ -121,7 +127,8 @@ def _launcher():
     return fn
 
 
-def _launch(q, k, v, scale, causal, kv_lengths, return_lse, dropout_rate, dropout_seed):
+def _launch(q, k, v, scale, causal, kv_lengths, return_lse, dropout_rate, dropout_seed,
+            dropout_row0):
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if D not in (64, 128):
@@ -149,14 +156,14 @@ def _launch(q, k, v, scale, causal, kv_lengths, return_lse, dropout_rate, dropou
         raise ValueError(f"empty attention: B {B}, T {T}, S {S}")
     out = torch.empty_like(q)
     lse = torch.empty((B * Hq, T), dtype=torch.float32, device=q.device) if return_lse else None
-    seed = int(dropout_seed) if dropout_rate > 0.0 else 0
-    seed = ((seed & _M32) ^ 2**31) - 2**31  # as a signed 32-bit int, for ctypes
+    seed = _int32(int(dropout_seed) if dropout_rate > 0.0 else 0)
     with torch.cuda.device(q.device):
         rc = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None, lens_ptr,
             B, T, S, Hq, Hkv, D, scale, int(causal),
-            int(dropout_rate > 0.0), seed, _threshold(dropout_rate) if dropout_rate > 0.0 else 0,
+            int(dropout_rate > 0.0), seed, _int32(dropout_row0 * Hq),
+            _threshold(dropout_rate) if dropout_rate > 0.0 else 0,
             float(1.0 / (1.0 - dropout_rate)),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
@@ -175,6 +182,7 @@ def flash_attention(
     return_lse: bool = False,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[Union[int, torch.Tensor]] = None,
+    dropout_row0: int = 0,  # q's first row in the global batch: the keep mask hashes by it
 ):
     """(B, T, Hq, D) attention output, and (B * Hq, T) f32 lse when
     `return_lse`. CPU tensors take the plain version; CUDA tensors (bf16,
@@ -182,8 +190,9 @@ def flash_attention(
     the launch in `flash_attention.launches`."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, causal, kv_lengths, return_lse,
-                                     dropout_rate, dropout_seed)
-    return _launch(q, k, v, scale, causal, kv_lengths, return_lse, dropout_rate, dropout_seed)
+                                     dropout_rate, dropout_seed, dropout_row0)
+    return _launch(q, k, v, scale, causal, kv_lengths, return_lse, dropout_rate, dropout_seed,
+                   dropout_row0)
 
 
 flash_attention.launches = 0

@@ -31,9 +31,9 @@ from typing import Optional, Union
 import torch
 
 from ..kernels import check, load
-from .flash_attention import _M32, _threshold, flash_attention, keep_mask
+from .flash_attention import _int32, _threshold, flash_attention, keep_mask
 
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 \
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 5 \
     + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -49,6 +49,7 @@ def flash_attention_bwd_plain(
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[Union[int, torch.Tensor]] = None,
+    dropout_row0: int = 0,
 ):
     """(dq, dk, dv) in the dtypes of q, k, v: the TPU kernels' math
     (`_flash_bwd`, `:144-242`) written out densely, f32 logits and sums;
@@ -77,7 +78,7 @@ def flash_attention_bwd_plain(
     if dropout_rate > 0.0:
         if dropout_seed is None:
             raise ValueError("dropout_rate > 0 needs a dropout_seed")
-        heads = torch.arange(B * Hq, device=dev)
+        heads = torch.arange(B * Hq, device=dev) + dropout_row0 * Hq
         keep = keep_mask(int(dropout_seed), heads, 0, 0, T, S, S, dropout_rate)
         keep = keep.reshape(B, Hkv, G, T, S)
         inv = 1.0 / (1.0 - dropout_rate)
@@ -99,7 +100,8 @@ def _launcher():
     return fn
 
 
-def _launch(q, k, v, o, do, lse, causal, kv_lengths, scale, dropout_rate, dropout_seed):
+def _launch(q, k, v, o, do, lse, causal, kv_lengths, scale, dropout_rate, dropout_seed,
+            dropout_row0):
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if D not in (64, 128):
@@ -130,14 +132,13 @@ def _launch(q, k, v, o, do, lse, causal, kv_lengths, scale, dropout_rate, dropou
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     dsum = torch.empty((B * Hq, T), dtype=torch.float32, device=q.device)
-    seed = int(dropout_seed) if dropout_rate > 0.0 else 0
-    seed = ((seed & _M32) ^ 2**31) - 2**31  # as a signed 32-bit int, for ctypes
+    seed = _int32(int(dropout_seed) if dropout_rate > 0.0 else 0)
     with torch.cuda.device(q.device):
         rc = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(), lens_ptr, dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, T, S, Hq, Hkv, D, float(D ** -0.5 if scale is None else scale),
-            int(causal), int(dropout_rate > 0.0), seed,
+            int(causal), int(dropout_rate > 0.0), seed, _int32(dropout_row0 * Hq),
             _threshold(dropout_rate) if dropout_rate > 0.0 else 0,
             float(1.0 / (1.0 - dropout_rate)),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -159,14 +160,16 @@ def flash_attention_bwd(
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[Union[int, torch.Tensor]] = None,
+    dropout_row0: int = 0,  # q's first row in the global batch, as the forward's
 ):
     """(dq, dk, dv). CPU tensors take the plain version; CUDA tensors (bf16,
     contiguous, D 64 or 128, f32 lse, int32 lengths) launch the two kernels
     and nothing else, and count one launch in `flash_attention_bwd.launches`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal, kv_lengths, scale,
-                                         dropout_rate, dropout_seed)
-    return _launch(q, k, v, o, do, lse, causal, kv_lengths, scale, dropout_rate, dropout_seed)
+                                         dropout_rate, dropout_seed, dropout_row0)
+    return _launch(q, k, v, o, do, lse, causal, kv_lengths, scale, dropout_rate, dropout_seed,
+                   dropout_row0)
 
 
 flash_attention_bwd.launches = 0
@@ -176,23 +179,23 @@ class _FlashAttention(torch.autograd.Function):
     """B3 forward with lse; B4 backward (the custom VJP of `:245-275`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, kv_lengths, dropout_rate, dropout_seed):
+    def forward(ctx, q, k, v, causal, kv_lengths, dropout_rate, dropout_seed, dropout_row0):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out, lse = flash_attention(q, k, v, causal=causal, kv_lengths=kv_lengths,
                                    return_lse=True, dropout_rate=dropout_rate,
-                                   dropout_seed=dropout_seed)
+                                   dropout_seed=dropout_seed, dropout_row0=dropout_row0)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = (causal, kv_lengths, dropout_rate, dropout_seed)
+        ctx.opts = (causal, kv_lengths, dropout_rate, dropout_seed, dropout_row0)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, kv_lengths, rate, seed = ctx.opts
+        causal, kv_lengths, rate, seed, row0 = ctx.opts
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, causal=causal,
                                          kv_lengths=kv_lengths, dropout_rate=rate,
-                                         dropout_seed=seed)
-        return dq, dk, dv, None, None, None, None
+                                         dropout_seed=seed, dropout_row0=row0)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_trainable(
@@ -203,14 +206,19 @@ def flash_attention_trainable(
     kv_lengths: Optional[torch.Tensor] = None,  # (B,) int32
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,  # int32, required when dropout_rate > 0
+    dropout_row0: int = 0,  # q's first row in the global batch: the keep mask hashes by it
 ) -> torch.Tensor:
     """Flash attention that autograd can differentiate: B3 forward, B4
     backward, the same hash dropout mask in both. Where no grad is needed
-    (inference), the plain B3 call, without the lse."""
+    (inference), the plain B3 call, without the lse. The mask hashes each
+    row by its index in the global batch: a rank of a data-parallel step
+    passes the index of its first row (`parallel/collectives.py::
+    first_row`), so that it drops what one process drops for the rows."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 needs a dropout_seed")
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
         return flash_attention(q, k, v, causal=causal, kv_lengths=kv_lengths,
-                               dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+                               dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                               dropout_row0=dropout_row0)
     return _FlashAttention.apply(q, k, v, causal, kv_lengths, float(dropout_rate),
-                                 dropout_seed)
+                                 dropout_seed, dropout_row0)

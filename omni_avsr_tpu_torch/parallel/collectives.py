@@ -343,6 +343,16 @@ def batch_stat(x: torch.Tensor) -> torch.Tensor:
     return all_reduce_grad(x, dp_axis())
 
 
+def first_row() -> int:
+    """This rank's first row in the global batch inside a step over a dp
+    slice of it, else 0: a kernel that draws per row (the flash attention's
+    hash dropout mask) hashes each row by its index in the global batch, so
+    that every rank drops what one process drops for the same rows, as
+    `draw_rows` slices the global batch's draws."""
+    par = current()
+    return par.rows[0] if par is not None and par.rows is not None else 0
+
+
 def draw_rows(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int]) -> torch.Tensor:
     """`draw(shape)` for a draw whose leading axis is the batch: inside a
     step over a dp slice of the global batch, the global batch's draw,

@@ -182,6 +182,9 @@ def _worker(rank: int, world: int, init_file: str, timeout_s: float, device: str
     dist.destroy_process_group()
 
 
+ERROR_GRACE_S = 5.0  # RankPool.run: how long the other ranks may take to answer after an error
+
+
 class RankPool:
     """`world` ranks of this machine (gloo on the CPU by default), each in
     its own process with one torch thread, initialised once through a file
@@ -205,6 +208,11 @@ class RankPool:
             p.start()
 
     def run(self, fn: Callable, *args, timeout_s: Optional[float] = None, **kwargs) -> List[Any]:
+        """Every rank's `fn(*args, **kwargs)`. A rank's exception is raised
+        here as a RuntimeError once every rank has answered, or
+        ERROR_GRACE_S after it when some have not: the others may wait in a
+        collective for the rank that raised, and one on card tensors does
+        not keep gloo's timeout; the ranks are then killed."""
         import queue
 
         for q in self._inboxes:
@@ -219,14 +227,22 @@ class RankPool:
                     break
                 except queue.Empty:
                     dead = [r for r, p in enumerate(self._procs) if not p.is_alive()]
-                    if dead or time.monotonic() > deadline:
-                        self.close()
+                    now = time.monotonic()
+                    if dead or now > deadline or (errors and now > grace):
+                        for p in self._procs:  # the ranks left are stuck: killed now
+                            p.kill()
+                            p.join()
+                        if errors:
+                            raise RuntimeError("\n".join(errors) + f"\n{name}: the other ranks "
+                                               f"had not answered {ERROR_GRACE_S} s later: the "
+                                               f"ranks are killed") from None
                         why = f"rank(s) {dead} exited" if dead else "a rank did not answer in time"
                         raise TimeoutError(f"{name}: {why}") from None
             if ok:
                 results[rank] = value
             else:
                 errors.append(f"rank {rank}: {value}")
+                grace = time.monotonic() + ERROR_GRACE_S
         if errors:
             raise RuntimeError("\n".join(errors))
         return results

@@ -427,6 +427,39 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, T, S, Hq, Hkv,
 
 
 @pytest.mark.cuda
+def test_flash_dropout_rows_hash_by_their_global_index(cuda_device):
+    """B3 and B4 on rows 2-3 of a batch with dropout_row0=2 give those rows
+    of the whole batch bit for bit (a data-parallel rank's rows: the keep
+    mask hashes each row by its index in the global batch), and the plain
+    versions agree with them."""
+    from omni_avsr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from omni_avsr_tpu_torch.ops.flash_attention_bwd import (flash_attention_bwd,
+                                                             flash_attention_bwd_plain)
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, do = (torch.randn(4, 320, 16, 64, generator=g, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    lens = torch.tensor((320, 301, 280, 257), dtype=torch.int32, device=cuda_device)
+    mine = lens[2:].clone()  # the kernels read 16-byte aligned lengths
+    kw = dict(dropout_rate=0.1, dropout_seed=99)
+    whole, whole_lse = flash_attention(q, k, v, kv_lengths=lens, return_lse=True, **kw)
+    part, part_lse = flash_attention(q[2:], k[2:], v[2:], kv_lengths=mine, return_lse=True,
+                                     dropout_row0=2, **kw)
+    assert torch.equal(part, whole[2:]) and torch.equal(part_lse, whole_lse[2 * 16:])
+    grads = flash_attention_bwd(q[2:], k[2:], v[2:], part, do[2:], part_lse, kv_lengths=mine,
+                                dropout_row0=2, **kw)
+    for got, want in zip(grads, flash_attention_bwd(q, k, v, whole, do, whole_lse,
+                                                    kv_lengths=lens, **kw)):
+        assert torch.equal(got, want[2:])
+    plain = flash_attention_plain(q[2:], k[2:], v[2:], kv_lengths=mine, dropout_row0=2, **kw)
+    torch.testing.assert_close(part, plain, atol=2e-2, rtol=2e-2)
+    for got, want in zip(grads, flash_attention_bwd_plain(q[2:], k[2:], v[2:], part, do[2:],
+                                                          part_lse, kv_lengths=mine,
+                                                          dropout_row0=2, **kw)):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
 def test_flash_attention_bwd_rejects_bad_input(cuda_device):
     from omni_avsr_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd
 

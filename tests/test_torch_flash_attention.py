@@ -112,6 +112,30 @@ def test_dropout_matches_jax_kernel(rate, causal):
     assert not torch.allclose(ours, plain, atol=1e-3)
 
 
+def test_dropout_rows_hash_by_their_global_index():
+    """A slice of the batch from row 1 with dropout_row0=1 drops what the
+    JAX kernel drops for those rows of the whole batch (a data-parallel
+    rank's rows), forward and backward."""
+    from omni_avsr_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd_plain
+
+    B, T, H, D = 3, 64, 2, 64
+    q, k, v = _qkv(B, T, T, H, H, D, seed=12)
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True,
+                    dropout_rate=0.2, dropout_seed=jnp.int32(5))
+    kw = dict(dropout_rate=0.2, dropout_seed=5)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    ours, lse = flash_attention_plain(qt[1:], kt[1:], vt[1:], return_lse=True, dropout_row0=1,
+                                      **kw)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref)[1:], **TOL)
+    whole, whole_lse = flash_attention_plain(qt, kt, vt, return_lse=True, **kw)
+    do = torch.from_numpy(_qkv(B, T, T, H, H, D, seed=13)[0])
+    grads = flash_attention_bwd_plain(qt[1:], kt[1:], vt[1:], ours, do[1:], lse,
+                                      dropout_row0=1, **kw)
+    for got, want in zip(grads, flash_attention_bwd_plain(qt, kt, vt, whole, do, whole_lse,
+                                                          **kw)):
+        torch.testing.assert_close(got, want[1:], atol=1e-6, rtol=1e-5)
+
+
 def test_cpu_tensors_take_the_plain_version():
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(1, 16, 16, 2, 2, 64, 0))
     before = flash_attention.launches

@@ -190,6 +190,61 @@ def test_dp_step_generator_draws_are_the_global_batchs(pool, tiny):
                      R.one_process_steps(params, batch, **kw))
 
 
+def test_dp_step_flash_dropout_hashes_global_rows(monkeypatch, pool, tiny):
+    """AV-HuBERT's attention on its flash route, as on the card, where B3 and
+    B4 drop by a hash of each row's index: a dp=2 rank hashes its rows by
+    their index in the global batch (`collectives.first_row`), so the step
+    is the one-process step on the global batch."""
+    import omni_avsr_tpu_torch.models.avhubert as avh
+
+    _, params = tiny
+    batch = global_batch(tiny[0].tok)
+    kw = dict(augment=True, noise_bank=BANK)  # train mode: AV-HuBERT's dropout
+    monkeypatch.setattr(avh, "_flash_path", lambda q: True)
+    _augmented_close(pool.run(R.flash_path_steps, params, batch, dict(dp=2, tp=1), **kw)[0],
+                     R.one_process_steps(params, batch, **kw))
+
+
+def chip_smoke_on_cpu(monkeypatch):
+    """chip_smoke.py with its card replaced by this CPU, for a rehearsal of
+    its multi-rank cases at the tiny widths (the rank functions stub the
+    card's counters in their own processes): its device and card name, the
+    card's synchronise and memory counters as no-ops, (t)'s batch at 2
+    clips of 40 frames, and no kernel launches expected."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    monkeypatch.setattr(cs, "card", lambda: "cpu")
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated", "memory_reserved"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(cs, "B_TRAIN", 2)
+    monkeypatch.setattr(cs, "FRAMES_TRAIN", 40)
+    for name in ("train_launches", "u_launches"):
+        monkeypatch.setattr(cs, name, lambda *a, **k: cs.counts())
+    return cs
+
+
+def test_chip_smoke_training_ranks_rehearse(monkeypatch, pool):
+    """chip_smoke.py's (v1) at the tiny widths on this file's ranks: the
+    meshless reference (`r_reference`) and the rank function
+    (`r_rank_run`) at dp 2 with and without FSDP, held by `r_case` to the
+    reference and to each other, the state after the step included; and
+    its pp 2 case (2 microbatches, gloo's point-to-point on CPU tensors),
+    which the card does not run while gloo cannot send a card tensor."""
+    cs = chip_smoke_on_cpu(monkeypatch)
+    ref = cs.r_reference("(v) tiny", R.tiny_model, (), cs.counters())
+    rows = cs.r_case("(v) tiny", pool, ref, R.tiny_model, (), dict(dp=2, tp=1),
+                     (("dp", {}), ("fsdp", dict(fsdp=True))), "cpu", pairs=(("fsdp", "dp"),))
+    rows.update(cs.r_case("(v) tiny", pool, ref, R.tiny_model, (), dict(dp=1, tp=1, pp=2),
+                          (("pp", dict(microbatches=2)),), "cpu"))
+    for run in ("dp", "fsdp", "pp"):
+        for agree in rows[f"(v) tiny {run}"]["agreement"]:
+            assert agree["grad_rel_l2"] < 1e-5, agree
+            assert max(agree["state_rel_l2"].values()) < 1e-5, agree
+
+
 def test_sequence_parallel_matches_no_sp(pool, tiny):
     """tp=2 with SP: the decoder's T (the three tasks' 23, 17 and 25 with the
     tiny window) does not divide 2, so the stream is padded and cut."""

@@ -103,6 +103,25 @@ def test_train_llama_avsr_under_two_ranks(pool, tmp_path):
     np.testing.assert_allclose(_first_loss(meshed, name), _first_loss(one, name), rtol=1e-4)
 
 
+def test_rank_pool_reports_an_error_while_other_ranks_wait(monkeypatch, tmp_path):
+    """A rank that raises while another still waits (in a collective on
+    card tensors, which gloo's timeout does not end): `RankPool.run` raises
+    the rank's error ERROR_GRACE_S later (0.5 s here) and closes the pool,
+    rather than waiting for the other rank. A pool of its own: this one is
+    closed."""
+    import time
+
+    from omni_avsr_tpu_torch.parallel import launch
+
+    monkeypatch.setattr(launch, "ERROR_GRACE_S", 0.5)
+    with launch.RankPool(2, str(tmp_path), timeout_s=60) as pool:
+        t = time.monotonic()
+        with pytest.raises(RuntimeError, match="rank 1 stops here"):
+            pool.run(R.raise_or_wait, 120.0)
+        assert time.monotonic() - t < 30
+        assert not any(p.is_alive() for p in pool._procs)
+
+
 def test_launcher_starts_ranks(tmp_path):
     """The command-line launcher: two ranks of a program that joins the
     group through `maybe_initialize_distributed` and all-reduces its rank."""

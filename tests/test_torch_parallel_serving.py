@@ -13,7 +13,7 @@ tmp_path, a 60 s collective timeout, one torch thread per rank).
     on its tp mesh on the kernel and the non-kernel route; indivisible heads take the non-kernel
     route;
   - `_fused_select_sharded` is exact: values and indices equal, lse within
-    1e-6.
+    1e-6, also on B5's route with shards that are no multiple of 128.
 """
 
 import numpy as np
@@ -187,6 +187,53 @@ def test_indivisible_heads_take_the_reorder_route(pool):
         assert "llm.attn" not in blocks and "llm.mlp" in blocks
 
 
+def test_chip_smoke_serving_ranks_rehearse(monkeypatch, pool):
+    """chip_smoke.py's (u) at the tiny widths on this file's ranks: the
+    meshless reference (`u_reference`) and the rank function
+    (`u_rank_run`, the ranks building in turns) at tp 2, held by `u_case`
+    to the reference: the logits, and in f32 the same ids. With
+    `select_kernel` at a vocabulary of 257 x 128 tokens, whose halves are no
+    multiple of 128: each rank pads its shard to whole chunks for B5's
+    statistics (here its plain version), and the rank function holds the
+    merged selection of a decode step to the unsharded one."""
+    from tests.test_torch_parallel import chip_smoke_on_cpu
+
+    cs = chip_smoke_on_cpu(monkeypatch)
+    items = cs.make_items((40,), 0)
+    model = (R.tiny_model, (), 257 * 128)
+    ref = cs.u_reference(cs.vocab_model, model, items, True)
+    rows = cs.u_case("(u) tiny", pool, ref, cs.vocab_model, model, 2, items, True, True, "cpu")
+    row = rows["(u) tiny"]
+    assert row["logits_rel_l2"] < 1e-5 and row["ids_equal_share"] == 1.0, row
+    assert "llm.lm_head" in row["tp_blocks"]
+
+
+def test_serving_shards_start_aligned():
+    """Every leaf of rank 1's shard of an int8 serving tree at tp=2 starts
+    16-byte aligned, as the card's kernels load it (B2 refuses a scale
+    vector that does not): with a vocabulary of 2 x 257 tokens rank 1's
+    half of the lm_head scales starts 1028 bytes into the whole vector."""
+    from omni_avsr_tpu_torch.bridge import init_params
+    from omni_avsr_tpu_torch.ops.quant import quantize_llm_params
+    from omni_avsr_tpu_torch.serve import shard_serving_tree
+
+    pm = R.tiny_model(vocab=2 * 257)
+    tree = dict(init_params(pm.cfg, torch.Generator().manual_seed(0), "cpu"))
+    tree["llm"] = quantize_llm_params(tree["llm"], 8)
+    local, blocks = shard_serving_tree(tree, {"dp": 1, "tp": 2}, True, coords={"dp": 0, "tp": 1})
+    assert "llm.lm_head" in blocks
+    for path, leaf in _leaves(local):
+        assert leaf.data_ptr() % 16 == 0, path
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
 def _unflat(flat):
     out = {}
     for path, v in flat.items():
@@ -210,6 +257,27 @@ def test_sharded_select_is_exact(pool):
     lse = torch.log(torch.exp(xt - mx).sum(dim=-1, keepdim=True))
     vals, idx = topk_chunked(xt, k2)
     for out in pool.run(R.select_case, x, k2):
+        np.testing.assert_array_equal(out[0], mx.numpy())
+        np.testing.assert_allclose(out[1], lse.numpy(), atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(out[2], vals.numpy())
+        np.testing.assert_array_equal(out[3], idx.numpy())
+
+
+def test_sharded_select_pads_shards_for_the_kernel(pool):
+    """B5's route (`use_kernel`, its plain version on the CPU) on vocabulary
+    shards of 448 tokens, no multiple of its 128-wide chunks (as Llama-3's
+    128256 at tp 4): each shard padded with -inf columns, merged over tp,
+    gives the values and indices of the one-device selection, the lse
+    within 1e-6."""
+    from omni_avsr_tpu_torch.decode.decoding import topk_chunked
+
+    x = np.random.RandomState(1).randn(2, 3, 2 * 448).astype(np.float32) * 3
+    k2 = 6
+    xt = torch.from_numpy(x)
+    mx = xt.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(xt - mx).sum(dim=-1, keepdim=True))
+    vals, idx = topk_chunked(xt, k2)
+    for out in pool.run(R.select_case, x, k2, True):
         np.testing.assert_array_equal(out[0], mx.numpy())
         np.testing.assert_allclose(out[1], lse.numpy(), atol=1e-6, rtol=0)
         np.testing.assert_array_equal(out[2], vals.numpy())

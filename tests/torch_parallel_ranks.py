@@ -33,15 +33,21 @@ def numpy_tree(tree):
 
 
 def tiny_model(moe_experts: int = 0, routing: str = "balanced", kv_heads: Optional[int] = None,
-               ffn: Optional[int] = None):
+               ffn: Optional[int] = None, vocab: Optional[int] = None):
     """The tiny flagship in f32; with `moe_experts` an MoE decoder routed by
-    `routing`, with `kv_heads` kv heads, with an FFN width `ffn` (a tree of
-    a twin's shapes comes from `bridge.init_params`)."""
+    `routing`, with `kv_heads` kv heads, with an FFN width `ffn`, with a
+    synthetic vocabulary of `vocab` tokens (a tree of a twin's shapes comes
+    from `bridge.init_params`)."""
     import dataclasses
 
+    from omni_avsr_tpu_torch.data.tokenizer import synthetic_tokenizer
     from omni_avsr_tpu_torch.models.omni import OmniAVSR, flagship
 
     pm = flagship(tiny=True, dtype=torch.float32, whisper_input_mode="bucket")
+    if vocab is not None:
+        tok = synthetic_tokenizer("llama", base_vocab=vocab - 7)  # and its 7 specials
+        cfg = dataclasses.replace(pm.cfg, llm=dataclasses.replace(pm.cfg.llm, vocab_size=vocab))
+        pm = OmniAVSR(cfg, tok, dtype=torch.float32)
     llm = pm.cfg.llm
     kw: Dict[str, Any] = {}
     if moe_experts:
@@ -115,6 +121,20 @@ def train_steps(params_np, batch, mesh_sizes: Dict[str, int], steps: int = 1,
     return losses, flat(state.trainable)
 
 
+def flash_path_steps(*args, **kw):
+    """`train_steps` with AV-HuBERT's attention on its flash route whatever
+    the device and the length, as on the card (on the CPU the kernels'
+    plain versions, with their hash dropout mask)."""
+    import omni_avsr_tpu_torch.models.avhubert as avh
+
+    path = avh._flash_path
+    avh._flash_path = lambda q: True
+    try:
+        return train_steps(*args, **kw)
+    finally:
+        avh._flash_path = path
+
+
 def one_process_steps(params_np, batch, steps: int = 1, moe_experts: int = 0,
                       single: Optional[str] = None, model: Optional[Dict[str, Any]] = None,
                       **engine_kw):
@@ -136,17 +156,20 @@ def one_process_steps(params_np, batch, steps: int = 1, moe_experts: int = 0,
 
 
 def serve_case(params_np, items, tp: int, quantize=None, num_beams: int = 2,
-               attn_route=None, kv_heads: Optional[int] = None, modality=None):
+               attn_route=None, kv_heads: Optional[int] = None, modality=None,
+               vocab: Optional[int] = None, select_kernel: bool = False):
     """Every rank's transcripts of `items` from a `Transcriber(mesh=...)` on
-    a (1, tp) mesh (a twin model with `kv_heads` kv heads when given), with
-    its decode route and the blocks that run tensor-parallel."""
+    a (1, tp) mesh (a twin model with `kv_heads` kv heads or a `vocab`-token
+    vocabulary when given), with its decode route and the blocks that run
+    tensor-parallel."""
     from omni_avsr_tpu_torch.bridge import params_from_numpy
     from omni_avsr_tpu_torch.serve import Transcriber
 
     mesh = make_mesh(dp=1, tp=tp)
-    pm = tiny_model(kv_heads=kv_heads)
+    pm = tiny_model(kv_heads=kv_heads, vocab=vocab)
     t = Transcriber(pm, params_from_numpy(params_np, "cpu"), num_beams=num_beams,
-                    quantize=quantize, device="cpu", attn_route=attn_route, mesh=mesh)
+                    quantize=quantize, device="cpu", attn_route=attn_route, mesh=mesh,
+                    select_kernel=select_kernel)
     texts = t.transcribe_many(items, modality=modality)
     return texts, t.attn_route, sorted(t.par.tp_blocks)
 
@@ -294,6 +317,20 @@ def _cat_layers(node):
     if isinstance(node, dict):
         return {k: _cat_layers(v) for k, v in node.items()}
     return torch.cat([node, node[:2]])
+
+
+def raise_or_wait(seconds: float):
+    """Rank 1 raises; the other ranks wait `seconds`, as a rank waits in a
+    collective on card tensors for a peer that raised (gloo's timeout does
+    not reach it)."""
+    import time
+
+    import torch.distributed as dist
+
+    if dist.get_rank() == 1:
+        raise ValueError("rank 1 stops here")
+    time.sleep(seconds)
+    return dist.get_rank()
 
 
 def cli_case(cli: str, argv):
